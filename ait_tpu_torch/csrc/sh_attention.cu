@@ -1,0 +1,505 @@
+// Fused selective-head multi-head attention forward of the AIT head, one
+// block per pair-sequence:
+//   q/k/v = x @ w (8 heads, d_k = d_v = 64), softmax(q k^T / 8, masked -1e9),
+//   o_h = P v, gate = softmax_h(Linear(mean_t sum_h o_h)), o = sum_h gate o_h,
+//   out = LayerNorm(o @ fc + x_q), eps 1e-6, f32 statistics.
+// Products accumulate in f32 and everything between them is f32; o is
+// rounded to the storage type before fc, as in the Pallas kernel.  D = 512
+// and Tq, Tk <= 64 (the flagship shapes).
+//
+// Replaces ait_tpu/ops/pallas_attention.py:746 fused_sh_attention (via
+// `_fused_call` :323, kernel `_kernel` :195).
+//
+// What bounds it on the H100: operations.  A pair costs ~100 MFLOP, nearly
+// all in the three 512 x 512 projections and fc, against 64-128 KB of
+// activations.  On the TPU the 512 x 512 weights sat whole in VMEM; here they
+// do not fit in a block's 227 KB of shared memory next to what must stay on
+// chip.  So the block walks the heads: for each head it streams the
+// [512, 64] column slices of wq, wk, wv (and the x rows, from L2) through
+// shared memory in k-slabs, keeps q_h, k_h, v_h and the [Tq, Tk] scores in
+// shared memory, and stores o_h into an 8 x [64, 64] f32 buffer (128 KB) that
+// stays on chip for the gate.  The gate, fc (its [64, 512] weight staged in
+// column chunks), residual and LayerNorm then run from shared memory, so no
+// intermediate reaches device memory.
+//
+// In bf16 the projections and fc run on the tensor cores (WMMA 16x16x16,
+// f32 accumulators; each warp owns a 16-row strip of the 64 x 64 head tile);
+// in f32 they are CUDA-core FMAs with 4 x 4 register tiles.  The scores,
+// softmax, P.V, gate and LayerNorm (~10% of the operations) are FMAs in both.
+// Decoder self-attention has only one pair per image, so few blocks.
+
+#include <mma.h>
+#include <type_traits>
+
+#include "common.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kD = 512;
+constexpr int kHeads = 8;
+constexpr int kDk = 64;
+constexpr int kTm = 64;             // longest sequence
+constexpr int kThreads = 256;       // 8 warps; 16 x 16 threads for FMA tiles
+constexpr int kWld = kHeads * kDk;  // row stride of wq, wk, wv, sk_w
+constexpr int kLdq = kDk + 4;       // rows of q and k (f32; WMMA stores need 4 | ld)
+constexpr int kLds = kTm + 1;       // rows of the scores
+
+// f32 slabs (FMA path): x [64][33], w [2][32][64]
+constexpr int kFmaK = 32;
+constexpr int kFmaXsLd = kFmaK + 1;
+constexpr int kFmaSlab = kTm * kFmaXsLd + 2 * kFmaK * kDk;
+// bf16 slabs (WMMA path): x [64][72], w [2][64][72]
+constexpr int kMmaK = 64;
+constexpr int kMmaLd = kMmaK + 8;
+constexpr int kMmaSlab = 3 * kTm * kMmaLd / 2;   // in floats
+constexpr int kSlab = kMmaSlab > kFmaSlab ? kMmaSlab : kFmaSlab;
+
+// shared memory layout, in floats
+constexpr int kOffQ = 0;                         // q_h [kTm][kLdq]; later o
+constexpr int kOffK = kOffQ + kTm * kLdq;        // k_h [kTm][kLdq]
+constexpr int kOffV = kOffK + kTm * kLdq;        // v_h [kTm][kDk]
+constexpr int kOffSt = kOffV + kTm * kDk;        // slabs, or the scores
+constexpr int kOffO = kOffSt + kSlab;            // o_h [kHeads][kTm][kDk]; later y
+constexpr int kOffS = kOffO + kHeads * kTm * kDk;  // gate input [kDk]
+constexpr int kOffG = kOffS + kDk;               // gate [kHeads][kDk]
+constexpr int kSmemFloats = kOffG + kHeads * kDk;
+
+// fc staging: f32 [64][128] x 4 (FMA) or bf16 [64][264] x 2 (WMMA), in k|v|slab
+constexpr int kFmaFcCols = 128;
+constexpr int kMmaFcCols = 256;
+constexpr int kMmaFcLd = kMmaFcCols + 8;
+
+static_assert(kTm * kD <= kHeads * kTm * kDk, "y must fit in the o_h buffer");
+static_assert(kDk * kFmaFcCols <= kOffO - kOffK, "fc chunk must fit");
+static_assert(kDk * kMmaFcLd / 2 <= kOffO - kOffK, "fc chunk must fit");
+static_assert(kTm * kLds <= kSlab, "scores must fit in the slab area");
+static_assert(kTm * kMmaLd / 2 <= kTm * kLdq, "bf16 o must fit in q's place");
+static_assert(kOffSt % 8 == 0 && kOffK % 8 == 0 && kOffV % 8 == 0 &&
+              kOffO % 8 == 0, "WMMA tiles need 32-byte alignment");
+
+// d0[r][c] = sum_k x[r][k] w0[k][col0 + c] (and d1 with w1) for r, c < 64;
+// rows r >= rows read as zero.  CUDA-core FMAs, 4 x 4 outputs per thread.
+template <typename T, int NW>
+__device__ __forceinline__ void project_fma(const T* __restrict__ x, int rows,
+                                            const T* __restrict__ w0,
+                                            const T* __restrict__ w1, int col0,
+                                            float* st, float* d0, int ld0,
+                                            float* d1, int ld1) {
+  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
+  float* xs = st;
+  float* ws = st + kTm * kFmaXsLd;
+  float acc[NW][4][4];
+#pragma unroll
+  for (int n = 0; n < NW; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[n][i][j] = 0.f;
+
+  for (int k0 = 0; k0 < kD; k0 += kFmaK) {
+    {
+      const int r = t >> 2, k8 = (t & 3) * 8;  // 64 rows x 4 vectors of 8
+      float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (r < rows) ait::load8(x + (size_t)r * kD + k0 + k8, v);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) xs[r * kFmaXsLd + k8 + e] = v[e];
+    }
+    {
+      const int kk = t >> 3, c8 = (t & 7) * 8;  // 32 rows x 8 vectors of 8
+      float v[8];
+      ait::load8(w0 + (size_t)(k0 + kk) * kWld + col0 + c8, v);
+      ait::store8(ws + kk * kDk + c8, v);
+      if (NW == 2) {
+        ait::load8(w1 + (size_t)(k0 + kk) * kWld + col0 + c8, v);
+        ait::store8(ws + kFmaK * kDk + kk * kDk + c8, v);
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < kFmaK; ++kk) {
+      float a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = xs[(ty + 16 * i) * kFmaXsLd + kk];
+#pragma unroll
+      for (int n = 0; n < NW; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float b = ws[n * kFmaK * kDk + kk * kDk + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[n][i][j] += a[i] * b;
+        }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      d0[(ty + 16 * i) * ld0 + tx + 16 * j] = acc[0][i][j];
+      if (NW == 2) d1[(ty + 16 * i) * ld1 + tx + 16 * j] = acc[NW - 1][i][j];
+    }
+}
+
+// The same product on the tensor cores: warp w owns rows 16*(w%4)..+16 and
+// columns 32*(w/4)..+32 of each 64 x 64 output (two 16 x 16 tiles).
+template <int NW>
+__device__ __forceinline__ void project_mma(const bf16* __restrict__ x,
+                                            int rows,
+                                            const bf16* __restrict__ w0,
+                                            const bf16* __restrict__ w1,
+                                            int col0, float* st, float* d0,
+                                            int ld0, float* d1, int ld1) {
+  using namespace nvcuda;
+  bf16* xs = reinterpret_cast<bf16*>(st);   // [64][kMmaLd]
+  bf16* ws = xs + kTm * kMmaLd;             // [NW][64][kMmaLd]
+  const int t = threadIdx.x, warp = t >> 5;
+  const int r0 = (warp & 3) * 16, c0 = (warp >> 2) * 32;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NW][2];
+#pragma unroll
+  for (int n = 0; n < NW; ++n) {
+    wmma::fill_fragment(acc[n][0], 0.f);
+    wmma::fill_fragment(acc[n][1], 0.f);
+  }
+  for (int k0 = 0; k0 < kD; k0 += kMmaK) {
+#pragma unroll
+    for (int v = t; v < kTm * kMmaK / 8; v += kThreads) {
+      const int r = v >> 3, c8 = (v & 7) * 8;
+      const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(xs + r * kMmaLd + c8) =
+          r < rows ? *reinterpret_cast<const uint4*>(x + (size_t)r * kD + k0 + c8)
+                   : zero;
+      *reinterpret_cast<uint4*>(ws + r * kMmaLd + c8) =
+          *reinterpret_cast<const uint4*>(w0 + (size_t)(k0 + r) * kWld + col0 + c8);
+      if (NW == 2)
+        *reinterpret_cast<uint4*>(ws + kTm * kMmaLd + r * kMmaLd + c8) =
+            *reinterpret_cast<const uint4*>(w1 + (size_t)(k0 + r) * kWld + col0 + c8);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kMmaK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::load_matrix_sync(a, xs + r0 * kMmaLd + kk, kMmaLd);
+#pragma unroll
+      for (int n = 0; n < NW; ++n)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+          wmma::load_matrix_sync(b, ws + n * kTm * kMmaLd + kk * kMmaLd + c0 + 16 * j,
+                                 kMmaLd);
+          wmma::mma_sync(acc[n][j], a, b, acc[n][j]);
+        }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    wmma::store_matrix_sync(d0 + r0 * ld0 + c0 + 16 * j, acc[0][j], ld0,
+                            wmma::mem_row_major);
+    if (NW == 2)
+      wmma::store_matrix_sync(d1 + r0 * ld1 + c0 + 16 * j, acc[NW - 1][j], ld1,
+                              wmma::mem_row_major);
+  }
+}
+
+template <typename T, int NW>
+__device__ __forceinline__ void project(const T* x, int rows, const T* w0,
+                                        const T* w1, int col0, float* st,
+                                        float* d0, int ld0, float* d1,
+                                        int ld1) {
+  if constexpr (std::is_same<T, bf16>::value)
+    project_mma<NW>(x, rows, w0, w1, col0, st, d0, ld0, d1, ld1);
+  else
+    project_fma<T, NW>(x, rows, w0, w1, col0, st, d0, ld0, d1, ld1);
+}
+
+// y[64][512] = o @ fc, f32, into the o_h buffer.  o sits in q's place: f32
+// [64][kLdq] (already rounded to T) for FMA, bf16 [64][kMmaLd] for WMMA.
+__device__ __forceinline__ void out_proj(const float* __restrict__ fcw,
+                                         float* qs, float* stage, float* y) {
+  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
+  for (int n0 = 0; n0 < kD; n0 += kFmaFcCols) {
+    for (int v = t; v < kDk * kFmaFcCols / 8; v += kThreads) {
+      const int d = v / (kFmaFcCols / 8), c = (v % (kFmaFcCols / 8)) * 8;
+      float a[8];
+      ait::load8(fcw + (size_t)d * kD + n0 + c, a);
+      ait::store8(stage + d * kFmaFcCols + c, a);
+    }
+    __syncthreads();
+    float acc[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < kDk; ++d) {
+      float a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * kLdq + d];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float b = stage[d * kFmaFcCols + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][j] += a[i] * b;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) y[(ty + 16 * i) * kD + n0 + tx + 16 * j] = acc[i][j];
+    __syncthreads();
+  }
+}
+
+__device__ __forceinline__ void out_proj(const bf16* __restrict__ fcw,
+                                         float* qs, float* stage, float* y) {
+  using namespace nvcuda;
+  const bf16* ob = reinterpret_cast<const bf16*>(qs);
+  bf16* fs = reinterpret_cast<bf16*>(stage);   // [64][kMmaFcLd]
+  const int t = threadIdx.x, warp = t >> 5;
+  const int r0 = (warp & 3) * 16, cb = (warp >> 2) * 128;
+  for (int n0 = 0; n0 < kD; n0 += kMmaFcCols) {
+    for (int v = t; v < kDk * kMmaFcCols / 8; v += kThreads) {
+      const int d = v / (kMmaFcCols / 8), c = (v % (kMmaFcCols / 8)) * 8;
+      *reinterpret_cast<uint4*>(fs + d * kMmaFcLd + c) =
+          *reinterpret_cast<const uint4*>(fcw + (size_t)d * kD + n0 + c);
+    }
+    __syncthreads();
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) wmma::fill_fragment(acc[j], 0.f);
+#pragma unroll
+    for (int kk = 0; kk < kDk; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::load_matrix_sync(a, ob + r0 * kMmaLd + kk, kMmaLd);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+        wmma::load_matrix_sync(b, fs + kk * kMmaFcLd + cb + 16 * j, kMmaFcLd);
+        wmma::mma_sync(acc[j], a, b, acc[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      wmma::store_matrix_sync(y + r0 * kD + n0 + cb + 16 * j, acc[j], kD,
+                              wmma::mem_row_major);
+    __syncthreads();
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+sh_attn_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
+               const T* __restrict__ wq, const T* __restrict__ wk,
+               const T* __restrict__ wv, const T* __restrict__ skw,
+               const T* __restrict__ skb, const T* __restrict__ fcw,
+               const float* __restrict__ lns, const float* __restrict__ lnb,
+               const uint8_t* __restrict__ mask, T* __restrict__ out, int tq,
+               int tk) {
+  extern __shared__ __align__(128) float sm[];
+  float* qs = sm + kOffQ;
+  float* ks = sm + kOffK;
+  float* vs = sm + kOffV;
+  float* st = sm + kOffSt;
+  float* oall = sm + kOffO;
+  float* sv = sm + kOffS;
+  float* gt = sm + kOffG;
+
+  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
+  const int warp = t >> 5, lane = t & 31;
+  xq += (size_t)blockIdx.x * tq * kD;
+  xkv += (size_t)blockIdx.x * tk * kD;
+  out += (size_t)blockIdx.x * tq * kD;
+
+  for (int h = 0; h < kHeads; ++h) {
+    project<T, 1>(xq, tq, wq, nullptr, h * kDk, st, qs, kLdq, nullptr, 0);
+    project<T, 2>(xkv, tk, wk, wv, h * kDk, st, ks, kLdq, vs, kDk);
+    __syncthreads();
+
+    // masked scores (q k^T / 8) into the slab area
+    float* sc = st;
+    {
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < kDk; ++d) {
+        float a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * kLdq + d];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = ks[(tx + 16 * j) * kLdq + d];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = ty + 16 * i, c = tx + 16 * j;
+          if (r < tq && c < tk)
+            sc[r * kLds + c] = mask[r * tk + c] ? acc[i][j] * 0.125f : -1e9f;
+        }
+    }
+    __syncthreads();
+
+    // row softmax, one warp per row
+    for (int r = warp; r < tq; r += kThreads / 32) {
+      const float v0 = lane < tk ? sc[r * kLds + lane] : -CUDART_INF_F;
+      const float v1 = lane + 32 < tk ? sc[r * kLds + lane + 32] : -CUDART_INF_F;
+      const float m = ait::warp_max(fmaxf(v0, v1));
+      const float e0 = lane < tk ? expf(v0 - m) : 0.f;
+      const float e1 = lane + 32 < tk ? expf(v1 - m) : 0.f;
+      const float sum = ait::warp_sum(e0 + e1);
+      if (lane < tk) sc[r * kLds + lane] = e0 / sum;
+      if (lane + 32 < tk) sc[r * kLds + lane + 32] = e1 / sum;
+    }
+    __syncthreads();
+
+    // o_h = P v_h
+    {
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      for (int c = 0; c < tk; ++c) {
+        float a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = sc[(ty + 16 * i) * kLds + c];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = vs[c * kDk + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = ty + 16 * i;
+          oall[(h * kTm + r) * kDk + tx + 16 * j] = r < tq ? acc[i][j] : 0.f;
+        }
+    }
+    __syncthreads();
+  }
+
+  // gate input: mean over tokens of the head sum
+  if (t < kDk) {
+    float acc = 0.f;
+    for (int r = 0; r < tq; ++r) {
+      float u = 0.f;
+#pragma unroll
+      for (int h = 0; h < kHeads; ++h) u += oall[(h * kTm + r) * kDk + t];
+      acc += u;
+    }
+    sv[t] = acc / tq;
+  }
+  __syncthreads();
+  for (int o = t; o < kHeads * kDk; o += kThreads) {
+    float acc = 0.f;
+    for (int d = 0; d < kDk; ++d) acc += sv[d] * ait::to_float(skw[d * kWld + o]);
+    gt[o] = acc + ait::to_float(skb[o]);
+  }
+  __syncthreads();
+  if (t < kDk) {  // softmax over heads, per channel
+    float m = -CUDART_INF_F;
+#pragma unroll
+    for (int h = 0; h < kHeads; ++h) m = fmaxf(m, gt[h * kDk + t]);
+    float e[kHeads], sum = 0.f;
+#pragma unroll
+    for (int h = 0; h < kHeads; ++h) {
+      e[h] = expf(gt[h * kDk + t] - m);
+      sum += e[h];
+    }
+#pragma unroll
+    for (int h = 0; h < kHeads; ++h) gt[h * kDk + t] = e[h] / sum;
+  }
+  __syncthreads();
+
+  // gated head sum, rounded to the storage type (the fc input), in q's place
+  for (int e = t; e < kTm * kDk; e += kThreads) {
+    const int r = e / kDk, c = e % kDk;
+    float acc = 0.f;
+#pragma unroll
+    for (int h = 0; h < kHeads; ++h) acc += oall[(h * kTm + r) * kDk + c] * gt[h * kDk + c];
+    if constexpr (std::is_same<T, bf16>::value)
+      reinterpret_cast<bf16*>(qs)[r * kMmaLd + c] = __float2bfloat16_rn(acc);
+    else
+      qs[r * kLdq + c] = acc;
+  }
+  __syncthreads();
+
+  float* y = oall;
+  out_proj(fcw, qs, ks, y);
+
+  // + residual, LayerNorm; one warp per row
+  for (int r = warp; r < tq; r += kThreads / 32) {
+    float v[16];
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int c = j * 256 + lane * 8;
+      float a[8];
+      ait::load8(xq + (size_t)r * kD + c, a);
+      const float4 y0 = *reinterpret_cast<const float4*>(y + r * kD + c);
+      const float4 y1 = *reinterpret_cast<const float4*>(y + r * kD + c + 4);
+      const float yy[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        v[j * 8 + e] = yy[e] + a[e];
+        s += v[j * 8 + e];
+      }
+    }
+    const float mu = ait::warp_sum(s) / kD;
+    float q = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const float d = v[i] - mu;
+      q += d * d;
+    }
+    const float rs = rsqrtf(ait::warp_sum(q) / kD + 1e-6f);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int c = j * 256 + lane * 8;
+      float o[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) o[e] = (v[j * 8 + e] - mu) * rs * lns[c + e] + lnb[c + e];
+      ait::store8(out + (size_t)r * kD + c, o);
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* const* p, void* out, int pairs, int tq, int tk,
+           cudaStream_t stream) {
+  const int smem = kSmemFloats * (int)sizeof(float);
+  cudaFuncSetAttribute(sh_attn_kernel<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  sh_attn_kernel<T><<<pairs, kThreads, smem, stream>>>(
+      (const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
+      (const T*)p[4], (const T*)p[5], (const T*)p[6], (const T*)p[7],
+      (const float*)p[8], (const float*)p[9], (const uint8_t*)p[10], (T*)out,
+      tq, tk);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int sh_attention_fwd(int bf16_io, const void* xq, const void* xkv,
+                                const void* wq, const void* wk, const void* wv,
+                                const void* skw, const void* skb,
+                                const void* fcw, const void* lns,
+                                const void* lnb, const void* mask, void* out,
+                                int pairs, int tq, int tk, void* stream) {
+  const void* p[11] = {xq, xkv, wq, wk, wv, skw, skb, fcw, lns, lnb, mask};
+  cudaStream_t s = (cudaStream_t)stream;
+  return bf16_io ? launch<bf16>(p, out, pairs, tq, tk, s)
+                 : launch<float>(p, out, pairs, tq, tk, s);
+}

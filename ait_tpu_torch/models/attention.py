@@ -1,0 +1,130 @@
+"""Attention blocks of the AIT head (counterpart of
+ait_tpu/models/attention.py).
+
+* `MultiHeadAttention`: scaled-dot-product attention over 8 heads, the
+  SHBlock selective-head gate that collapses the heads into one d_v-wide
+  vector, then Linear(d_v -> d_model), residual and post-LayerNorm
+  (SubLayers.py:9-102).  Short sequences with one shared mask and k is v go
+  to the fused kernel (ops/fused_attention.py), the same cases the JAX
+  package sends to its Pallas kernel; everything else (the co-attention's
+  ~1900 image tokens) takes the plain path below.
+* `PositionwiseFeedForward`: post-LN FFN, always through the fused kernel
+  (ops/fused_ffn.py), as in the JAX package.
+
+Masks are boolean, True = attend.  Parameters keep the JAX names and
+layouts (w_qs/kernel [D, H*d_k], sh/sk/{kernel,bias}, fc/kernel,
+LayerNorm_0/{scale,bias}, w_1/{kernel,bias}, w_2/{kernel,bias}).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ait_tpu_torch.models.layers import Params
+from ait_tpu_torch.ops.fused_attention import (KERNEL_MAX_TOKENS,
+                                               fused_sh_attention,
+                                               layer_norm_f32)
+from ait_tpu_torch.ops.fused_ffn import fused_ffn
+
+
+def scaled_dot_attention(q, k, v, *, temperature, mask=None):
+    """q, k, v: [..., T, d]; mask broadcastable to [..., Tq, Tk].  Logits
+    and softmax in f32, probabilities cast to v's dtype before P.V."""
+    attn = torch.einsum("...qd,...kd->...qk", (q / temperature).float(),
+                        k.float())
+    if mask is not None:
+        attn = torch.where(mask, attn, -1e9)
+    attn = torch.softmax(attn, dim=-1)
+    out = torch.einsum("...qk,...kd->...qd", attn.to(v.dtype).float(),
+                       v.float()).to(v.dtype)
+    return out
+
+
+class MultiHeadAttention(nn.Module):
+    """MHA with the selective-head collapse; softmax distribution only.
+
+    The JAX package fuses sequences of up to 128 tokens; the port's kernel
+    keeps the 8 per-head outputs of a sequence in shared memory, which
+    bounds it at 64 tokens (the flagship's sequences are 56 and 64), so
+    longer sequences take the plain path."""
+
+    def __init__(self, n_head: int = 8, d_model: int = 512, d_k: int = 64,
+                 d_v: int = 64, *, dtype=torch.float32):
+        super().__init__()
+        if n_head < 2:
+            raise ValueError("the selective-head gate needs n_head > 1")
+        self.n_head, self.d_model, self.d_k, self.d_v = n_head, d_model, d_k, d_v
+        self.dtype = dtype
+        self.w_qs = Params(kernel=(d_model, n_head * d_k))
+        self.w_ks = Params(kernel=(d_model, n_head * d_k))
+        self.w_vs = Params(kernel=(d_model, n_head * d_v))
+        self.sh = nn.ModuleDict({"sk": Params(kernel=(d_v, d_v * n_head),
+                                              bias=(d_v * n_head,))})
+        self.fc = Params(kernel=(d_v, d_model))
+        self.LayerNorm_0 = Params(scale=(d_model,), bias=(d_model,))
+
+    def forward(self, q, k, v, mask=None):
+        b, lq = q.shape[0], q.shape[1]
+        lk = k.shape[1]
+        dt = self.dtype
+        sk = self.sh["sk"]
+        ln = self.LayerNorm_0
+        fuse = (k is v and lq <= KERNEL_MAX_TOKENS and
+                lk <= KERNEL_MAX_TOKENS and
+                (mask is None or mask.shape[0] == 1))
+        if fuse:
+            if mask is None:
+                mask2d = torch.ones((lq, lk), dtype=torch.bool,
+                                    device=q.device)
+            else:
+                mask2d = mask[0].expand(lq, lk).contiguous()
+            return fused_sh_attention(
+                q.to(dt).contiguous(), k.to(dt).contiguous(),
+                self.w_qs.kernel.to(dt), self.w_ks.kernel.to(dt),
+                self.w_vs.kernel.to(dt), sk.kernel.to(dt), sk.bias.to(dt),
+                self.fc.kernel.to(dt), ln.scale, ln.bias, mask2d,
+                n_head=self.n_head, d_k=self.d_k, d_v=self.d_v)
+
+        def proj(x, w, d):
+            y = x.to(dt) @ w.to(dt)
+            return y.reshape(b, x.shape[1], self.n_head, d).transpose(1, 2)
+
+        qh = proj(q, self.w_qs.kernel, self.d_k)
+        kh = proj(k, self.w_ks.kernel, self.d_k)
+        vh = proj(v, self.w_vs.kernel, self.d_v)
+        if mask is not None:
+            mask = mask[:, None]                       # head axis
+        out = scaled_dot_attention(qh, kh, vh, temperature=self.d_k ** 0.5,
+                                   mask=mask)
+        # SHBlock gate (SubLayers.py:9-39)
+        u = out.sum(dim=1)                             # [B, T, d_v]
+        s = u.mean(dim=1)                              # [B, d_v]
+        gate = s @ sk.kernel.to(s.dtype) + sk.bias.to(s.dtype)
+        gate = gate.reshape(b, self.n_head, self.d_v)
+        gate = torch.softmax(gate.float(), dim=1)
+        out = (out * gate.to(out.dtype)[:, :, None, :]).sum(dim=1)
+        # fc -> residual -> post-LN, LN statistics in f32
+        out = out @ self.fc.kernel.to(out.dtype)
+        out = out + q
+        return layer_norm_f32(out.float(), ln.scale, ln.bias).to(dt)
+
+
+class PositionwiseFeedForward(nn.Module):
+    """Post-LN FFN over the last axis, through the fused kernel."""
+
+    def __init__(self, d_in: int, d_hid: int, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.w_1 = Params(kernel=(d_in, d_hid), bias=(d_hid,))
+        self.w_2 = Params(kernel=(d_hid, d_in), bias=(d_in,))
+        self.LayerNorm_0 = Params(scale=(d_in,), bias=(d_in,))
+
+    def forward(self, x):
+        shape = x.shape
+        dt = self.dtype
+        flat = x.reshape(-1, shape[-1]).to(dt).contiguous()
+        out = fused_ffn(flat, self.w_1.kernel.to(dt), self.w_1.bias,
+                        self.w_2.kernel.to(dt), self.w_2.bias,
+                        self.LayerNorm_0.scale, self.LayerNorm_0.bias)
+        return out.reshape(shape)

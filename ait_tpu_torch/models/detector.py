@@ -1,0 +1,144 @@
+"""The one-shot detector's eval forward (counterpart of
+ait_tpu/models/detector.py::AITDetector, eval branch).
+
+Siamese ResNet backbone -> MHA co-attention -> RPN -> proposal layer (NMS
+kernel) -> ROI Align -> AIT transformer (attention, FFN and glue kernels)
+-> SKNet -> ResNet layer4 top -> match and box heads.
+
+Inputs are NHWC: image [B, H, W, 3] (a padded canvas, true extent in
+im_info), query [B, 128, 128, 3], both uint8 RGB or already normalized
+floats; im_info [B, 3] = (h, w, scale).  Returns rois [B, R, 5], cls_prob
+[B, R, 1] and bbox_pred [B, R, 4].  Training is not ported yet: the
+train branch raises.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from ait_tpu_torch.config import Config
+from ait_tpu_torch.models.ait_transformer import AITTransformer
+from ait_tpu_torch.models.coattention import MHACoAttention
+from ait_tpu_torch.models.layers import Dense
+from ait_tpu_torch.models.resnet import ResNetBackbone, ResNetTop
+from ait_tpu_torch.models.rpn import RPNHead, proposal_layer
+from ait_tpu_torch.models.sknet import SKNet
+from ait_tpu_torch.ops.anchors import shifted_anchors
+from ait_tpu_torch.ops.roi_align import roi_align
+
+# torchvision normalization constants (blob.py:42-48), applied on the
+# device to uint8 inputs
+_NORM_MEAN = (0.485, 0.456, 0.406)
+_NORM_STD = (0.229, 0.224, 0.225)
+
+
+def _to_model_input(x, dtype):
+    if x.dtype == torch.uint8:
+        mean = torch.tensor(_NORM_MEAN, dtype=torch.float32, device=x.device)
+        std = torch.tensor(_NORM_STD, dtype=torch.float32, device=x.device)
+        x = (x.float() / 255.0 - mean) / std
+    return x.to(dtype)
+
+
+class DetectorOut(NamedTuple):
+    rois: torch.Tensor
+    cls_prob: torch.Tensor
+    bbox_pred: torch.Tensor
+
+
+def _check_supported(cfg: Config) -> None:
+    mc = cfg.model
+    unsupported = {
+        "model.backbone": mc.backbone != "resnet50",
+        "model.coattention": mc.coattention != "mha",
+        "model.t_attn_dist": mc.t_attn_dist != "softmax",
+        "model.sk_gate": mc.sk_gate != "faithful",
+        "model.class_agnostic": not mc.class_agnostic,
+        "model.with_contextual_relation": mc.with_contextual_relation,
+        "POOLING_MODE": cfg.POOLING_MODE != "align",
+    }
+    bad = [k for k, v in unsupported.items() if v]
+    if bad:
+        raise NotImplementedError(
+            f"not ported yet: {', '.join(bad)} (the port covers the flagship "
+            "ResNet + MHA co-attention eval path)")
+
+
+class AITDetector(nn.Module):
+    def __init__(self, cfg: Config, dtype=torch.float32):
+        super().__init__()
+        _check_supported(cfg)
+        self.cfg = cfg
+        self.dtype = dtype
+        mc = cfg.model
+        ch = mc.channels
+        self.backbone = ResNetBackbone(mc.backbone, dtype=dtype)
+        self.top = ResNetTop(mc.backbone, dtype=dtype)
+        self.coattention = MHACoAttention(ch, mc.t_n_head, mc.t_d_k,
+                                          mc.t_d_v, dtype=dtype)
+        self.rpn = RPNHead(ch, len(cfg.ANCHOR_SCALES) *
+                           len(cfg.ANCHOR_RATIOS), dtype=dtype)
+        self.transformer = AITTransformer(
+            d_model=mc.t_d_model, d_inner=mc.t_d_inner,
+            n_layers=mc.t_n_layers, n_head=mc.t_n_head, d_k=mc.t_d_k,
+            d_v=mc.t_d_v, n_position=mc.t_n_position,
+            causal_mask=mc.t_causal_mask, channels=ch, dtype=dtype)
+        self.sk = SKNet(ch, dtype=dtype)
+        self.cls_score_0 = Dense(2 * 2048, 8, dtype=dtype)
+        self.cls_score_1 = Dense(8, 2, dtype=dtype)
+        self.bbox_pred_head = Dense(2048, 4, dtype=dtype)
+
+    def forward(self, image, query, im_info, gt_boxes=None, num_boxes=None,
+                *, train: bool = False) -> DetectorOut:
+        """gt_boxes/num_boxes are unused at eval (kept for the JAX call
+        signature)."""
+        if train:
+            raise NotImplementedError("the port's train step is not ported "
+                                      "yet; call with train=False")
+        c = self.cfg
+        b = query.shape[0]
+        if image.shape[0] != b:
+            raise ValueError(f"image batch {image.shape[0]} != query batch {b}")
+        image_feat = self.backbone(_to_model_input(image, self.dtype))
+        query_feat = self.backbone(_to_model_input(query, self.dtype))
+        non_img, non_qry = self.coattention(image_feat, query_feat)
+
+        rpn_out = self.rpn(non_img)
+        fh, fw = non_img.shape[1], non_img.shape[2]
+        anchors = torch.from_numpy(shifted_anchors(
+            fh, fw, c.FEAT_STRIDE[0], ratios=c.ANCHOR_RATIOS,
+            scales=c.ANCHOR_SCALES)).to(non_img.device)
+        rois = proposal_layer(
+            rpn_out, anchors, im_info,
+            pre_nms_topk=c.TEST.RPN_PRE_NMS_TOP_N,
+            post_nms_topk=c.TEST.RPN_POST_NMS_TOP_N,
+            nms_thresh=c.TEST.RPN_NMS_THRESH)
+        return self.head(non_img, non_qry, rois)
+
+    def head(self, non_img, non_qry, rois) -> DetectorOut:
+        """ROI Align -> AIT transformer -> SKNet -> top -> match/box heads,
+        from the co-attended features and the proposal layer's rois."""
+        c = self.cfg
+        b, num_props = rois.shape[0], rois.shape[1]
+        props = roi_align(non_img, rois[..., 1:5], out_size=c.POOLING_SIZE,
+                          spatial_scale=1.0 / c.FEAT_STRIDE[0],
+                          sampling_ratio=c.tpu.roi_sampling_ratio)
+        props = props.reshape((b * num_props,) + props.shape[2:])
+
+        props = self.transformer(props, non_qry)
+        props, qfeat = self.sk(props, non_qry)
+        props_vec = self.top(props)                       # [B*R, 2048]
+        query_vec = self.top(qfeat)                       # [B, 2048]
+
+        bbox_pred = self.bbox_pred_head(props_vec).float()
+        d = props_vec.shape[-1]
+        props_mat = props_vec.reshape(b, num_props, d)
+        query_mat = query_vec[:, None, :].expand(b, num_props, d)
+        stack = torch.cat([props_mat, query_mat], dim=-1)
+        score = self.cls_score_1(self.cls_score_0(stack)).float()
+        score_prob = torch.softmax(score, dim=-1)[..., 1]
+        return DetectorOut(rois, score_prob.reshape(b, num_props, 1),
+                           bbox_pred.reshape(b, num_props, -1))

@@ -1,0 +1,92 @@
+"""The port stands alone: no module of ait_tpu_torch, and not chip_smoke.py,
+imports JAX, flax, optax or the JAX package; its entry points refuse to run
+quietly on the CPU when no GPU is there."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ait_tpu")
+
+
+def _sources():
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "ait_tpu_torch")):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def _forbidden(name):
+    # exact module or a submodule of it: "ait_tpu_torch" is not "ait_tpu"
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_sources_found():
+    assert len(_sources()) >= 20
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_imports(path):
+    bad = [n for n in _imported(path) if _forbidden(n)]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_forbidden_match_is_exact():
+    assert _forbidden("ait_tpu") and _forbidden("ait_tpu.ops.nms")
+    assert _forbidden("jax.numpy") and not _forbidden("jaxtyping_free")
+    assert not _forbidden("ait_tpu_torch.ops.nms")
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, ait_tpu_torch, ait_tpu_torch.predict, "
+            "ait_tpu_torch.bridge, ait_tpu_torch.ops.nms, "
+            "ait_tpu_torch.ops.fused_attention, ait_tpu_torch.ops.fused_ffn; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'optax', 'ait_tpu')]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120)
+
+
+def test_predictor_without_device_raises_when_no_gpu(monkeypatch):
+    from ait_tpu_torch.config import Config
+    from ait_tpu_torch.predict import OneShotPredictor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        OneShotPredictor(Config(), {})
+
+
+def test_chip_smoke_refuses_outside_a_checkout(tmp_path):
+    """Alone in a directory, chip_smoke.py exits non-zero and prints no
+    result line."""
+    script = tmp_path / "chip_smoke.py"
+    script.write_text(open(os.path.join(REPO, "chip_smoke.py")).read())
+    proc = subprocess.run([sys.executable, str(script)], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_refuses_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

@@ -1,0 +1,159 @@
+#!/usr/bin/env python3
+"""Where the time of the PyTorch port's eval slice goes, on one GPU.
+
+    python3 tools/port_profile.py [--out FILE.json]
+
+Serves the full-width ResNet-50 flagship (random weights from a numpy seed
+through ait_tpu_torch.bridge) with OneShotPredictor on uint8 608x800
+canvases, then reports, as JSON lines on stdout (and in --out):
+
+* `stages`: device time per stage of the forward (CUDA events around the
+  detector's submodules and its proposal layer and ROI Align calls), and
+  postprocess, in ms per batch;
+* `kernels`: the device kernels with the most time per batch
+  (torch.profiler over two batches), and the device's busy share: their
+  summed time over the mean wall clock of an unprofiled batch;
+* `batch_ms`: host wall clock per batch, ending in a synchronize.
+
+Imports nothing of JAX or ait_tpu.  Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", help="also write the full result here")
+    args = ap.parse_args()
+    bs, batches = 8, 5
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("port_profile: no CUDA device", file=sys.stderr)
+        return 2
+    from ait_tpu_torch import bridge
+    from ait_tpu_torch.config import Config
+    from ait_tpu_torch.models import AITDetector
+    from ait_tpu_torch.models import detector as det_mod
+    from ait_tpu_torch import predict as predict_mod
+    from ait_tpu_torch.predict import OneShotPredictor
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    cfg = Config()
+    model = AITDetector(cfg)
+    state = bridge.to_state_dict(model, bridge.random_tree(
+        bridge.jax_shapes(model), seed=0))
+    pred = OneShotPredictor(cfg, state)
+    m = pred.model
+
+    rng = np.random.RandomState(0)
+    h, w = cfg.tpu.image_size
+    q = cfg.TRAIN.query_size
+
+    def request():
+        canvas = np.zeros((bs, h, w, 3), np.uint8)
+        canvas[:, :600, :760] = rng.randint(0, 256, (bs, 600, 760, 3))
+        query = rng.randint(0, 256, (bs, q, q, 3)).astype(np.uint8)
+        info = np.tile(np.asarray([[600, 760, 1.6]], np.float32),
+                       (bs, 1))
+        return canvas, query, info
+
+    # ---- stage times: CUDA events around each stage -----------------------
+    events = collections.defaultdict(list)
+
+    def timed(name, fn):
+        def run(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            events[name].append((start, end))
+            return out
+        return run
+
+    for name in ("backbone", "coattention", "rpn", "transformer", "sk",
+                 "top", "cls_score_0", "cls_score_1", "bbox_pred_head"):
+        mod = getattr(m, name)
+        mod.forward = timed(name, mod.forward)
+    det_mod.proposal_layer = timed("proposal_layer", det_mod.proposal_layer)
+    det_mod.roi_align = timed("roi_align", det_mod.roi_align)
+    predict_mod.postprocess_detections = timed(
+        "postprocess", predict_mod.postprocess_detections)
+
+    reqs = [request() for _ in range(batches + 2)]
+    for r in reqs[:2]:                              # warm-up
+        pred.predict_prepared(*r)
+    torch.cuda.synchronize()
+    events.clear()
+    batch_ms = []
+    for r in reqs[2:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.predict_prepared(*r)
+        torch.cuda.synchronize()
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+    stages = {k: sum(s.elapsed_time(e) for s, e in v) / batches
+              for k, v in events.items()}
+
+    # ---- kernels and busy share: torch.profiler over two batches ---------
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        for r in reqs[:2]:
+            pred.predict_prepared(*r)
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        # device-side entries only (kernels, copies); the host ops that
+        # launched them carry the same time again
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((e.key, dev_us / 2e3, e.count // 2))
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    mean_ms = sum(batch_ms) / len(batch_ms)
+    result = {
+        "card": card, "bs": bs, "batches": batches,
+        "batch_ms": batch_ms,
+        "stages_ms_per_batch": stages,
+        "device_busy_ms_per_batch": busy_ms,
+        "device_busy_share": busy_ms / mean_ms,
+        "top_kernels_ms_per_batch": [
+            {"name": k[:120], "ms": ms, "calls": n} for k, ms, n in rows[:25]],
+    }
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    print(card)
+    print(json.dumps({"batch_ms": batch_ms,
+                      "device_busy_ms_per_batch": busy_ms,
+                      "device_busy_share": result["device_busy_share"]}))
+    print(json.dumps({"stages_ms_per_batch": stages}))
+    for r in result["top_kernels_ms_per_batch"]:
+        print(json.dumps(r))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
