@@ -12,9 +12,13 @@ change of ait_tpu/convert.py inverted:
   and `FrozenBatchNorm` {scale, bias, mean, var}: unchanged.
 
 `to_state_dict` fails on any leaf left over on either side or of the wrong
-shape.  `jax_shapes` gives the tree's shapes from a port module alone and
-`random_tree` fills such a tree from a numpy seed, so random weights can be
-made without JAX and carried across like trained ones.
+shape; `to_jax_tree` is the reverse map, with the same refusals, from the
+port's tensors (its state_dict, or its gradients via `grad_tree`) to the
+JAX tree as numpy arrays, so the two packages' weights and gradients can be
+compared leaf by leaf.  `jax_shapes` gives the tree's shapes from a port
+module alone and `random_tree` fills such a tree from a numpy seed, so
+random weights can be made without JAX and carried across like trained
+ones.
 """
 
 from __future__ import annotations
@@ -35,12 +39,21 @@ def _conv_to_torch(k):
     return np.transpose(k, (3, 2, 0, 1))
 
 
+def _conv_to_jax(w):
+    return np.transpose(w, (2, 3, 1, 0))
+
+
+# each layout change of `mappings` and its inverse
+_TO_JAX = {_conv_to_torch: _conv_to_jax, np.transpose: np.transpose,
+           None: None}
+
+
 def _conv_shape(w):
     o, i, kh, kw = w.shape
     return (kh, kw, i, o)
 
 
-def _mappings(model: nn.Module) -> Iterator[Tuple[str, Path, tuple, object]]:
+def mappings(model: nn.Module) -> Iterator[Tuple[str, Path, tuple, object]]:
     """(state_dict key, JAX leaf path, JAX shape, JAX -> torch transform)."""
     for name, mod in model.named_modules():
         path = tuple(name.split(".")) if name else ()
@@ -84,7 +97,7 @@ def _nest(flat: Dict[Path, object]) -> dict:
 
 def jax_shapes(model: nn.Module) -> dict:
     """The JAX param tree's leaf shapes for this port module."""
-    return _nest({path: shape for _, path, shape, _ in _mappings(model)})
+    return _nest({path: shape for _, path, shape, _ in mappings(model)})
 
 
 def to_state_dict(model: nn.Module, params: dict) -> Dict[str, torch.Tensor]:
@@ -92,7 +105,7 @@ def to_state_dict(model: nn.Module, params: dict) -> Dict[str, torch.Tensor]:
     flat = _flatten(params)
     out: Dict[str, torch.Tensor] = {}
     missing, bad_shape = [], []
-    for key, path, shape, fn in _mappings(model):
+    for key, path, shape, fn in mappings(model):
         if path not in flat:
             missing.append("/".join(path))
             continue
@@ -116,6 +129,46 @@ def to_state_dict(model: nn.Module, params: dict) -> Dict[str, torch.Tensor]:
     if problems:
         raise ValueError("weight bridge: " + "; ".join(problems))
     return out
+
+
+def to_jax_tree(model: nn.Module, tensors: Dict[str, torch.Tensor]) -> dict:
+    """Port tensors keyed like model.state_dict() -> the JAX param tree
+    (nested dict of float32 numpy arrays in the JAX layouts)."""
+    left = dict(tensors)
+    out = {}
+    missing, bad_shape = [], []
+    for key, path, shape, fn in mappings(model):
+        if key not in left:
+            missing.append(key)
+            continue
+        arr = left.pop(key).detach().float().cpu().numpy()
+        back = _TO_JAX[fn]
+        arr = np.ascontiguousarray(back(arr) if back is not None else arr)
+        if arr.shape != shape:
+            bad_shape.append(f"{key}: {arr.shape} != {shape}")
+            continue
+        out[path] = arr
+    problems = []
+    if missing:
+        problems.append(f"port entries missing: {missing}")
+    if bad_shape:
+        problems.append(f"shape mismatches: {bad_shape}")
+    if left:
+        problems.append(f"port entries left over: {sorted(left)}")
+    if problems:
+        raise ValueError("weight bridge: " + "; ".join(problems))
+    return _nest(out)
+
+
+def grad_tree(model: nn.Module) -> dict:
+    """The parameters' gradients as a JAX-layout tree; a parameter without a
+    gradient (frozen, or unused) and every buffer give zeros."""
+    tensors = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+               for k, p in model.named_parameters()}
+    keys = set(model.state_dict())
+    tensors.update({k: torch.zeros_like(b)
+                    for k, b in model.named_buffers() if k in keys})
+    return to_jax_tree(model, tensors)
 
 
 def random_tree(shapes: dict, seed: int) -> dict:

@@ -295,8 +295,8 @@ sh_attn_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
                const T* __restrict__ wv, const T* __restrict__ skw,
                const T* __restrict__ skb, const T* __restrict__ fcw,
                const float* __restrict__ lns, const float* __restrict__ lnb,
-               const uint8_t* __restrict__ mask, T* __restrict__ out, int tq,
-               int tk) {
+               const uint8_t* __restrict__ mask, T* __restrict__ out,
+               float* __restrict__ oh, int tq, int tk) {
   extern __shared__ __align__(128) float sm[];
   float* qs = sm + kOffQ;
   float* ks = sm + kOffK;
@@ -385,6 +385,11 @@ sh_attn_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
         for (int j = 0; j < 4; ++j) {
           const int r = ty + 16 * i;
           oall[(h * kTm + r) * kDk + tx + 16 * j] = r < tq ? acc[i][j] : 0.f;
+          // the train path's saved per-head output [H, P*Tq, 64]: exactly
+          // the value the gate below consumes
+          if (oh != nullptr && r < tq)
+            oh[((size_t)h * gridDim.x * tq + (size_t)blockIdx.x * tq + r) * kDk +
+               tx + 16 * j] = acc[i][j];
         }
     }
     __syncthreads();
@@ -477,8 +482,8 @@ sh_attn_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
 }
 
 template <typename T>
-int launch(const void* const* p, void* out, int pairs, int tq, int tk,
-           cudaStream_t stream) {
+int launch(const void* const* p, void* out, void* oh, int pairs, int tq,
+           int tk, cudaStream_t stream) {
   const int smem = kSmemFloats * (int)sizeof(float);
   cudaFuncSetAttribute(sh_attn_kernel<T>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -486,20 +491,481 @@ int launch(const void* const* p, void* out, int pairs, int tq, int tk,
       (const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
       (const T*)p[4], (const T*)p[5], (const T*)p[6], (const T*)p[7],
       (const float*)p[8], (const float*)p[9], (const uint8_t*)p[10], (T*)out,
-      tq, tk);
+      (float*)oh, tq, tk);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- backward
+//
+// Replaces the per-pair body of ait_tpu/ops/pallas_attention.py:630
+// _fused_bwd_call (kernel `_bwd_kernel`, :412) at dropout 0, without saved
+// q/k/v.  One block per pair, from the forward's saved per-head outputs oh:
+//   1. rebuild the gate exactly as the forward computed it (same loops), and
+//      o = sum_h gate_h o_h rounded to the storage type (the fc input);
+//   2. in 16-row tiles: y0 = o @ fc, the LayerNorm of y0 + x_q and its
+//      backward (dy), and do = dy @ fc^T; fc sits in shared memory as f32;
+//   3. the gate backward: dgate_h = sum_t do * o_h, the softmax-over-heads
+//      backward (dlogit), ds = dlogit @ sk_w^T and du = ds / Tq;
+//   4. per head: q/k/v recomputed (as in the forward: WMMA for bf16), the
+//      probabilities, dP = do_h v^T with do_h = do * gate_h + du, dv = P^T
+//      do_h, dS = P (dP - rowsum(P dP)), dz = dS k / 8, dk = dS^T q / 8.
+// Everything between products is f32, as in the Pallas kernel.  It writes
+// dy, o, s (the gate input), dlogit, the LayerNorm partials and the per-head
+// dz/dk/dv [rows, 8 x 64] to device memory: the input gradients (dxq
+// [64, 512] and dxkv, f32) and the weight gradients, which reduce over all
+// pairs, do not fit beside this block's state in shared memory, so the
+// products over the pair batch run afterwards on csrc/gemm.cu.
+//
+// What bounds it on the H100: operations (the three per-head projections,
+// ~50 MFLOP per pair, as in the forward); the writes of dz/dk/dv (~400 KB per
+// pair in f32) come next.
+
+constexpr int kBLdp = kTm + 1;                     // probabilities, dP, dS
+constexpr int kBOffGm = 0;                         // gate [8][64]
+constexpr int kBOffDg = kBOffGm + kHeads * kDk;    // dgate, then dlogit
+constexpr int kBOffSv = kBOffDg + kHeads * kDk;    // s [64]
+constexpr int kBOffDu = kBOffSv + kDk;             // du [64]
+constexpr int kBOffDo = kBOffDu + kDk;             // do [64][64]
+constexpr int kBOffOs = kBOffDo + kTm * kDk;       // o, rounded [64][64]
+constexpr int kBOffPh = kBOffOs + kTm * kDk;       // phase-local area
+// phase 2
+constexpr int kBOffFc = kBOffPh;                   // fc as f32 [64][512]
+constexpr int kBOffYt = kBOffFc + kDk * kD;        // y0, then dy [16][512]
+constexpr int kBEnd2 = kBOffYt + 16 * kD;
+// phase 4
+constexpr int kBOffQ = kBOffPh;                    // q_h / 8 [64][kLdq]
+constexpr int kBOffK = kBOffQ + kTm * kLdq;        // k_h
+constexpr int kBOffV = kBOffK + kTm * kLdq;        // v_h
+constexpr int kBOffSt = kBOffV + kTm * kLdq;       // projection slabs
+constexpr int kBOffDoh = kBOffSt + kSlab;          // do_h [64][kLdq]
+constexpr int kBOffP = kBOffDoh + kTm * kLdq;      // P [64][kBLdp]
+constexpr int kBOffDp = kBOffP + kTm * kBLdp;      // dP, then dS
+constexpr int kBEnd4 = kBOffDp + kTm * kBLdp;
+constexpr int kBSmemFloats = kBEnd2 > kBEnd4 ? kBEnd2 : kBEnd4;
+static_assert(kBOffPh % 8 == 0 && kBOffK % 8 == 0 && kBOffV % 8 == 0 &&
+              kBOffSt % 8 == 0, "WMMA tiles need 32-byte alignment");
+static_assert(2 * (kThreads / 32) * kD <= kDk * kD, "LN partials fit in fc's place");
+static_assert(kBSmemFloats * 4 <= 232448, "shared memory of one block");
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+sh_attn_bwd_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
+                   const T* __restrict__ wq, const T* __restrict__ wk,
+                   const T* __restrict__ wv, const T* __restrict__ skw,
+                   const T* __restrict__ skb, const T* __restrict__ fcw,
+                   const float* __restrict__ lns,
+                   const uint8_t* __restrict__ mask,
+                   const float* __restrict__ oh, const T* __restrict__ g,
+                   float* __restrict__ dy_out, float* __restrict__ o_out,
+                   float* __restrict__ s_out, float* __restrict__ dgl_out,
+                   float* __restrict__ lnp_s, float* __restrict__ lnp_b,
+                   float* __restrict__ dz_out, float* __restrict__ dk_out,
+                   float* __restrict__ dv_out, int tq, int tk) {
+  extern __shared__ __align__(128) float sm[];
+  float* gm = sm + kBOffGm;
+  float* dg = sm + kBOffDg;
+  float* sv = sm + kBOffSv;
+  float* du = sm + kBOffDu;
+  float* dos = sm + kBOffDo;
+  float* os = sm + kBOffOs;
+
+  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
+  const int warp = t >> 5, lane = t & 31;
+  const int pair = blockIdx.x, pairs = gridDim.x;
+  const size_t qrow0 = (size_t)pair * tq;          // first flat row of x_q
+  const size_t krow0 = (size_t)pair * tk;
+  auto ohp = [&](int h, int r, int c) {
+    return oh[((size_t)h * pairs * tq + qrow0 + r) * kDk + c];
+  };
+  xq += qrow0 * kD;
+  xkv += krow0 * kD;
+  g += qrow0 * kD;
+
+  // ---- 1. the gate, as the forward built it
+  if (t < kDk) {
+    float acc = 0.f;
+    for (int r = 0; r < tq; ++r) {
+      float u = 0.f;
+#pragma unroll
+      for (int h = 0; h < kHeads; ++h) u += ohp(h, r, t);
+      acc += u;
+    }
+    sv[t] = acc / tq;
+    s_out[(size_t)pair * kDk + t] = sv[t];
+  }
+  __syncthreads();
+  for (int o = t; o < kHeads * kDk; o += kThreads) {
+    float acc = 0.f;
+    for (int d = 0; d < kDk; ++d) acc += sv[d] * ait::to_float(skw[d * kWld + o]);
+    gm[o] = acc + ait::to_float(skb[o]);
+  }
+  __syncthreads();
+  if (t < kDk) {
+    float m = -CUDART_INF_F;
+#pragma unroll
+    for (int h = 0; h < kHeads; ++h) m = fmaxf(m, gm[h * kDk + t]);
+    float e[kHeads], sum = 0.f;
+#pragma unroll
+    for (int h = 0; h < kHeads; ++h) {
+      e[h] = expf(gm[h * kDk + t] - m);
+      sum += e[h];
+    }
+#pragma unroll
+    for (int h = 0; h < kHeads; ++h) gm[h * kDk + t] = e[h] / sum;
+  }
+  __syncthreads();
+  for (int e = t; e < kTm * kDk; e += kThreads) {
+    const int r = e / kDk, c = e % kDk;
+    float v = 0.f;
+    if (r < tq) {
+      float acc = 0.f;
+#pragma unroll
+      for (int h = 0; h < kHeads; ++h) acc += ohp(h, r, c) * gm[h * kDk + c];
+      v = ait::round_to(acc, xq);
+      o_out[(qrow0 + r) * kDk + c] = v;
+    }
+    os[e] = v;
+  }
+
+  // ---- 2. fc, LayerNorm and their backward, 16 rows at a time
+  float* fcs = sm + kBOffFc;
+  float* yt = sm + kBOffYt;
+  for (int v = t; v < kDk * kD / 8; v += kThreads) {
+    float a[8];
+    ait::load8(fcw + (size_t)v * 8, a);
+    ait::store8(fcs + v * 8, a);
+  }
+  __syncthreads();
+  float ps[16], pb[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) ps[i] = pb[i] = 0.f;
+  for (int r0 = 0; r0 < tq; r0 += 16) {
+    {  // y0 = o @ fc: thread (row t / 16, columns t % 16 + 16 j)
+      const int i = t >> 4;
+      float acc[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) acc[j] = 0.f;
+      for (int d = 0; d < kDk; ++d) {
+        const float a = os[(r0 + i) * kDk + d];
+#pragma unroll
+        for (int j = 0; j < 32; ++j) acc[j] += a * fcs[d * kD + tx + 16 * j];
+      }
+#pragma unroll
+      for (int j = 0; j < 32; ++j) yt[i * kD + tx + 16 * j] = acc[j];
+    }
+    __syncthreads();
+    for (int i = warp; i < 16; i += kThreads / 32) {   // one warp per row
+      const int r = r0 + i;
+      if (r >= tq) continue;
+      float y[16], gv[16];
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = j * 256 + lane * 8;
+        float a[8], q[8];
+        ait::load8(xq + (size_t)r * kD + c, a);
+        ait::load8(g + (size_t)r * kD + c, q);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          y[j * 8 + e] = yt[i * kD + c + e] + a[e];
+          gv[j * 8 + e] = q[e];
+          s += y[j * 8 + e];
+        }
+      }
+      const float mu = ait::warp_sum(s) / kD;
+      float q = 0.f;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const float d = y[e] - mu;
+        q += d * d;
+      }
+      const float rs = rsqrtf(ait::warp_sum(q) / kD + 1e-6f);
+      float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int k = j * 8 + e, c = j * 256 + lane * 8 + e;
+          y[k] = (y[k] - mu) * rs;
+          ps[k] += gv[k] * y[k];
+          pb[k] += gv[k];
+          gv[k] *= lns[c];
+          m1 += gv[k];
+          m2 += gv[k] * y[k];
+        }
+      m1 = ait::warp_sum(m1) / kD;
+      m2 = ait::warp_sum(m2) / kD;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = j * 256 + lane * 8;
+        float o[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          o[e] = rs * (gv[j * 8 + e] - m1 - y[j * 8 + e] * m2);
+          yt[i * kD + c + e] = o[e];
+        }
+        ait::store8(dy_out + (qrow0 + r) * kD + c, o);
+      }
+    }
+    __syncthreads();
+    // do = dy @ fc^T: warp w takes 128 of the 16 x 64 outputs, lanes split n
+    for (int k = 0; k < 128; ++k) {
+      const int idx = warp * 128 + k, i = idx / kDk, c = idx % kDk;
+      if (r0 + i >= tq) continue;
+      float acc = 0.f;
+#pragma unroll
+      for (int n = 0; n < kD / 32; ++n)
+        acc += yt[i * kD + lane + 32 * n] * fcs[c * kD + lane + 32 * n];
+      acc = ait::warp_sum(acc);
+      if (lane == 0) dos[(r0 + i) * kDk + c] = acc;
+    }
+    __syncthreads();
+  }
+  for (int e = tq * kDk + t; e < kTm * kDk; e += kThreads) dos[e] = 0.f;
+  {  // LayerNorm partials: the 8 warps in order
+    float* red = fcs;   // [2][8][512]
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        red[warp * kD + j * 256 + lane * 8 + e] = ps[j * 8 + e];
+        red[(8 + warp) * kD + j * 256 + lane * 8 + e] = pb[j * 8 + e];
+      }
+    __syncthreads();
+    for (int c = t; c < kD; c += kThreads) {
+      float a = 0.f, b = 0.f;
+      for (int w = 0; w < kThreads / 32; ++w) {
+        a += red[w * kD + c];
+        b += red[(8 + w) * kD + c];
+      }
+      lnp_s[(size_t)pair * kD + c] = a;
+      lnp_b[(size_t)pair * kD + c] = b;
+    }
+  }
+  __syncthreads();
+
+  // ---- 3. the gate backward
+  for (int o = t; o < kHeads * kDk; o += kThreads) {
+    const int h = o / kDk, c = o % kDk;
+    float acc = 0.f;
+    for (int r = 0; r < tq; ++r) acc += dos[r * kDk + c] * ohp(h, r, c);
+    dg[o] = acc;
+  }
+  __syncthreads();
+  if (t < kDk) {
+    float gdot = 0.f;
+#pragma unroll
+    for (int h = 0; h < kHeads; ++h) gdot += gm[h * kDk + t] * dg[h * kDk + t];
+#pragma unroll
+    for (int h = 0; h < kHeads; ++h) {
+      const float v = gm[h * kDk + t] * (dg[h * kDk + t] - gdot);
+      dg[h * kDk + t] = v;
+      dgl_out[(size_t)pair * kHeads * kDk + h * kDk + t] = v;
+    }
+  }
+  __syncthreads();
+  if (t < kDk) {
+    float acc = 0.f;
+    for (int o = 0; o < kHeads * kDk; ++o)
+      acc += dg[o] * ait::to_float(skw[t * kWld + o]);
+    du[t] = acc / tq;
+  }
+  __syncthreads();
+
+  // ---- 4. per head
+  float* qs = sm + kBOffQ;
+  float* ks = sm + kBOffK;
+  float* vs = sm + kBOffV;
+  float* st = sm + kBOffSt;
+  float* doh = sm + kBOffDoh;
+  float* pp = sm + kBOffP;
+  float* dp = sm + kBOffDp;
+  for (int h = 0; h < kHeads; ++h) {
+    project<T, 1>(xq, tq, wq, nullptr, h * kDk, st, qs, kLdq, nullptr, 0);
+    project<T, 2>(xkv, tk, wk, wv, h * kDk, st, ks, kLdq, vs, kLdq);
+    __syncthreads();
+    for (int e = t; e < kTm * kDk; e += kThreads) {
+      const int r = e / kDk, c = e % kDk;
+      qs[r * kLdq + c] *= 0.125f;      // exact: the Pallas kernel's q * scale
+      doh[r * kLdq + c] = r < tq ? dos[e] * gm[h * kDk + c] + du[c] : 0.f;
+    }
+    __syncthreads();
+    {  // masked scores; zero outside [tq, tk]
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < kDk; ++d) {
+        float a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * kLdq + d];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = ks[(tx + 16 * j) * kLdq + d];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = ty + 16 * i, c = tx + 16 * j;
+          float v = 0.f;
+          if (r < tq && c < tk) v = mask[r * tk + c] ? acc[i][j] : -1e9f;
+          pp[r * kBLdp + c] = v;
+        }
+    }
+    __syncthreads();
+    for (int r = warp; r < tq; r += kThreads / 32) {
+      const float v0 = lane < tk ? pp[r * kBLdp + lane] : -CUDART_INF_F;
+      const float v1 = lane + 32 < tk ? pp[r * kBLdp + lane + 32] : -CUDART_INF_F;
+      const float m = ait::warp_max(fmaxf(v0, v1));
+      const float e0 = lane < tk ? expf(v0 - m) : 0.f;
+      const float e1 = lane + 32 < tk ? expf(v1 - m) : 0.f;
+      const float sum = ait::warp_sum(e0 + e1);
+      if (lane < tk) pp[r * kBLdp + lane] = e0 / sum;
+      if (lane + 32 < tk) pp[r * kBLdp + lane + 32] = e1 / sum;
+    }
+    __syncthreads();
+    {  // dP = do_h v^T and dv = P^T do_h
+      float a1[4][4], a2[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) a1[i][j] = a2[i][j] = 0.f;
+#pragma unroll 4
+      for (int c = 0; c < kDk; ++c) {
+        float a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = doh[(ty + 16 * i) * kLdq + c];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = vs[(tx + 16 * j) * kLdq + c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) a1[i][j] += a[i] * b[j];
+      }
+      for (int r = 0; r < tq; ++r) {
+        float a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = pp[r * kBLdp + ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = doh[r * kLdq + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) a2[i][j] += a[i] * b[j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = ty + 16 * i, c = tx + 16 * j;
+          dp[r * kBLdp + c] = a1[i][j];
+          if (r < tk)
+            dv_out[(krow0 + r) * kD + h * kDk + c] = a2[i][j];
+        }
+    }
+    __syncthreads();
+    for (int r = warp; r < tq; r += kThreads / 32) {   // dS = P (dP - rowdot)
+      const float p0 = lane < tk ? pp[r * kBLdp + lane] : 0.f;
+      const float p1 = lane + 32 < tk ? pp[r * kBLdp + lane + 32] : 0.f;
+      const float d0 = lane < tk ? dp[r * kBLdp + lane] : 0.f;
+      const float d1 = lane + 32 < tk ? dp[r * kBLdp + lane + 32] : 0.f;
+      const float rowdot = ait::warp_sum(p0 * d0 + p1 * d1);
+      if (lane < tk) dp[r * kBLdp + lane] = p0 * (d0 - rowdot);
+      if (lane + 32 < tk) dp[r * kBLdp + lane + 32] = p1 * (d1 - rowdot);
+    }
+    __syncthreads();
+    {  // dz = dS k / 8 and dk = dS^T (q / 8)
+      float a1[4][4], a2[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) a1[i][j] = a2[i][j] = 0.f;
+      for (int s = 0; s < tk; ++s) {
+        float a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = dp[(ty + 16 * i) * kBLdp + s];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = ks[s * kLdq + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) a1[i][j] += a[i] * b[j];
+      }
+      for (int r = 0; r < tq; ++r) {
+        float a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = dp[r * kBLdp + ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = qs[r * kLdq + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) a2[i][j] += a[i] * b[j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = ty + 16 * i, c = tx + 16 * j;
+          if (r < tq) dz_out[(qrow0 + r) * kD + h * kDk + c] = a1[i][j] * 0.125f;
+          if (r < tk) dk_out[(krow0 + r) * kD + h * kDk + c] = a2[i][j];
+        }
+    }
+    __syncthreads();
+  }
+}
+
+template <typename T>
+int launch_bwd(const void* const* p, void* const* out, int pairs, int tq,
+               int tk, cudaStream_t stream) {
+  const int smem = kBSmemFloats * (int)sizeof(float);
+  cudaFuncSetAttribute(sh_attn_bwd_kernel<T>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  sh_attn_bwd_kernel<T><<<pairs, kThreads, smem, stream>>>(
+      (const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
+      (const T*)p[4], (const T*)p[5], (const T*)p[6], (const T*)p[7],
+      (const float*)p[8], (const uint8_t*)p[9], (const float*)p[10],
+      (const T*)p[11], (float*)out[0], (float*)out[1], (float*)out[2],
+      (float*)out[3], (float*)out[4], (float*)out[5], (float*)out[6],
+      (float*)out[7], (float*)out[8], tq, tk);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// oh: null at eval; on the train path the per-head outputs [8, P*Tq, 64] f32
 extern "C" int sh_attention_fwd(int bf16_io, const void* xq, const void* xkv,
                                 const void* wq, const void* wk, const void* wv,
                                 const void* skw, const void* skb,
                                 const void* fcw, const void* lns,
                                 const void* lnb, const void* mask, void* out,
-                                int pairs, int tq, int tk, void* stream) {
+                                void* oh, int pairs, int tq, int tk,
+                                void* stream) {
   const void* p[11] = {xq, xkv, wq, wk, wv, skw, skb, fcw, lns, lnb, mask};
   cudaStream_t s = (cudaStream_t)stream;
-  return bf16_io ? launch<bf16>(p, out, pairs, tq, tk, s)
-                 : launch<float>(p, out, pairs, tq, tk, s);
+  return bf16_io ? launch<bf16>(p, out, oh, pairs, tq, tk, s)
+                 : launch<float>(p, out, oh, pairs, tq, tk, s);
+}
+
+// the per-pair part of the backward; every output is f32: dy [P*Tq, 512],
+// o [P*Tq, 64], s [P, 64], dlogit [P, 512], LayerNorm partials [P, 512] x 2,
+// dz [P*Tq, 512], dk and dv [P*Tk, 512] (head h in columns 64h..64h+63)
+extern "C" int sh_attention_bwd_pairs(
+    int bf16_io, const void* xq, const void* xkv, const void* wq,
+    const void* wk, const void* wv, const void* skw, const void* skb,
+    const void* fcw, const void* lns, const void* mask, const void* oh,
+    const void* g, void* dy, void* o, void* s, void* dgl, void* lnp_s,
+    void* lnp_b, void* dz, void* dk, void* dv, int pairs, int tq, int tk,
+    void* stream) {
+  const void* p[12] = {xq, xkv, wq, wk, wv, skw, skb, fcw, lns, mask, oh, g};
+  void* out[9] = {dy, o, s, dgl, lnp_s, lnp_b, dz, dk, dv};
+  cudaStream_t st = (cudaStream_t)stream;
+  return bf16_io ? launch_bwd<bf16>(p, out, pairs, tq, tk, st)
+                 : launch_bwd<float>(p, out, pairs, tq, tk, st);
 }

@@ -1,4 +1,4 @@
-"""The Adaptive Image Transformer, eval path (counterpart of
+"""The Adaptive Image Transformer (counterpart of
 ait_tpu/models/ait_transformer.py).
 
 * enc_emb/dec_emb: 1x1-conv embed 1024 -> 512;
@@ -10,12 +10,16 @@ ait_tpu/models/ait_transformer.py).
 * encoder = n_layers x (self-attention + FFN) over proposal tokens; decoder
   = n_layers x (causal self-attention + cross-attention to the encoder +
   FFN) over query tokens;
-* at eval the decoder stream is per image until the cross-attention, so the
-  query is repeated per proposal only there (`repeat_interleave`, image
-  rows stay contiguous), after the first self-attention;
+* the decoder stream is per image until the cross-attention, so the query
+  is repeated per proposal only there (`repeat_interleave`, image rows stay
+  contiguous), after the first self-attention.  In training this is the JAX
+  package's `dec_prefix_per_image` arrangement (its default); with dropout
+  off, repeating the query up front instead (the reference's order) is the
+  same computation, so the port has only this one;
 * the output goes back to the query grid and through a 1x1 conv to 1024.
 
-Dropout is off on this path.  Feature maps are NHWC, tokens [N, T, C].
+Dropout is off (the model raises for t_dropout > 0 in training).  Feature
+maps are NHWC, tokens [N, T, C].
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from ait_tpu_torch.models.attention import (MultiHeadAttention,
                                             PositionwiseFeedForward)
 from ait_tpu_torch.models.layers import (Conv, Params, sinusoid_table,
                                          to_nchw, to_nhwc)
-from ait_tpu_torch.ops.fused_ffn import fused_posln
+from ait_tpu_torch.ops import fused_ffn
 
 
 class EncoderLayer(nn.Module):
@@ -89,7 +93,8 @@ class AITTransformer(nn.Module):
         """LayerNorm(x + pos) over flat pair-major rows (fused kernel)."""
         flat = x_seq.reshape(-1, self.d_model).to(self.dtype).contiguous()
         pos = self.pos[:x_seq.shape[1]].to(self.dtype).contiguous()
-        return fused_posln(flat, pos, ln.scale, ln.bias).reshape(x_seq.shape)
+        return fused_ffn.posln(flat, pos, ln.scale,
+                               ln.bias).reshape(x_seq.shape)
 
     def forward(self, x_props, x_query):
         bp, hp, wp, _ = x_props.shape

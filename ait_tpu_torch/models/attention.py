@@ -5,10 +5,12 @@ ait_tpu/models/attention.py).
   SHBlock selective-head gate that collapses the heads into one d_v-wide
   vector, then Linear(d_v -> d_model), residual and post-LayerNorm
   (SubLayers.py:9-102).  Short sequences with one shared mask and k is v go
-  to the fused kernel (ops/fused_attention.py), the same cases the JAX
-  package sends to its Pallas kernel; everything else (the co-attention's
-  ~1900 image tokens) takes the plain path below.
-* `PositionwiseFeedForward`: post-LN FFN, always through the fused kernel
+  to the fused kernels (ops/fused_attention.py), the same cases the JAX
+  package sends to its Pallas kernel (at dropout 0); in training they run
+  the kernels' autograd Function (forward with saved per-head outputs, fused
+  backward).  Everything else (the co-attention's ~1900 image tokens) takes
+  the plain path below and trains by torch autograd.
+* `PositionwiseFeedForward`: post-LN FFN, always through the fused kernels
   (ops/fused_ffn.py), as in the JAX package.
 
 Masks are boolean, True = attend.  Parameters keep the JAX names and
@@ -22,10 +24,8 @@ import torch
 from torch import nn
 
 from ait_tpu_torch.models.layers import Params
-from ait_tpu_torch.ops.fused_attention import (KERNEL_MAX_TOKENS,
-                                               fused_sh_attention,
-                                               layer_norm_f32)
-from ait_tpu_torch.ops.fused_ffn import fused_ffn
+from ait_tpu_torch.ops import fused_attention, fused_ffn
+from ait_tpu_torch.ops.fused_attention import KERNEL_MAX_TOKENS, layer_norm_f32
 
 
 def scaled_dot_attention(q, k, v, *, temperature, mask=None):
@@ -79,12 +79,13 @@ class MultiHeadAttention(nn.Module):
                                     device=q.device)
             else:
                 mask2d = mask[0].expand(lq, lk).contiguous()
-            return fused_sh_attention(
-                q.to(dt).contiguous(), k.to(dt).contiguous(),
-                self.w_qs.kernel.to(dt), self.w_ks.kernel.to(dt),
+            x_q = q.to(dt).contiguous()
+            x_kv = x_q if k is q else k.to(dt).contiguous()
+            return fused_attention.sh_attention(
+                x_q, x_kv, self.w_qs.kernel.to(dt), self.w_ks.kernel.to(dt),
                 self.w_vs.kernel.to(dt), sk.kernel.to(dt), sk.bias.to(dt),
                 self.fc.kernel.to(dt), ln.scale, ln.bias, mask2d,
-                n_head=self.n_head, d_k=self.d_k, d_v=self.d_v)
+                self.n_head, self.d_k, self.d_v)
 
         def proj(x, w, d):
             y = x.to(dt) @ w.to(dt)
@@ -124,7 +125,7 @@ class PositionwiseFeedForward(nn.Module):
         shape = x.shape
         dt = self.dtype
         flat = x.reshape(-1, shape[-1]).to(dt).contiguous()
-        out = fused_ffn(flat, self.w_1.kernel.to(dt), self.w_1.bias,
-                        self.w_2.kernel.to(dt), self.w_2.bias,
-                        self.LayerNorm_0.scale, self.LayerNorm_0.bias)
+        out = fused_ffn.ffn(flat, self.w_1.kernel.to(dt), self.w_1.bias,
+                            self.w_2.kernel.to(dt), self.w_2.bias,
+                            self.LayerNorm_0.scale, self.LayerNorm_0.bias)
         return out.reshape(shape)

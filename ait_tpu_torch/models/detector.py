@@ -1,5 +1,5 @@
-"""The one-shot detector's eval forward (counterpart of
-ait_tpu/models/detector.py::AITDetector, eval branch).
+"""The one-shot detector (counterpart of ait_tpu/models/detector.py::
+AITDetector).
 
 Siamese ResNet backbone -> MHA co-attention -> RPN -> proposal layer (NMS
 kernel) -> ROI Align -> AIT transformer (attention, FFN and glue kernels)
@@ -7,25 +7,35 @@ kernel) -> ROI Align -> AIT transformer (attention, FFN and glue kernels)
 
 Inputs are NHWC: image [B, H, W, 3] (a padded canvas, true extent in
 im_info), query [B, 128, 128, 3], both uint8 RGB or already normalized
-floats; im_info [B, 3] = (h, w, scale).  Returns rois [B, R, 5], cls_prob
-[B, R, 1] and bbox_pred [B, R, 4].  Training is not ported yet: the
-train branch raises.
+floats; im_info [B, 3] = (h, w, scale); in training gt_boxes [B, G, 5]
+(zero-padded, binary class in column 4).  Returns a DetectorOut: rois
+[B, R, 5], cls_prob [B, R, 1], bbox_pred [B, R, 4] and, in training, the
+five losses and rois_label.
+
+Training takes the TRAIN tops of the proposal layer, samples anchor and
+proposal targets with the caller's `torch.Generator` (models/targets.py),
+and runs the transformer's kernels through their autograd Functions.  The
+port trains at model.t_dropout = 0: dropout inside the fused kernels comes
+with a later slice, so a config with dropout raises rather than train
+without it.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from ait_tpu_torch.config import Config
+from ait_tpu_torch.models import losses as L
 from ait_tpu_torch.models.ait_transformer import AITTransformer
 from ait_tpu_torch.models.coattention import MHACoAttention
 from ait_tpu_torch.models.layers import Dense
 from ait_tpu_torch.models.resnet import ResNetBackbone, ResNetTop
 from ait_tpu_torch.models.rpn import RPNHead, proposal_layer
 from ait_tpu_torch.models.sknet import SKNet
+from ait_tpu_torch.models.targets import anchor_targets, proposal_targets
 from ait_tpu_torch.ops.anchors import shifted_anchors
 from ait_tpu_torch.ops.roi_align import roi_align
 
@@ -47,6 +57,17 @@ class DetectorOut(NamedTuple):
     rois: torch.Tensor
     cls_prob: torch.Tensor
     bbox_pred: torch.Tensor
+    rpn_loss_cls: Optional[torch.Tensor] = None      # training only
+    rpn_loss_box: Optional[torch.Tensor] = None
+    rcnn_loss_cls: Optional[torch.Tensor] = None
+    margin_loss: Optional[torch.Tensor] = None
+    rcnn_loss_bbox: Optional[torch.Tensor] = None
+    rois_label: Optional[torch.Tensor] = None
+
+    @property
+    def total_loss(self):
+        return (self.rpn_loss_cls + self.rpn_loss_box + self.rcnn_loss_cls +
+                self.margin_loss + self.rcnn_loss_bbox)
 
 
 def _check_supported(cfg: Config) -> None:
@@ -64,7 +85,7 @@ def _check_supported(cfg: Config) -> None:
     if bad:
         raise NotImplementedError(
             f"not ported yet: {', '.join(bad)} (the port covers the flagship "
-            "ResNet + MHA co-attention eval path)")
+            "ResNet + MHA co-attention detector)")
 
 
 class AITDetector(nn.Module):
@@ -92,16 +113,22 @@ class AITDetector(nn.Module):
         self.bbox_pred_head = Dense(2048, 4, dtype=dtype)
 
     def forward(self, image, query, im_info, gt_boxes=None, num_boxes=None,
-                *, train: bool = False) -> DetectorOut:
-        """gt_boxes/num_boxes are unused at eval (kept for the JAX call
-        signature)."""
-        if train:
-            raise NotImplementedError("the port's train step is not ported "
-                                      "yet; call with train=False")
+                *, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> DetectorOut:
+        """num_boxes is unused (kept for the JAX call signature); gt_boxes
+        and the sampling `generator` are read in training only."""
         c = self.cfg
         b = query.shape[0]
         if image.shape[0] != b:
             raise ValueError(f"image batch {image.shape[0]} != query batch {b}")
+        if train:
+            if c.model.t_dropout > 0:
+                raise NotImplementedError(
+                    "training with model.t_dropout > 0 is not ported yet "
+                    "(dropout inside the fused kernels); set "
+                    "model.t_dropout = 0")
+            if gt_boxes is None:
+                raise ValueError("training needs gt_boxes")
         image_feat = self.backbone(_to_model_input(image, self.dtype))
         query_feat = self.backbone(_to_model_input(query, self.dtype))
         non_img, non_qry = self.coattention(image_feat, query_feat)
@@ -111,16 +138,58 @@ class AITDetector(nn.Module):
         anchors = torch.from_numpy(shifted_anchors(
             fh, fw, c.FEAT_STRIDE[0], ratios=c.ANCHOR_RATIOS,
             scales=c.ANCHOR_SCALES)).to(non_img.device)
+        tc = c.TRAIN if train else c.TEST
         rois = proposal_layer(
             rpn_out, anchors, im_info,
-            pre_nms_topk=c.TEST.RPN_PRE_NMS_TOP_N,
-            post_nms_topk=c.TEST.RPN_POST_NMS_TOP_N,
-            nms_thresh=c.TEST.RPN_NMS_THRESH)
-        return self.head(non_img, non_qry, rois)
+            pre_nms_topk=tc.RPN_PRE_NMS_TOP_N,
+            post_nms_topk=tc.RPN_POST_NMS_TOP_N,
+            nms_thresh=tc.RPN_NMS_THRESH)
+        if not train:
+            return self.head(non_img, non_qry, rois)
 
-    def head(self, non_img, non_qry, rois) -> DetectorOut:
-        """ROI Align -> AIT transformer -> SKNet -> top -> match/box heads,
-        from the co-attended features and the proposal layer's rois."""
+        t = c.TRAIN
+        at = anchor_targets(
+            anchors, gt_boxes, im_info, batch_size=t.RPN_BATCHSIZE,
+            fg_fraction=t.RPN_FG_FRACTION,
+            positive_overlap=t.RPN_POSITIVE_OVERLAP,
+            negative_overlap=t.RPN_NEGATIVE_OVERLAP,
+            clobber_positives=t.RPN_CLOBBER_POSITIVES, generator=generator)
+        cls_logits = rpn_out.cls_logits.permute(0, 1, 2, 4, 3)
+        cls_logits = cls_logits.reshape(b, -1, 2)         # (y, x, a) order
+        rpn_loss_cls = L.masked_cross_entropy(cls_logits, at.labels,
+                                              at.labels != -1)
+        deltas = rpn_out.bbox_deltas.float().reshape(b, -1, 4)
+        rpn_loss_box = L.smooth_l1_loss(
+            deltas, at.bbox_targets, at.inside_weights, at.outside_weights,
+            sigma=3.0, reduce_dims=(1, 2))
+
+        pt = proposal_targets(
+            rois, gt_boxes, rois_per_image=t.BATCH_SIZE,
+            fg_fraction=t.FG_FRACTION, fg_thresh=t.FG_THRESH,
+            bg_thresh_hi=t.BG_THRESH_HI, bg_thresh_lo=t.BG_THRESH_LO,
+            bbox_normalize_means=t.BBOX_NORMALIZE_MEANS,
+            bbox_normalize_stds=t.BBOX_NORMALIZE_STDS,
+            bbox_inside_weights=t.BBOX_INSIDE_WEIGHTS, generator=generator)
+        score, score_prob, bbox_pred = self._head(non_img, non_qry, pt.rois)
+        labels = pt.labels
+        rcnn_loss_cls = L.masked_cross_entropy(
+            score.reshape(-1, 2), labels.reshape(-1),
+            torch.ones_like(labels.reshape(-1), dtype=torch.bool))
+        margin_loss = 3.0 * L.margin_ranking_loss(score_prob, labels,
+                                                  t.MARGIN)
+        rcnn_loss_bbox = L.smooth_l1_loss(
+            bbox_pred, pt.bbox_targets.reshape(-1, 4),
+            pt.inside_weights.reshape(-1, 4),
+            pt.outside_weights.reshape(-1, 4), sigma=1.0, reduce_dims=(1,))
+        r = pt.rois.shape[1]
+        return DetectorOut(pt.rois, score_prob.reshape(b, r, 1),
+                           bbox_pred.reshape(b, r, -1), rpn_loss_cls,
+                           rpn_loss_box, rcnn_loss_cls, margin_loss,
+                           rcnn_loss_bbox, labels)
+
+    def _head(self, non_img, non_qry, rois):
+        """(match logits [B, R, 2] f32, match probability [B, R] f32,
+        bbox_pred [B*R, 4] f32)."""
         c = self.cfg
         b, num_props = rois.shape[0], rois.shape[1]
         props = roi_align(non_img, rois[..., 1:5], out_size=c.POOLING_SIZE,
@@ -139,6 +208,12 @@ class AITDetector(nn.Module):
         query_mat = query_vec[:, None, :].expand(b, num_props, d)
         stack = torch.cat([props_mat, query_mat], dim=-1)
         score = self.cls_score_1(self.cls_score_0(stack)).float()
-        score_prob = torch.softmax(score, dim=-1)[..., 1]
+        return score, torch.softmax(score, dim=-1)[..., 1], bbox_pred
+
+    def head(self, non_img, non_qry, rois) -> DetectorOut:
+        """ROI Align -> AIT transformer -> SKNet -> top -> match/box heads,
+        from the co-attended features and the proposal layer's rois."""
+        b, num_props = rois.shape[0], rois.shape[1]
+        _, score_prob, bbox_pred = self._head(non_img, non_qry, rois)
         return DetectorOut(rois, score_prob.reshape(b, num_props, 1),
                            bbox_pred.reshape(b, num_props, -1))

@@ -5,7 +5,9 @@ leaf by path: `Conv` and `Dense` hold PyTorch layouts (weight [O, I, kh, kw]
 and [O, I]), `Params` holds raw leaves in the JAX layout (the attention
 blocks compute x @ w), `FrozenBatchNorm` holds its four constant arrays.
 Like flax's `dtype=`, `Conv` and `Dense` cast their input and parameters to
-the compute dtype at use; the parameters themselves stay float32.
+the compute dtype at use; the parameters themselves stay float32.  Every
+parameter is trainable (`requires_grad`) unless its module freezes it, as the
+ResNet stem does; the FrozenBN arrays are buffers.
 
 Convolutions run on NCHW-shaped tensors in the channels_last memory format:
 a JAX NHWC array permuted to NCHW is exactly that, without a copy.
@@ -28,7 +30,7 @@ class Params(nn.Module):
         super().__init__()
         for name, shape in shapes.items():
             self.register_parameter(
-                name, nn.Parameter(torch.zeros(shape), requires_grad=False))
+                name, nn.Parameter(torch.zeros(shape)))
 
 
 class Conv(nn.Module):
@@ -38,10 +40,8 @@ class Conv(nn.Module):
                  padding: int = 0, groups: int = 1, bias: bool = True,
                  dtype=torch.float32):
         super().__init__()
-        self.weight = nn.Parameter(torch.zeros(cout, cin // groups, k, k),
-                                   requires_grad=False)
-        self.bias = (nn.Parameter(torch.zeros(cout), requires_grad=False)
-                     if bias else None)
+        self.weight = nn.Parameter(torch.zeros(cout, cin // groups, k, k))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self.stride, self.padding, self.groups = stride, padding, groups
         self.dtype = dtype
 
@@ -56,9 +56,8 @@ class Dense(nn.Module):
 
     def __init__(self, cin: int, cout: int, dtype=torch.float32):
         super().__init__()
-        self.weight = nn.Parameter(torch.zeros(cout, cin),
-                                   requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False)
+        self.weight = nn.Parameter(torch.zeros(cout, cin))
+        self.bias = nn.Parameter(torch.zeros(cout))
         self.dtype = dtype
 
     def forward(self, x):

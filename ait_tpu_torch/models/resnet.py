@@ -3,7 +3,9 @@ ait_tpu/models/resnet.py).
 
 The bottleneck puts its stride on conv1 (1x1), the stem max pool is
 3/2/ceil, every BatchNorm is frozen; backbone = stem + layer1..3 (C=1024,
-stride 16), top = layer4 + global spatial mean (2048-d).  The stem is the
+stride 16), top = layer4 + global spatial mean (2048-d).  The stem conv is
+frozen (`requires_grad=False`), as the reference's optimizer excludes it and
+the JAX package stops its gradient (resnet.py:106-108).  The stem is the
 plain 7x7/2 convolution: the JAX package's space-to-depth rewrite of it is a
 TPU matrix-unit layout trick with the same result.
 
@@ -77,6 +79,7 @@ class ResNetBackbone(nn.Module):
         n1, n2, n3, _ = STAGES[variant]
         self.conv1 = Conv(3, 64, 7, stride=2, padding=3, bias=False,
                           dtype=dtype)
+        self.conv1.weight.requires_grad_(False)
         self.bn1 = FrozenBatchNorm(64)
         self.layer1 = ResNetStage(64, 64, n1, 1, dtype)
         self.layer2 = ResNetStage(256, 128, n2, 2, dtype)

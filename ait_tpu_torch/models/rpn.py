@@ -49,11 +49,14 @@ def proposal_layer(rpn_out: RPNOut, anchors: torch.Tensor,
     """Anchors + deltas -> [B, post_nms_topk, 5] rois (batch index in col 0).
 
     anchors [H*W*A, 4] in the (y, x, a) order of the NHWC head outputs;
-    im_info [B, 3] = (h, w, scale)."""
+    im_info [B, 3] = (h, w, scale).  Proposals are data, not a
+    differentiable path: the head outputs are detached here, as the JAX
+    package stops their gradient (rpn.py:73-74)."""
     b, h, w, _, a = rpn_out.cls_logits.shape
-    fg_prob = torch.softmax(rpn_out.cls_logits.float(), dim=3)[..., 1, :]
+    logits = rpn_out.cls_logits.detach().float()
+    fg_prob = torch.softmax(logits, dim=3)[..., 1, :]
     scores = fg_prob.reshape(b, h * w * a)
-    deltas = rpn_out.bbox_deltas.float().reshape(b, h * w * a, 4)
+    deltas = rpn_out.bbox_deltas.detach().float().reshape(b, h * w * a, 4)
     im_info = im_info.float()
 
     proposals = bbox_transform_inv(anchors[None], deltas)

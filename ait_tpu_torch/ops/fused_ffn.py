@@ -1,16 +1,26 @@
 """Fused position-wise FFN and positional-encoding + LayerNorm glue, forward
-(counterpart of ait_tpu/ops/pallas_ffn.py).
+and backward (counterpart of ait_tpu/ops/pallas_ffn.py).
 
 * `fused_ffn`: relu(x @ w1 + b1) @ w2 + b2 -> + x -> LayerNorm, over flat
   rows [N, D]; the wrapper of csrc/ffn.cu, which replaces
   ait_tpu/ops/pallas_ffn.py:195 fused_ffn.
+* `fused_ffn_bwd`: its backward, recomputed from x; replaces
+  ait_tpu/ops/pallas_ffn.py:216 _ffn_bwd.  On the card: the recompute and
+  the input and weight gradients on csrc/gemm.cu, the LayerNorm backward on
+  csrc/posln.cu's `ln_bwd`.
 * `fused_posln`: LayerNorm(x + pos[i mod T]) over flat pair-major rows; the
   wrapper of csrc/posln.cu, which replaces ait_tpu/ops/pallas_ffn.py:355
-  fused_posln.
+  fused_posln.  `fused_posln_bwd` is its backward (csrc/posln.cu `ln_bwd`,
+  replacing ait_tpu/ops/pallas_ffn.py:387 _posln_vjp_bwd); the fixed
+  position table gets a zero gradient.
+* `FusedFFN` and `FusedPosLN` are the autograd Functions over them; `ffn`
+  and `posln` are what the model calls.
 
-Dropout is off on this (eval) path.  LayerNorm eps is 1e-6 with f32
-statistics.  A CUDA tensor goes to the kernel, a CPU tensor to the plain
-version beside it (`ffn_reference`, `posln_reference`).
+Dropout is off (it comes with the train path's next slice).  LayerNorm eps
+is 1e-6 with f32 statistics.  A CUDA tensor goes to the kernel, a CPU tensor
+to the plain version beside it (`ffn_reference`, `posln_reference`, and for
+the backward, torch autograd through them: `ffn_bwd_reference`,
+`posln_bwd_reference`).
 """
 
 from __future__ import annotations
@@ -19,8 +29,8 @@ import ctypes
 
 import torch
 
-from ait_tpu_torch.ops import _build
-from ait_tpu_torch.ops.fused_attention import layer_norm_f32
+from ait_tpu_torch.ops import _build, _gemm
+from ait_tpu_torch.ops.fused_attention import layer_norm_f32, vjp_of
 
 # the widths the kernels are compiled for (the flagship AIT head)
 KERNEL_D, KERNEL_HIDDEN = 512, 2048
@@ -60,6 +70,9 @@ def _check_rows(name, x, params):
 _FFN_FUNCS = {"ffn_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 8 +
               [ctypes.c_int, ctypes.c_void_p]}
 _POSLN_FUNCS = {"posln_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 5 +
+                [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+                "ln_bwd": [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 +
+                [ctypes.c_int] + [ctypes.c_void_p] * 5 +
                 [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
 
 
@@ -120,3 +133,151 @@ def fused_posln(x, pos, ln_s, ln_b):
 
 
 fused_posln.launches = 0
+
+
+# ------------------------------------------------------------------ backward
+
+
+def ffn_bwd_reference(x, w1, b1, w2, b2, ln_s, ln_b, g):
+    """Plain backward: torch autograd through `ffn_reference`.  Returns the
+    cotangents of (x, w1, b1, w2, b2, ln_s, ln_b)."""
+    return vjp_of(ffn_reference, (x, w1, b1, w2, b2, ln_s, ln_b), g)
+
+
+def posln_bwd_reference(x, pos, ln_s, ln_b, g):
+    """Plain backward: torch autograd through `posln_reference`; the
+    position table gets zeros, as in the JAX package."""
+    dx, dln_s, dln_b = vjp_of(
+        lambda x_, s_, b_: posln_reference(x_, pos, s_, b_), (x, ln_s, ln_b),
+        g)
+    return dx, torch.zeros_like(pos), dln_s, dln_b
+
+
+def _ln_bwd(x, add, period, ln_s, g, out_dtype):
+    """csrc/posln.cu `ln_bwd`: (dx, dln_s, dln_b) of LayerNorm(x + add[i mod
+    period]) on the card."""
+    n = x.shape[0]
+    per_block = -(-n // 1024)                    # ~1024 blocks, 8-row runs
+    rpb = max(8, -(-per_block // 8) * 8)
+    blocks = -(-n // rpb)
+    dx = torch.empty((n, KERNEL_D), dtype=out_dtype, device=x.device)
+    parts = torch.empty((2, blocks, KERNEL_D), dtype=torch.float32,
+                        device=x.device)
+    lib = _build.load("posln", _POSLN_FUNCS)
+    _build.check(lib.ln_bwd(
+        int(x.dtype == torch.bfloat16), int(add.dtype == torch.bfloat16),
+        int(out_dtype == torch.bfloat16), x.data_ptr(), add.data_ptr(),
+        period, ln_s.data_ptr(), g.data_ptr(), dx.data_ptr(),
+        parts[0].data_ptr(), parts[1].data_ptr(), n, rpb,
+        _build.stream_ptr(x.device)), "ln_bwd")
+    return dx, _gemm.colsum(parts[0]), _gemm.colsum(parts[1])
+
+
+def fused_ffn_bwd(x, w1, b1, w2, b2, ln_s, ln_b, g):
+    """Same arguments and result as `ffn_bwd_reference`; on CUDA the
+    operands are those `fused_ffn` takes, and g is [N, D] in x's dtype.
+
+    Kernel path, with the JAX kernel's cast points (pallas_ffn.py:126-164):
+    y1 = relu(x @ w1 + b1) rounded to x's dtype, y2 = y1 @ w2 + b2 (f32),
+    dy = LayerNorm backward of y2 + x (f32), dy1 = (dy as x's dtype) @ w2^T
+    where y1 > 0 (f32), dx = (dy1 as x's dtype) @ w1^T + dy; dw1 = x^T dy1,
+    dw2 = y1^T dy, db1, db2 column sums.  It stores y1 [N, 2048] in x's
+    dtype and y2, dy [N, 512] and dy1 [N, 2048] in f32 between launches."""
+    if x.device.type == "cpu":
+        return ffn_bwd_reference(x, w1, b1, w2, b2, ln_s, ln_b, g)
+    _check_rows("ffn_bwd", x, (w1, b1, w2, b2, ln_s, ln_b, g))
+    req = _build.require
+    d, h = KERNEL_D, KERNEL_HIDDEN
+    dt = x.dtype
+    req(tuple(w1.shape) == (d, h) and tuple(w2.shape) == (h, d) and
+        w1.dtype == dt and w2.dtype == dt,
+        f"ffn_bwd: w1 must be [{d}, {h}] and w2 [{h}, {d}] in x's dtype")
+    for name, t, n in (("b1", b1, h), ("b2", b2, d), ("ln_s", ln_s, d),
+                       ("ln_b", ln_b, d)):
+        req(tuple(t.shape) == (n,) and t.dtype == torch.float32,
+            f"ffn_bwd: {name} must be float32 [{n}]")
+    req(g.shape == x.shape and g.dtype == dt,
+        "ffn_bwd: g must be [N, D] in x's dtype")
+    if not x.shape[0]:
+        return (torch.zeros_like(x), torch.zeros_like(w1),
+                torch.zeros_like(b1), torch.zeros_like(w2),
+                torch.zeros_like(b2), torch.zeros_like(ln_s),
+                torch.zeros_like(ln_b))
+    gemm, NN, NT, TN = _gemm.gemm, _gemm.NN, _gemm.NT, _gemm.TN
+    y1 = gemm(NN, x, w1, bias=b1, relu=True, out_dtype=dt)
+    y2 = gemm(NN, y1, w2, bias=b2)
+    dy, dln_s, dln_b = _ln_bwd(x, y2, x.shape[0], ln_s, g, torch.float32)
+    del y2
+    dy1 = gemm(NT, dy.to(dt), w2, mask=y1)
+    dx = gemm(NT, dy1.to(dt), w1, cadd=dy).to(dt)
+    dw1 = gemm(TN, x, dy1).to(dt)
+    dw2 = gemm(TN, y1, dy).to(dt)
+    db1, db2 = _gemm.colsum(dy1), _gemm.colsum(dy)
+    fused_ffn_bwd.launches += 1
+    return dx, dw1, db1, dw2, db2, dln_s, dln_b
+
+
+fused_ffn_bwd.launches = 0
+
+
+def fused_posln_bwd(x, pos, ln_s, ln_b, g):
+    """Same arguments and result as `posln_bwd_reference`."""
+    if x.device.type == "cpu":
+        return posln_bwd_reference(x, pos, ln_s, ln_b, g)
+    _check_rows("posln_bwd", x, (pos, ln_s, ln_b, g))
+    req = _build.require
+    n, d = x.shape
+    t = pos.shape[0]
+    req(pos.dim() == 2 and pos.shape[1] == d and pos.dtype == x.dtype and
+        t > 0 and n % t == 0,
+        "posln_bwd: pos must be [T, D] in x's dtype with N % T == 0")
+    for name, p in (("ln_s", ln_s), ("ln_b", ln_b)):
+        req(tuple(p.shape) == (d,) and p.dtype == torch.float32,
+            f"posln_bwd: {name} must be float32 [{d}]")
+    req(g.shape == x.shape and g.dtype == x.dtype,
+        "posln_bwd: g must be [N, D] in x's dtype")
+    if not n:
+        return (torch.zeros_like(x), torch.zeros_like(pos),
+                torch.zeros_like(ln_s), torch.zeros_like(ln_b))
+    dx, dln_s, dln_b = _ln_bwd(x, pos, t, ln_s, g, x.dtype)
+    fused_posln_bwd.launches += 1
+    return dx, torch.zeros_like(pos), dln_s, dln_b
+
+
+fused_posln_bwd.launches = 0
+
+
+class FusedFFN(torch.autograd.Function):
+    """`fused_ffn` with `fused_ffn_bwd` as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, ln_s, ln_b):
+        ctx.save_for_backward(x, w1, b1, w2, b2, ln_s, ln_b)
+        return fused_ffn(x, w1, b1, w2, b2, ln_s, ln_b)
+
+    @staticmethod
+    def backward(ctx, g):
+        return fused_ffn_bwd(*ctx.saved_tensors, g.contiguous())
+
+
+class FusedPosLN(torch.autograd.Function):
+    """`fused_posln` with `fused_posln_bwd` as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, pos, ln_s, ln_b):
+        ctx.save_for_backward(x, pos, ln_s, ln_b)
+        return fused_posln(x, pos, ln_s, ln_b)
+
+    @staticmethod
+    def backward(ctx, g):
+        return fused_posln_bwd(*ctx.saved_tensors, g.contiguous())
+
+
+def ffn(x, w1, b1, w2, b2, ln_s, ln_b):
+    """The model's FFN block: `fused_ffn`, differentiable."""
+    return FusedFFN.apply(x, w1, b1, w2, b2, ln_s, ln_b)
+
+
+def posln(x, pos, ln_s, ln_b):
+    """The model's input glue: `fused_posln`, differentiable."""
+    return FusedPosLN.apply(x, pos, ln_s, ln_b)

@@ -19,20 +19,10 @@ import numpy as np
 import torch
 
 from ait_tpu_torch.config import Config
+from ait_tpu_torch.device import resolve_device
 from ait_tpu_torch.evaluation import postprocess_detections
 from ait_tpu_torch.models import AITDetector
 from ait_tpu_torch.train import make_eval_step
-
-
-def resolve_device(device=None) -> torch.device:
-    """The GPU unless the caller names a device; no GPU and no device named
-    is an error, never a quiet run on the CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
-                           "port on the CPU")
-    return torch.device("cuda")
 
 
 class OneShotPredictor:

@@ -4,13 +4,21 @@
     python3 chip_smoke.py            # from the root of a checkout, one GPU
 
 1. Prints the card, its power limit, the CUDA version, and builds every
-   kernel of the eval path from ait_tpu_torch/csrc (one nvcc per source, in
-   parallel).
+   kernel of the eval and train paths from ait_tpu_torch/csrc (one nvcc per
+   source, in parallel).
 2. Holds each kernel against its plain PyTorch version at the shapes the
-   flagship eval path gives it at a batch of 8: float32 with TF32 off
-   (max abs error <= 2e-3, the JAX package's TPU kernel gate), bfloat16 at
-   the tolerance stated beside each check, NMS selections bit-equal; and
-   times both (CUDA events, after warm-up).
+   flagship gives it at a batch of 8, and times both (CUDA events, after
+   warm-up):
+   * eval path: float32 with TF32 off (max abs error <= 2e-3, the JAX
+     package's TPU kernel gate), bfloat16 at the tolerance stated beside
+     each check, NMS selections bit-equal;
+   * train path (128 rois per image): the attention forward that saves its
+     per-head outputs, and the attention, FFN and glue backward kernels,
+     whose plain versions are torch autograd through the plain forwards.
+     float32 with TF32 off: every cotangent within 5e-3 of its max
+     |plain| (the backward gate of tools/tpu_kernel_check.py), the saved
+     outputs within 2e-3 absolute; bfloat16 at the stated tolerance; NMS
+     at the train tops (12032 candidates, cap 2000) bit-equal.
 3. Serves the full-width ResNet-50 flagship (random weights from a numpy
    seed, carried in through the weight bridge) with OneShotPredictor:
    batches of 8 uint8 608x800 canvases and 128x128 queries.  Every kernel's
@@ -18,7 +26,16 @@
    its expected launches per forward.  The outputs must be finite and
    well-formed, and the kernel path must agree with the same model run
    through the plain versions (float32, batch 2).
-4. Prints the per-kernel JSON line, then the device JSON line last.
+4. Trains the same flagship (model.t_dropout = 0, bfloat16 compute, float32
+   parameters) with make_train_step: one warm-up and 3 timed steps on
+   batches of 8 with a few ground-truth boxes each.  The launch counts are
+   set to 0 before and read after; each kernel must show its launches per
+   step.  The five losses must be finite, every trainable leaf must move
+   and every frozen leaf and buffer must stay bitwise unchanged; and one
+   float32 train step at batch 2 must agree with the plain path on the
+   same weights and draws (losses within 1e-4 relative, every gradient
+   within 5e-3 of its leaf's max |plain|).
+5. Prints the per-kernel JSON line, then the device JSON line last.
 
 Exits non-zero, with no result line, without a CUDA device or outside a
 checkout of the repository.  Imports nothing of JAX or ait_tpu.
@@ -27,6 +44,7 @@ checkout of the repository.  Imports nothing of JAX or ait_tpu.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -36,12 +54,21 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-B = 8                     # requests per batch
+B = 8                     # requests per batch (eval) and images per step
 BATCHES = 3               # timed batches after one warm-up
+STEPS = 3                 # timed train steps after one warm-up
+ROIS = 128                # sampled rois per image (TRAIN.BATCH_SIZE)
 HBM_BYTES_S = 3.35e12     # H100 SXM, published
 BF16_FLOP_S = 989e12      # dense tensor cores
 F32_FLOP_S = 67e12        # CUDA cores
 F32_TOL = 2e-3            # tools/tpu_kernel_check.py's forward bound
+BWD_REL = 5e-3            # its backward bound, relative to max |plain|
+# bf16 backward, relative to max |plain|: the plain version rounds q/k/v,
+# the probabilities, the per-head outputs and the hidden activation to bf16
+# where the kernels keep f32 between products (as the Pallas kernels do);
+# each rounding is 2^-9 relative and a cotangent passes through a few
+# (measured <= 9.4e-3 at 64 pairs on an H100)
+BF16_BWD_REL = 2e-2
 
 
 def log(msg: str) -> None:
@@ -89,14 +116,20 @@ def bound(nbytes: float, flops: float, peak: float):
 # ---------------------------------------------------------------- kernels
 
 
-def check_nms(torch, dev):
+NMS_EVAL = ((6144, 0.7, 300), (300, 0.3, 300))
+NMS_TRAIN = ((12032, 0.7, 2000),)
+
+
+def check_nms(torch, dev, shapes):
+    """shapes: (candidates, threshold, survivor cap) per call."""
     from ait_tpu_torch.ops import nms as nms_mod
 
     g = torch.Generator(device="cpu").manual_seed(1)
     entries = []
-    # proposal layer (6000 -> tile-aligned 6144, thr 0.7) and postprocess
-    # (300 detections, thr 0.3); both keep at most 300
-    for n, thr in ((6144, 0.7), (300, 0.3)):
+    # eval: the proposal layer (6000 -> tile-aligned 6144, thr 0.7) and the
+    # postprocess (300 detections, thr 0.3), both keep at most 300; train:
+    # the proposal layer at the TRAIN tops (12000 -> 12032, keep 2000)
+    for n, thr, cap in shapes:
         ctr = torch.rand(B, n, 2, generator=g) * torch.tensor([800., 608.])
         wh = 16 + torch.rand(B, n, 2, generator=g) * 300
         boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], -1).clamp(0, 799)
@@ -106,7 +139,6 @@ def check_nms(torch, dev):
         valid = torch.ones(B, n, dtype=torch.bool)
         valid[::2, -n // 10:] = False        # padded rows on half the images
         boxes, valid = boxes.to(dev).contiguous(), valid.to(dev)
-        cap = 300
 
         got = nms_mod.nms_keep_mask_batched(boxes, valid, thr, max_out=cap)
         want = nms_mod.nms_keep_mask_reference(boxes, valid, thr,
@@ -117,14 +149,16 @@ def check_nms(torch, dev):
                 torch.equal(sel_got[i, :int(cnt_got[i])],
                             sel_want[i, :int(cnt_want[i])])
                 for i in range(B))):
-            fail(f"nms [{B},{n}] thr {thr}: kernel selections differ from "
-                 "the plain version")
+            fail(f"nms [{B},{n}] thr {thr} cap {cap}: kernel selections "
+                 "differ from the plain version")
         ms = cuda_ms(lambda: nms_mod.nms_keep_mask_batched(
             boxes, valid, thr, max_out=cap), iters=20)
         plain_ms = cuda_ms(lambda: nms_mod.nms_keep_mask_reference(
             boxes, valid, thr, max_out=cap), iters=2, warmup=1)
         # IoU tests this data needs: each processed tile against the
-        # survivors so far, plus its own upper triangle; ~25 f32 ops each
+        # survivors so far (the kernel holds at most the cap, rounded up to
+        # 128), plus its own upper triangle; ~25 f32 ops each
+        cap_pad = -(-cap // 128) * 128
         kept = got.cpu()
         tests = 0
         for i in range(B):
@@ -132,10 +166,10 @@ def check_nms(torch, dev):
             for start in range(0, n, 256):
                 if before >= cap:
                     break
-                tests += 256 * min(before, 384) + 256 * 255 // 2
+                tests += 256 * min(before, cap_pad) + 256 * 255 // 2
                 before += int(kept[i, start:start + 256].sum())
         t_bound, by = bound(B * n * (16 + 1 + 1), tests * 25, F32_FLOP_S)
-        log(f"nms [{B},{n}] thr {thr}: selections bit-equal "
+        log(f"nms [{B},{n}] thr {thr} cap {cap}: selections bit-equal "
             f"(counts {cnt_got.tolist()}); kernel_ms {ms:.4f} "
             f"plain_ms {plain_ms:.3f} bound_ms {t_bound:.6f} ({by})")
         entries.append((ms, plain_ms, t_bound, by))
@@ -291,20 +325,254 @@ def check_posln(torch, dev):
             "bound_ms": bound_sum, "bound_by": "bytes"}
 
 
+# ---------------------------------------------------------- train kernels
+
+
+def rel_err(got, want):
+    """max |got - want| over max |want|."""
+    return ((got.float() - want.float()).abs().max() /
+            want.float().abs().max().clamp(min=1e-30)).item()
+
+
+def check_grads(name, got, want, tol):
+    """Every cotangent within tol of its max |plain|; returns (the largest
+    such relative error, the largest absolute error)."""
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    if len(got) != len(want) or not all(math.isfinite(e) and e <= tol
+                                        for e in errs):
+        fail(f"{name}: cotangent errors {errs} (tol {tol} of max |plain|)")
+    return max(errs), max((a.float() - b.float()).abs().max().item()
+                          for a, b in zip(got, want))
+
+
+# the train path's attention calls at a batch of 8 images x 128 rois:
+# (name, pairs, Tq, Tk, self-attention)
+ATTN_TRAIN = (("encoder self", B * ROIS, 56, 56, True),
+              ("decoder self", B, 64, 64, True),
+              ("decoder cross", B * ROIS, 64, 56, False))
+
+
+def _attn_mask(torch, dev, tq, tk, self_attn):
+    tok = torch.arange(64, device=dev)
+    if tq == 64 and self_attn:
+        return torch.tril(torch.ones(64, 64, dtype=torch.bool, device=dev))
+    return (tok[:tk] < 49)[None, :].expand(tq, tk).contiguous()
+
+
+def check_attention_train(torch, dev):
+    """Kernel A (forward with saved per-head outputs) and kernel D (the
+    backward from them)."""
+    from ait_tpu_torch.ops import fused_attention as fa
+
+    d, dk, h = 512, 64, 8
+    res = {"saved": [[], 0.0, 0.0, 0.0], "bwd": [[], 0.0, 0.0, 0.0]}
+    for name, p, tq, tk, self_attn in ATTN_TRAIN:
+        mask = _attn_mask(torch, dev, tq, tk, self_attn)
+        gen = torch.Generator(device="cpu").manual_seed(p + tq)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _attn_args(torch, dev, p, tq, tk, dtype, seed=tq + tk)
+            out, oh = fa.fused_sh_attention_saved(*args, mask)
+            rout, roh = fa.sh_attention_saved_reference(*args, mask)
+            e_out, e_oh = err_of(out, rout), (oh - roh).abs().max().item()
+            if dtype == torch.float32:
+                tol_out = tol_oh = F32_TOL
+                tol_bwd = BWD_REL
+            else:
+                # the output as the eval check's; the saved outputs in units
+                # of max(1, |plain|): the plain version rounds q/k/v and the
+                # probabilities to bf16 before P v, the kernel keeps f32
+                tol_out = tol_oh = 2.0 ** -5
+                e_oh = ((oh - roh).abs() /
+                        roh.abs().clamp(min=1.0)).max().item()
+                tol_bwd = BF16_BWD_REL
+            if not (e_out <= tol_out and e_oh <= tol_oh):
+                fail(f"sh_attention_saved {name} {dtype}: out err {e_out} "
+                     f"(tol {tol_out}), saved err {e_oh} (tol {tol_oh})")
+            g = torch.randn(out.shape, generator=gen).to(dev, dtype)
+            got = fa.fused_sh_attention_bwd(*args, mask, oh, g)
+            want = fa.sh_attention_bwd_reference(*args, mask, oh, g)
+            e_bwd, abs_bwd = check_grads(f"sh_attention_bwd {name} {dtype}",
+                                         got, want, tol_bwd)
+            if dtype == torch.float32:
+                res["saved"][0].append(max(e_out, e_oh))
+                res["bwd"][0].append(abs_bwd)
+            log(f"sh_attention train {name} P={p} {tq}x{tk} {dtype}: out "
+                f"err {e_out:.3e}, saved err {e_oh:.3e}, bwd rel err "
+                f"{e_bwd:.3e} (tol {tol_bwd}), abs err {abs_bwd:.3e}")
+        # timed in bf16, the train path's type
+        ms_a = cuda_ms(lambda: fa.fused_sh_attention_saved(*args, mask))
+        plain_a = cuda_ms(lambda: fa.sh_attention_saved_reference(*args,
+                                                                  mask))
+        ms_d = cuda_ms(lambda: fa.fused_sh_attention_bwd(*args, mask, oh, g),
+                       iters=5)
+        plain_d = cuda_ms(lambda: fa.sh_attention_bwd_reference(
+            *args, mask, oh, g), iters=5)
+        n_in = p * (tq if self_attn else tq + tk) * d * 2
+        w_bytes = (3 * d * d + dk * h * dk + h * dk + dk * d) * 2 + 2 * d * 4
+        oh_bytes = h * p * tq * dk * 4
+        flops_a = p * (2 * tq * d * d + 4 * tk * d * d + 4 * tq * tk * d +
+                       2 * dk * h * dk + 2 * tq * dk * d)
+        b_a, by_a = bound(n_in + w_bytes + tq * tk + p * tq * d * 2 +
+                          oh_bytes, flops_a, BF16_FLOP_S)
+        # recompute q/k/v; scores, dP, dv, dz, dk; fc, do, dfc; dxq, dxkv
+        # and the three projection weight gradients
+        flops_d = p * (2 * tq * d * d + 4 * tk * d * d + 10 * tq * tk * d +
+                       6 * tq * dk * d + 4 * tq * d * d + 8 * tk * d * d)
+        b_d, by_d = bound(n_in + w_bytes + oh_bytes + tq * tk +
+                          p * tq * d * 2 +                # g
+                          p * (tq + tk) * d * 2 +         # dxq, dxkv
+                          w_bytes, flops_d, BF16_FLOP_S)
+        log(f"sh_attention_saved {name}: kernel_ms {ms_a:.3f} plain_ms "
+            f"{plain_a:.3f} bound_ms {b_a:.4f} ({by_a})")
+        log(f"sh_attention_bwd {name}: kernel_ms {ms_d:.3f} plain_ms "
+            f"{plain_d:.3f} bound_ms {b_d:.4f} ({by_d})")
+        for key, vals in (("saved", (ms_a, plain_a, b_a)),
+                          ("bwd", (ms_d, plain_d, b_d))):
+            for i, v in enumerate(vals):
+                res[key][i + 1] += v
+    return {k: {"max_abs_err": max(v[0]), "ms": v[1], "plain_ms": v[2],
+                "bound_ms": v[3], "bound_by": "operations"}
+            for k, v in res.items()}
+
+
+def check_ffn_train(torch, dev):
+    """Kernel B: the FFN backward, recomputed from x."""
+    from ait_tpu_torch.ops.fused_ffn import ffn_bwd_reference, fused_ffn_bwd
+
+    g = torch.Generator(device="cpu").manual_seed(5)
+    d, hid = 512, 2048
+    errs, ms_sum, plain_sum, bound_sum = [], 0.0, 0.0, 0.0
+    for name, n in (("encoder", B * ROIS * 56), ("decoder", B * ROIS * 64)):
+        base = [torch.randn(n, d, generator=g),
+                torch.randn(d, hid, generator=g) * d ** -0.5,
+                0.05 * torch.randn(hid, generator=g),
+                torch.randn(hid, d, generator=g) * hid ** -0.5,
+                0.05 * torch.randn(d, generator=g),
+                1 + 0.1 * torch.randn(d, generator=g),
+                0.1 * torch.randn(d, generator=g),
+                torch.randn(n, d, generator=g)]
+        base = [t.to(dev) for t in base]
+        for dtype, tol in ((torch.float32, BWD_REL),
+                           (torch.bfloat16, BF16_BWD_REL)):
+            args = [base[0].to(dtype), base[1].to(dtype), base[2],
+                    base[3].to(dtype), base[4], base[5], base[6],
+                    base[7].to(dtype)]
+            err, abs_err = check_grads(f"ffn_bwd {name} {dtype}",
+                                       fused_ffn_bwd(*args),
+                                       ffn_bwd_reference(*args), tol)
+            if dtype == torch.float32:
+                errs.append(abs_err)
+            log(f"ffn_bwd {name} N={n} {dtype}: rel err {err:.3e} "
+                f"(tol {tol}), abs err {abs_err:.3e}")
+        ms = cuda_ms(lambda: fused_ffn_bwd(*args), iters=3, warmup=1)
+        plain_ms = cuda_ms(lambda: ffn_bwd_reference(*args), iters=3,
+                           warmup=1)
+        # x, g in; dx out; w1, w2 in and their gradients out (bf16); the
+        # products: y1 and y2 recomputed, dy1, dx, dw1, dw2
+        t_bound, by = bound(3 * n * d * 2 + 4 * d * hid * 2 +
+                            2 * (hid + 3 * d) * 4, 12 * n * d * hid,
+                            BF16_FLOP_S)
+        log(f"ffn_bwd {name}: kernel_ms {ms:.3f} plain_ms {plain_ms:.3f} "
+            f"bound_ms {t_bound:.4f} ({by})")
+        ms_sum, plain_sum, bound_sum = (ms_sum + ms, plain_sum + plain_ms,
+                                        bound_sum + t_bound)
+    return {"max_abs_err": max(errs), "ms": ms_sum, "plain_ms": plain_sum,
+            "bound_ms": bound_sum, "bound_by": "operations"}
+
+
+def check_posln_train(torch, dev):
+    """Kernel C: the glue's LayerNorm backward."""
+    from ait_tpu_torch.models.layers import sinusoid_table
+    from ait_tpu_torch.ops.fused_ffn import (fused_posln_bwd,
+                                             posln_bwd_reference)
+
+    g = torch.Generator(device="cpu").manual_seed(6)
+    d = 512
+    errs, ms_sum, plain_sum, bound_sum = [], 0.0, 0.0, 0.0
+    for name, n, t in (("encoder", B * ROIS * 56, 56), ("decoder", B * 64,
+                                                        64)):
+        x = torch.randn(n, d, generator=g).to(dev)
+        gy = torch.randn(n, d, generator=g).to(dev)
+        pos = torch.from_numpy(sinusoid_table(64, d)[:t]).to(dev)
+        ln_s = (1 + 0.1 * torch.randn(d, generator=g)).to(dev)
+        ln_b = (0.1 * torch.randn(d, generator=g)).to(dev)
+        for dtype, tol in ((torch.float32, BWD_REL),
+                           (torch.bfloat16, BF16_BWD_REL)):
+            args = (x.to(dtype), pos.to(dtype), ln_s, ln_b, gy.to(dtype))
+            err, abs_err = check_grads(f"posln_bwd {name} {dtype}",
+                                       fused_posln_bwd(*args),
+                                       posln_bwd_reference(*args), tol)
+            if dtype == torch.float32:
+                errs.append(abs_err)
+            log(f"posln_bwd {name} N={n} {dtype}: rel err {err:.3e} "
+                f"(tol {tol}), abs err {abs_err:.3e}")
+        ms = cuda_ms(lambda: fused_posln_bwd(*args), iters=20)
+        plain_ms = cuda_ms(lambda: posln_bwd_reference(*args), iters=20)
+        t_bound, by = bound(3 * n * d * 2 + 2 * t * d * 2 + 4 * d * 4,
+                            12 * n * d, BF16_FLOP_S)
+        log(f"posln_bwd {name}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
+            f"bound_ms {t_bound:.4f} ({by})")
+        ms_sum, plain_sum, bound_sum = (ms_sum + ms, plain_sum + plain_ms,
+                                        bound_sum + t_bound)
+    return {"max_abs_err": max(errs), "ms": ms_sum, "plain_ms": plain_sum,
+            "bound_ms": bound_sum, "bound_by": "bytes"}
+
+
 # ------------------------------------------------------------------ slice
+
+
+def kernel_wrappers():
+    """JSON name -> the wrapper whose `launches` counts that kernel."""
+    from ait_tpu_torch.ops import fused_attention as fa, fused_ffn as ff, nms
+
+    return {"nms_keep_mask": nms.nms_keep_mask_batched,
+            "sh_attention_fwd": fa.fused_sh_attention,
+            "ffn_fwd": ff.fused_ffn,
+            "posln_fwd": ff.fused_posln,
+            "sh_attention_saved": fa.fused_sh_attention_saved,
+            "sh_attention_bwd": fa.fused_sh_attention_bwd,
+            "ffn_bwd": ff.fused_ffn_bwd,
+            "posln_bwd": ff.fused_posln_bwd}
+
+
+# launches of each kernel per eval forward and per train step (a wrapper
+# counts one launch per call, also where it runs several CUDA kernels)
+PER_FORWARD = {"nms_keep_mask": 2, "sh_attention_fwd": 3, "ffn_fwd": 2,
+               "posln_fwd": 2, "sh_attention_saved": 0, "sh_attention_bwd": 0,
+               "ffn_bwd": 0, "posln_bwd": 0}
+PER_STEP = {"nms_keep_mask": 1, "sh_attention_fwd": 0, "ffn_fwd": 2,
+            "posln_fwd": 2, "sh_attention_saved": 3, "sh_attention_bwd": 3,
+            "ffn_bwd": 2, "posln_bwd": 2}
+
+
+def zero_counts():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_counts(expected, runs, what):
+    launches = {k: fn.launches for k, fn in kernel_wrappers().items()}
+    for k, n in expected.items():
+        if launches[k] != n * runs:
+            fail(f"{k}: {launches[k]} launches over {runs} {what}, "
+                 f"expected {n} per {what[:-1]}")
+    return launches
 
 
 @contextlib.contextmanager
 def plain_path():
-    """Route the model's kernel call sites to the plain versions (to hold
-    the whole kernel path against the plain path on the same card)."""
-    from ait_tpu_torch.models import ait_transformer, attention
-    from ait_tpu_torch.ops import fused_attention, fused_ffn, nms
+    """Route every kernel wrapper to its plain version (to hold the whole
+    kernel path against the plain path on the same card); the model and
+    the autograd Functions look the wrappers up at call time."""
+    from ait_tpu_torch.ops import fused_attention as fa, fused_ffn as ff, nms
 
-    swaps = [(attention, "fused_sh_attention",
-              fused_attention.sh_attention_reference),
-             (attention, "fused_ffn", fused_ffn.ffn_reference),
-             (ait_transformer, "fused_posln", fused_ffn.posln_reference),
+    swaps = [(fa, "fused_sh_attention", fa.sh_attention_reference),
+             (fa, "fused_sh_attention_saved", fa.sh_attention_saved_reference),
+             (fa, "fused_sh_attention_bwd", fa.sh_attention_bwd_reference),
+             (ff, "fused_ffn", ff.ffn_reference),
+             (ff, "fused_ffn_bwd", ff.ffn_bwd_reference),
+             (ff, "fused_posln", ff.posln_reference),
+             (ff, "fused_posln_bwd", ff.posln_bwd_reference),
              (nms, "nms_keep_mask_batched", nms.nms_keep_mask_reference)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     for m, n, f in swaps:
@@ -334,7 +602,6 @@ def drive_slice(torch, np, dev):
     from ait_tpu_torch import bridge
     from ait_tpu_torch.config import Config
     from ait_tpu_torch.models import AITDetector
-    from ait_tpu_torch.ops import fused_attention, fused_ffn, nms
     from ait_tpu_torch.predict import OneShotPredictor
 
     cfg = Config()
@@ -349,12 +616,7 @@ def drive_slice(torch, np, dev):
     rng = np.random.RandomState(0)
     requests = [make_requests(np, cfg, rng, B) for _ in range(BATCHES + 1)]
 
-    kernels = {"nms_keep_mask": nms.nms_keep_mask_batched,
-               "sh_attention_fwd": fused_attention.fused_sh_attention,
-               "ffn_fwd": fused_ffn.fused_ffn,
-               "posln_fwd": fused_ffn.fused_posln}
-    for fn in kernels.values():
-        fn.launches = 0
+    zero_counts()
     times = []
     for i, req in enumerate(requests):
         torch.cuda.synchronize()
@@ -364,20 +626,14 @@ def drive_slice(torch, np, dev):
         if i:                                   # the first is the warm-up
             times.append((time.perf_counter() - t0) * 1e3)
         check_dets(np, dets, req[2], cfg)
-    launches = {k: fn.launches for k, fn in kernels.items()}
-    per_forward = {"nms_keep_mask": 2, "sh_attention_fwd": 3, "ffn_fwd": 2,
-                   "posln_fwd": 2}
-    for k, n in per_forward.items():
-        if launches[k] != n * len(requests):
-            fail(f"{k}: {launches[k]} launches over {len(requests)} "
-                 f"forwards, expected {n} per forward")
+    launches = read_counts(PER_FORWARD, len(requests), "forwards")
     log(f"slice: {len(requests)} batches of {B} requests at "
         f"{cfg.tpu.image_size[0]}x{cfg.tpu.image_size[1]}; launches "
         f"{launches}")
     log(f"slice: ms per batch of {B} (after one warm-up): "
         f"{[round(t, 3) for t in times]}, mean {sum(times) / len(times):.3f}")
     compare_paths(torch, np, cfg, state, dev, requests[0])
-    return launches, times
+    return launches, params
 
 
 def check_dets(np, dets, im_info, cfg):
@@ -425,6 +681,142 @@ def compare_paths(torch, np, cfg, state, dev, req):
                  f"{v} > {tol[k]}")
 
 
+# ------------------------------------------------------------ train slice
+
+LOSS_FIELDS = ("rpn_loss_cls", "rpn_loss_box", "rcnn_loss_cls",
+               "margin_loss", "rcnn_loss_bbox")
+LOSS_KEYS = ("rpn_cls", "rpn_box", "rcnn_cls", "margin", "rcnn_box")
+
+
+def train_config():
+    """The flagship with dropout off: the port trains at t_dropout = 0."""
+    from ait_tpu_torch.config import Config
+
+    cfg = Config()
+    return cfg.replace(model=dataclasses.replace(cfg.model, t_dropout=0.0))
+
+
+def make_train_batch(np, cfg, rng, b):
+    """Requests as served, with 1-4 ground-truth boxes of class 1 per image
+    (canvas coordinates, inside the image), zero-padded to MAX_NUM_GT_BOXES."""
+    canvas, query, im_info = make_requests(np, cfg, rng, b)
+    gt = np.zeros((b, cfg.MAX_NUM_GT_BOXES, 5), np.float32)
+    for i in range(b):
+        ih, iw = im_info[i, :2]
+        for j in range(rng.randint(1, 5)):
+            w, h = rng.uniform(48, iw / 2), rng.uniform(48, ih / 2)
+            x1, y1 = rng.uniform(0, iw - w - 1), rng.uniform(0, ih - h - 1)
+            gt[i, j] = (x1, y1, x1 + w, y1 + h, 1)
+    return {"image": canvas, "query": query, "im_info": im_info,
+            "gt_boxes": gt}
+
+
+def drive_train(torch, np, dev, params):
+    """One warm-up and STEPS timed train steps of the full-width flagship
+    in bf16 at a batch of B images."""
+    from ait_tpu_torch import bridge
+    from ait_tpu_torch.models import AITDetector
+    from ait_tpu_torch.train import (lr_schedule, make_optimizer,
+                                     make_train_step)
+
+    cfg = train_config()
+    t = cfg.TRAIN
+    model = AITDetector(cfg, dtype=torch.bfloat16)
+    model.load_state_dict(bridge.to_state_dict(model, params))
+    opt = make_optimizer(cfg, model)
+    step = make_train_step(model, opt, lr_schedule(t.LEARNING_RATE, 1000, 5,
+                                                   t.GAMMA), device=dev)
+    trainable = {id(p) for g in opt.param_groups for p in g["params"]}
+    names = {k for k, p in model.named_parameters() if id(p) in trainable}
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    rng = np.random.RandomState(1)
+    batches = [make_train_batch(np, cfg, rng, B) for _ in range(STEPS + 1)]
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    zero_counts()
+    times = []
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        met = step(batch, gen)
+        torch.cuda.synchronize()
+        if i:                                   # the first is the warm-up
+            times.append((time.perf_counter() - t0) * 1e3)
+        met = {k: float(v) for k, v in met.items()}
+        if not all(math.isfinite(met[k]) for k in LOSS_KEYS + ("loss",)):
+            fail(f"train step {i}: non-finite loss {met}")
+        if met["fg_cnt"] + met["bg_cnt"] != B * t.BATCH_SIZE:
+            fail(f"train step {i}: {met['fg_cnt']} + {met['bg_cnt']} "
+                 f"sampled rois, expected {B * t.BATCH_SIZE}")
+        log(f"train step {i}: {met}")
+    launches = read_counts(PER_STEP, len(batches), "steps")
+    after = model.state_dict()
+    still = sorted(k for k in names if torch.equal(before[k], after[k]))
+    moved = sorted(k for k in before
+                   if k not in names and not torch.equal(before[k], after[k]))
+    if still:
+        fail(f"trainable leaves that did not move: {still[:10]}")
+    if moved:
+        fail(f"frozen leaves or buffers that moved: {moved[:10]}")
+    mean = sum(times) / len(times)
+    log(f"train: {len(batches)} steps of {B} images at "
+        f"{cfg.tpu.image_size[0]}x{cfg.tpu.image_size[1]}, {ROIS} rois "
+        f"each; launches {launches}; {len(names)} trainable leaves moved, "
+        f"{len(before) - len(names)} frozen leaves and buffers unchanged")
+    log(f"train: ms per step of {B} (after one warm-up): "
+        f"{[round(x, 3) for x in times]}, mean {mean:.3f}, pairs/s "
+        f"{B * 1e3 / mean:.2f}, peak memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+    compare_train_paths(torch, dev, cfg, params, batches[0])
+    return launches
+
+
+def compare_train_paths(torch, dev, cfg, params, batch):
+    """One f32 train step (forward, losses, backward) of the kernel path
+    against the plain path, at 2 images, same weights and draws, TF32 off."""
+    from ait_tpu_torch import bridge
+    from ait_tpu_torch.models import AITDetector
+
+    runs = []
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for plain in (False, True):
+            model = AITDetector(cfg, dtype=torch.float32)
+            model.load_state_dict(bridge.to_state_dict(model, params))
+            model.to(dev).train()
+            b2 = {k: torch.as_tensor(v[:2]).to(dev) for k, v in batch.items()}
+            gen = torch.Generator(device=dev).manual_seed(7)
+            with plain_path() if plain else contextlib.nullcontext():
+                out = model(b2["image"], b2["query"], b2["im_info"],
+                            b2["gt_boxes"], train=True, generator=gen)
+                out.total_loss.backward()
+            runs.append(([getattr(out, k).item() for k in LOSS_FIELDS],
+                         out.rois_label,
+                         {k: p.grad for k, p in model.named_parameters()
+                          if p.grad is not None}))
+            del model, out
+    finally:
+        torch.backends.cudnn.deterministic = det
+    (lk, labk, gk), (lp, labp, gp) = runs
+    if not torch.equal(labk, labp):
+        fail("train step: the kernel and plain paths sampled other rois")
+    loss_err = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(lk, lp))
+    if sorted(gk) != sorted(gp):
+        fail("train step: the two paths give gradients to other leaves")
+    grad_err = {k: rel_err(gk[k], gp[k]) for k in gp}
+    worst = max(grad_err, key=grad_err.get)
+    log(f"train kernel path vs plain path (f32, 2 images): losses {lk} vs "
+        f"{lp}, max rel diff {loss_err:.3e}; {len(gp)} gradients, max diff "
+        f"{grad_err[worst]:.3e} of the leaf's max |plain| ({worst})")
+    if not loss_err <= 1e-4:
+        fail(f"train step: losses differ by {loss_err} relative (tol 1e-4)")
+    bad = {k: v for k, v in grad_err.items() if not v <= BWD_REL}
+    if bad:
+        fail(f"train step: gradients beyond {BWD_REL} of their leaf's max "
+             f"|plain|: {sorted(bad.items(), key=lambda kv: -kv[1])[:10]}")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "ait_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository "
@@ -450,15 +842,21 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.time()
-    sources = ["nms", "sh_attention", "ffn", "posln"]
+    sources = ["nms", "sh_attention", "ffn", "posln", "gemm"]
     _build.build_all(sources)
     log(f"built {sources} in {time.time() - t0:.1f} s")
 
-    results = {"nms_keep_mask": check_nms(torch, dev),
+    results = {"nms_keep_mask": check_nms(torch, dev, NMS_EVAL + NMS_TRAIN),
                "sh_attention_fwd": check_attention(torch, dev),
                "ffn_fwd": check_ffn(torch, dev),
                "posln_fwd": check_posln(torch, dev)}
-    launches, _ = drive_slice(torch, np, dev)
+    attn = check_attention_train(torch, dev)
+    results.update({"sh_attention_saved": attn["saved"],
+                    "sh_attention_bwd": attn["bwd"],
+                    "ffn_bwd": check_ffn_train(torch, dev),
+                    "posln_bwd": check_posln_train(torch, dev)})
+    eval_launches, params = drive_slice(torch, np, dev)
+    train_launches = drive_train(torch, np, dev, params)
 
     meta = {"nms_keep_mask": ("ait_tpu_torch/csrc/nms.cu",
                               "ait_tpu/ops/nms_pallas.py:133"),
@@ -467,10 +865,24 @@ def main() -> int:
             "ffn_fwd": ("ait_tpu_torch/csrc/ffn.cu",
                         "ait_tpu/ops/pallas_ffn.py:195"),
             "posln_fwd": ("ait_tpu_torch/csrc/posln.cu",
-                          "ait_tpu/ops/pallas_ffn.py:355")}
+                          "ait_tpu/ops/pallas_ffn.py:355"),
+            "sh_attention_saved": ("ait_tpu_torch/csrc/sh_attention.cu",
+                                   "ait_tpu/ops/pallas_attention.py:760"),
+            # the per-pair kernel, then the products on csrc/gemm.cu
+            "sh_attention_bwd": ("ait_tpu_torch/csrc/sh_attention.cu",
+                                 "ait_tpu/ops/pallas_attention.py:630"),
+            # the products on csrc/gemm.cu, the LayerNorm backward on
+            # csrc/posln.cu
+            "ffn_bwd": ("ait_tpu_torch/csrc/gemm.cu",
+                        "ait_tpu/ops/pallas_ffn.py:216"),
+            "posln_bwd": ("ait_tpu_torch/csrc/posln.cu",
+                          "ait_tpu/ops/pallas_ffn.py:387")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **results[name], "library_ms": None}
+         "launches": eval_launches[name] + train_launches[name],
+         "launches_by_path": {"eval": eval_launches[name],
+                              "train": train_launches[name]},
+         **results[name], "library_ms": None}
         for name, (src, rep) in meta.items()]}
     log(smi)
     print(json.dumps(line), flush=True)

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ait_tpu_torch, and not chip_smoke.py,
-imports JAX, flax, optax or the JAX package; its entry points refuse to run
-quietly on the CPU when no GPU is there."""
+"""The port stands alone: no module of ait_tpu_torch, and neither
+chip_smoke.py nor tools/port_profile.py, imports JAX, flax, optax or the JAX
+package; its entry points refuse to run quietly on the CPU when no GPU is
+there."""
 
 import ast
 import os
@@ -15,7 +16,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ait_tpu")
 
 
 def _sources():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"),
+           os.path.join(REPO, "tools", "port_profile.py")]
     for root, _, files in os.walk(os.path.join(REPO, "ait_tpu_torch")):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -55,12 +57,52 @@ def test_forbidden_match_is_exact():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, ait_tpu_torch, ait_tpu_torch.predict, "
             "ait_tpu_torch.bridge, ait_tpu_torch.ops.nms, "
-            "ait_tpu_torch.ops.fused_attention, ait_tpu_torch.ops.fused_ffn; "
+            "ait_tpu_torch.ops.fused_attention, ait_tpu_torch.ops.fused_ffn, "
+            "ait_tpu_torch.ops._gemm, ait_tpu_torch.models.targets, "
+            "ait_tpu_torch.models.losses, ait_tpu_torch.train.optim, "
+            "ait_tpu_torch.train.state; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'ait_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
+
+
+def test_train_step_without_device_raises_when_no_gpu(monkeypatch):
+    from ait_tpu_torch.config import Config
+    from ait_tpu_torch.models import AITDetector
+    from ait_tpu_torch.train import (lr_schedule, make_optimizer,
+                                     make_train_step)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config()
+    model = AITDetector(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(model, make_optimizer(cfg, model),
+                        lr_schedule(1e-3, 1, 1, 0.1))
+
+
+def test_training_with_dropout_raises():
+    """Dropout inside the fused kernels is not ported: a config with
+    t_dropout > 0 refuses to train rather than train without it."""
+    from ait_tpu_torch.config import Config
+    from ait_tpu_torch.models import AITDetector
+
+    cfg = Config()
+    assert cfg.model.t_dropout > 0
+    x = torch.zeros(1, 64, 64, 3, dtype=torch.uint8)
+    with pytest.raises(NotImplementedError, match="t_dropout"):
+        AITDetector(cfg)(x, torch.zeros(1, 128, 128, 3, dtype=torch.uint8),
+                         torch.tensor([[64.0, 64.0, 1.0]]),
+                         torch.zeros(1, 2, 5), train=True)
+
+
+def test_gradient_accumulation_raises():
+    """accum_steps > 1 is not ported: refused before any forward."""
+    from ait_tpu_torch.train import grads_and_metrics
+
+    with pytest.raises(NotImplementedError, match="accum_steps"):
+        grads_and_metrics(None, {}, torch.Generator(), accum_steps=2)
 
 
 def test_predictor_without_device_raises_when_no_gpu(monkeypatch):

@@ -28,6 +28,7 @@ from ait_tpu.models import AITDetector as JaxDetector  # noqa: E402
 from ait_tpu_torch import bridge
 from ait_tpu_torch.config import Config as PortConfig
 from ait_tpu_torch.models import AITDetector as PortDetector
+from ait_tpu_torch.models.targets import AnchorDraws, ProposalDraws
 
 H, W, Q = 96, 128, 128        # tiny canvas and the real query size
 
@@ -84,3 +85,30 @@ def flagship(seed=0):
 def to_np(t):
     return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
         else np.asarray(t)
+
+
+def _as_torch(*arrays):
+    return tuple(torch.from_numpy(np.array(a)) for a in arrays)
+
+
+def anchor_draws(key, b, n):
+    """The uniforms ait_tpu's anchor_targets draws from `key` (the splits of
+    targets.py:80-84, the draw of :52), vmapped over the images as there:
+    under the `rbg` generator, which a module imported earlier in the same
+    process may have made the default, a vmapped draw differs from a loop
+    of single draws."""
+    def one(k):
+        k1, k2 = jax.random.split(k)
+        return jax.random.uniform(k1, (n,)), jax.random.uniform(k2, (n,))
+
+    return AnchorDraws(*_as_torch(*jax.vmap(one)(jax.random.split(key, b))))
+
+
+def proposal_draws(key, b, n_p, r):
+    """The uniforms ait_tpu's proposal_targets draws from `key` (targets.py
+    :145, :151, :62, :172-173), vmapped as there."""
+    def one(k):
+        return tuple(jax.random.uniform(kk, (m,)) for kk, m in
+                     zip(jax.random.split(k, 4), (n_p, n_p, r, r)))
+
+    return ProposalDraws(*_as_torch(*jax.vmap(one)(jax.random.split(key, b))))

@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch port's eval slice goes, on one GPU.
+"""Where the time of the PyTorch port's eval slice or train step goes, on one
+GPU.
 
-    python3 tools/port_profile.py [--out FILE.json]
+    python3 tools/port_profile.py [--train] [--out FILE.json]
 
-Serves the full-width ResNet-50 flagship (random weights from a numpy seed
-through ait_tpu_torch.bridge) with OneShotPredictor on uint8 608x800
-canvases, then reports, as JSON lines on stdout (and in --out):
+Builds the full-width ResNet-50 flagship (random weights from a numpy seed
+through ait_tpu_torch.bridge).  By default it serves it with
+OneShotPredictor on uint8 608x800 canvases; with --train it trains it
+instead (model.t_dropout = 0, bf16 compute, make_train_step on batches of 8
+with a few ground-truth boxes each).  Then it reports, as JSON lines on
+stdout (and in --out):
 
-* `stages`: device time per stage of the forward (CUDA events around the
-  detector's submodules and its proposal layer and ROI Align calls), and
-  postprocess, in ms per batch;
-* `kernels`: the device kernels with the most time per batch
-  (torch.profiler over two batches), and the device's busy share: their
-  summed time over the mean wall clock of an unprofiled batch;
-* `batch_ms`: host wall clock per batch, ending in a synchronize.
+* `stages` (eval only): device time per stage of the forward (CUDA events
+  around the detector's submodules and its proposal layer and ROI Align
+  calls), and postprocess, in ms per batch;
+* `kernels`: the device kernels with the most time per batch or step
+  (torch.profiler over two of them), and the device's busy share: their
+  summed time over the mean wall clock of an unprofiled batch or step;
+* `batch_ms`: host wall clock per batch or step, ending in a synchronize.
 
 Imports nothing of JAX or ait_tpu.  Needs a CUDA device.
 """
@@ -34,6 +38,8 @@ sys.path.insert(0, REPO)
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--train", action="store_true",
+                    help="profile the train step instead of the eval slice")
     ap.add_argument("--out", help="also write the full result here")
     args = ap.parse_args()
     bs, batches = 8, 5
@@ -58,8 +64,6 @@ def main() -> int:
     model = AITDetector(cfg)
     state = bridge.to_state_dict(model, bridge.random_tree(
         bridge.jax_shapes(model), seed=0))
-    pred = OneShotPredictor(cfg, state)
-    m = pred.model
 
     rng = np.random.RandomState(0)
     h, w = cfg.tpu.image_size
@@ -73,39 +77,48 @@ def main() -> int:
                        (bs, 1))
         return canvas, query, info
 
-    # ---- stage times: CUDA events around each stage -----------------------
     events = collections.defaultdict(list)
+    if args.train:
+        run = _train_runner(cfg, state, request, rng)
+    else:
+        pred = OneShotPredictor(cfg, state)
+        m = pred.model
 
-    def timed(name, fn):
-        def run(*a, **k):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*a, **k)
-            end.record()
-            events[name].append((start, end))
-            return out
-        return run
+        # ---- stage times: CUDA events around each stage -------------------
+        def timed(name, fn):
+            def call(*a, **k):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*a, **k)
+                end.record()
+                events[name].append((start, end))
+                return out
+            return call
 
-    for name in ("backbone", "coattention", "rpn", "transformer", "sk",
-                 "top", "cls_score_0", "cls_score_1", "bbox_pred_head"):
-        mod = getattr(m, name)
-        mod.forward = timed(name, mod.forward)
-    det_mod.proposal_layer = timed("proposal_layer", det_mod.proposal_layer)
-    det_mod.roi_align = timed("roi_align", det_mod.roi_align)
-    predict_mod.postprocess_detections = timed(
-        "postprocess", predict_mod.postprocess_detections)
+        for name in ("backbone", "coattention", "rpn", "transformer", "sk",
+                     "top", "cls_score_0", "cls_score_1", "bbox_pred_head"):
+            mod = getattr(m, name)
+            mod.forward = timed(name, mod.forward)
+        det_mod.proposal_layer = timed("proposal_layer",
+                                       det_mod.proposal_layer)
+        det_mod.roi_align = timed("roi_align", det_mod.roi_align)
+        predict_mod.postprocess_detections = timed(
+            "postprocess", predict_mod.postprocess_detections)
+
+        def run(r):
+            pred.predict_prepared(*r)
 
     reqs = [request() for _ in range(batches + 2)]
     for r in reqs[:2]:                              # warm-up
-        pred.predict_prepared(*r)
+        run(r)
     torch.cuda.synchronize()
     events.clear()
     batch_ms = []
     for r in reqs[2:]:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        pred.predict_prepared(*r)
+        run(r)
         torch.cuda.synchronize()
         batch_ms.append((time.perf_counter() - t0) * 1e3)
     stages = {k: sum(s.elapsed_time(e) for s, e in v) / batches
@@ -118,7 +131,7 @@ def main() -> int:
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         for r in reqs[:2]:
-            pred.predict_prepared(*r)
+            run(r)
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
@@ -133,7 +146,8 @@ def main() -> int:
     busy_ms = sum(r[1] for r in rows)
     mean_ms = sum(batch_ms) / len(batch_ms)
     result = {
-        "card": card, "bs": bs, "batches": batches,
+        "card": card, "path": "train" if args.train else "eval", "bs": bs,
+        "batches": batches,
         "batch_ms": batch_ms,
         "stages_ms_per_batch": stages,
         "device_busy_ms_per_batch": busy_ms,
@@ -149,10 +163,47 @@ def main() -> int:
     print(json.dumps({"batch_ms": batch_ms,
                       "device_busy_ms_per_batch": busy_ms,
                       "device_busy_share": result["device_busy_share"]}))
-    print(json.dumps({"stages_ms_per_batch": stages}))
+    if stages:
+        print(json.dumps({"stages_ms_per_batch": stages}))
     for r in result["top_kernels_ms_per_batch"]:
         print(json.dumps(r))
     return 0
+
+
+def _train_runner(cfg, state, request, rng):
+    """run(request) = one train step of the flagship at t_dropout = 0, bf16,
+    with 1-4 ground-truth boxes of class 1 per image."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ait_tpu_torch.models import AITDetector
+    from ait_tpu_torch.train import (lr_schedule, make_optimizer,
+                                     make_train_step)
+
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, t_dropout=0.0))
+    model = AITDetector(cfg, dtype=torch.bfloat16)
+    model.load_state_dict(state)
+    t = cfg.TRAIN
+    step = make_train_step(model, make_optimizer(cfg, model), lr_schedule(
+        t.LEARNING_RATE, 1000, 5, t.GAMMA))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def run(req):
+        canvas, query, info = req
+        gt = np.zeros((len(canvas), cfg.MAX_NUM_GT_BOXES, 5), np.float32)
+        for i in range(len(canvas)):
+            ih, iw = info[i, :2]
+            for j in range(rng.randint(1, 5)):
+                bw, bh = rng.uniform(48, iw / 2), rng.uniform(48, ih / 2)
+                x1 = rng.uniform(0, iw - bw - 1)
+                y1 = rng.uniform(0, ih - bh - 1)
+                gt[i, j] = (x1, y1, x1 + bw, y1 + bh, 1)
+        step({"image": canvas, "query": query, "im_info": info,
+              "gt_boxes": gt}, gen)
+
+    return run
 
 
 if __name__ == "__main__":
