@@ -1,11 +1,14 @@
 // Fused position-wise FFN forward of the AIT head, over flat rows:
-//   out = LayerNorm(relu(x @ w1 + b1) @ w2 + b2 + x),  D = 512, hidden 2048,
-// eps 1e-6, f32 statistics; the hidden activation is rounded to the storage
-// type before the second product, as in the JAX code (dropout is off at
-// eval).
+//   out = LayerNorm((relu(x @ w1 + b1) @ w2 + b2) * keep / keep_prob + x),
+// D = 512, hidden 2048, eps 1e-6, f32 statistics; the hidden activation is
+// rounded to the storage type before the second product, as in the JAX code.
+// The output dropout's keep-mask is the Philox stream of csrc/philox.cuh
+// (tag 3, a block per absolute row), drawn in the epilogue where each lane
+// holds 4 consecutive columns of a row: one Philox call per lane and row
+// tile.  With no seed (eval, or keep_prob 1) nothing is dropped.
 //
 // Replaces ait_tpu/ops/pallas_ffn.py:195 fused_ffn (kernel `_fwd_kernel`,
-// :77).
+// :77, with its in-kernel dropout :91-95).
 //
 // What bounds it on the H100: operations.  Each row costs 4.2 MFLOP against
 // 2 KB of row traffic in bf16 (the weights, 4 MB, stay in L2), far above the
@@ -26,6 +29,7 @@
 #include <mma.h>
 
 #include "common.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -36,6 +40,20 @@ constexpr int kChunk = 64;     // hidden units per step
 constexpr int kSlab1 = 64;     // rows of w1 staged at once
 constexpr int kSlab2 = 16;     // rows of w2 staged at once
 constexpr int kThreads = 256;  // 8 warps
+
+// the output dropout's factors of columns c..c+3 of row `row` (one Philox
+// group; 1 when there is no dropout or the row is past the end)
+__device__ __forceinline__ void drop_scales(const ait::Dropout& d, int row,
+                                            int c, float m[4]) {
+  m[0] = m[1] = m[2] = m[3] = 1.f;
+  if (d.seed == nullptr) return;
+  const uint4 w = ait::keep_group(ait::seed_key(d.seed), ait::kTagFfn, 0, row,
+                                  c / 4);
+  m[0] = ait::drop_scale(w.x, d.thresh, d.inv_keep);
+  m[1] = ait::drop_scale(w.y, d.thresh, d.inv_keep);
+  m[2] = ait::drop_scale(w.z, d.thresh, d.inv_keep);
+  m[3] = ait::drop_scale(w.w, d.thresh, d.inv_keep);
+}
 
 constexpr int kOffW1 = kRows * kD;
 constexpr int kOffH = kOffW1 + kSlab1 * kChunk;
@@ -49,7 +67,8 @@ __global__ void __launch_bounds__(kThreads)
 ffn_kernel(const T* __restrict__ x, const T* __restrict__ w1,
            const float* __restrict__ b1, const T* __restrict__ w2,
            const float* __restrict__ b2, const float* __restrict__ lns,
-           const float* __restrict__ lnb, T* __restrict__ out, int n) {
+           const float* __restrict__ lnb, T* __restrict__ out, int n,
+           ait::Dropout drop) {
   extern __shared__ float sm[];
   float* xs = sm;            // [kRows][kD]
   float* w1s = sm + kOffW1;  // [kSlab1][kChunk]
@@ -135,19 +154,22 @@ ffn_kernel(const T* __restrict__ x, const T* __restrict__ w1,
     }
   }
 
-  // + b2, + residual, LayerNorm; each warp owns its 4 rows whole
+  // + b2, dropout, + residual, LayerNorm; each warp owns its 4 rows whole
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = 4 * warp + i;
     float s = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < 4; ++j) {
+      float m[4];
+      drop_scales(drop, row0 + r, 128 * j + 4 * lane, m);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = 128 * j + 4 * lane + e;
-        y[i][4 * j + e] = y[i][4 * j + e] + b2[c] + xs[r * kD + c];
+        y[i][4 * j + e] = (y[i][4 * j + e] + b2[c]) * m[e] + xs[r * kD + c];
         s += y[i][4 * j + e];
       }
+    }
     const float mu = ait::warp_sum(s) / kD;
     float q = 0.f;
 #pragma unroll
@@ -204,7 +226,7 @@ ffn_mma_kernel(const __nv_bfloat16* __restrict__ x,
                const __nv_bfloat16* __restrict__ w2,
                const float* __restrict__ b2, const float* __restrict__ lns,
                const float* __restrict__ lnb, __nv_bfloat16* __restrict__ out,
-               int n) {
+               int n, ait::Dropout drop) {
   using namespace nvcuda;
   using bf16 = __nv_bfloat16;
   extern __shared__ __align__(128) unsigned char smb[];
@@ -311,10 +333,12 @@ ffn_mma_kernel(const __nv_bfloat16* __restrict__ x,
             *reinterpret_cast<const __nv_bfloat162*>(xs + r * kXLd + c));
         const float2 x23 = __bfloat1622float2(
             *reinterpret_cast<const __nv_bfloat162*>(xs + r * kXLd + c + 2));
-        v[4 * j + 0] = yy.x + b2[c + 0] + x01.x;
-        v[4 * j + 1] = yy.y + b2[c + 1] + x01.y;
-        v[4 * j + 2] = yy.z + b2[c + 2] + x23.x;
-        v[4 * j + 3] = yy.w + b2[c + 3] + x23.y;
+        float m[4];
+        drop_scales(drop, row0 + r, c, m);
+        v[4 * j + 0] = (yy.x + b2[c + 0]) * m[0] + x01.x;
+        v[4 * j + 1] = (yy.y + b2[c + 1]) * m[1] + x01.y;
+        v[4 * j + 2] = (yy.z + b2[c + 2]) * m[2] + x23.x;
+        v[4 * j + 3] = (yy.w + b2[c + 3]) * m[3] + x23.y;
         s += v[4 * j] + v[4 * j + 1] + v[4 * j + 2] + v[4 * j + 3];
       }
       const float mu = ait::warp_sum(s) / kD;
@@ -342,7 +366,7 @@ ffn_mma_kernel(const __nv_bfloat16* __restrict__ x,
 
 int launch_fma(const void* x, const void* w1, const void* b1, const void* w2,
                const void* b2, const void* lns, const void* lnb, void* out,
-               int n, cudaStream_t stream) {
+               int n, const ait::Dropout& drop, cudaStream_t stream) {
   using T = float;
   const int smem = kSmemFloats * (int)sizeof(float);
   cudaFuncSetAttribute(ffn_kernel<T>,
@@ -350,29 +374,34 @@ int launch_fma(const void* x, const void* w1, const void* b1, const void* w2,
   const int blocks = (n + kRows - 1) / kRows;
   ffn_kernel<T><<<blocks, kThreads, smem, stream>>>(
       (const T*)x, (const T*)w1, (const float*)b1, (const T*)w2,
-      (const float*)b2, (const float*)lns, (const float*)lnb, (T*)out, n);
+      (const float*)b2, (const float*)lns, (const float*)lnb, (T*)out, n,
+      drop);
   return (int)cudaGetLastError();
 }
 
 int launch_mma(const void* x, const void* w1, const void* b1, const void* w2,
                const void* b2, const void* lns, const void* lnb, void* out,
-               int n, cudaStream_t stream) {
+               int n, const ait::Dropout& drop, cudaStream_t stream) {
   using T = __nv_bfloat16;
   cudaFuncSetAttribute(ffn_mma_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, kMSmemBytes);
   const int blocks = (n + kMRows - 1) / kMRows;
   ffn_mma_kernel<<<blocks, kThreads, kMSmemBytes, stream>>>(
       (const T*)x, (const T*)w1, (const float*)b1, (const T*)w2,
-      (const float*)b2, (const float*)lns, (const float*)lnb, (T*)out, n);
+      (const float*)b2, (const float*)lns, (const float*)lnb, (T*)out, n,
+      drop);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// seed null: no dropout
 extern "C" int ffn_fwd(int bf16, const void* x, const void* w1, const void* b1,
                        const void* w2, const void* b2, const void* lns,
-                       const void* lnb, void* out, int n, void* stream) {
+                       const void* lnb, void* out, int n, const void* seed,
+                       unsigned thresh, float inv_keep, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return bf16 ? launch_mma(x, w1, b1, w2, b2, lns, lnb, out, n, s)
-              : launch_fma(x, w1, b1, w2, b2, lns, lnb, out, n, s);
+  const ait::Dropout d{(const int*)seed, thresh, inv_keep};
+  return bf16 ? launch_mma(x, w1, b1, w2, b2, lns, lnb, out, n, d, s)
+              : launch_fma(x, w1, b1, w2, b2, lns, lnb, out, n, d, s);
 }

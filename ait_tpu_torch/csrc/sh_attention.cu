@@ -10,6 +10,15 @@
 // Replaces ait_tpu/ops/pallas_attention.py:746 fused_sh_attention (via
 // `_fused_call` :323, kernel `_kernel` :195).
 //
+// Dropout (training; `AttnDrop`): the probabilities are multiplied by
+// keep / keep_prob after the softmax and before P v (so the saved o_h is the
+// post-dropout P v that the gate consumed), and fc's output before the
+// residual (pallas_attention.py:265-277, :310-314).  The masks come from the
+// Philox stream of csrc/philox.cuh, generated where they are applied (tag 1
+// per head and pair, tag 2 per pair: fused_sh_attention_rngdrop, :891), or
+// from operand masks [H, P*Tq, Tk] and [P*Tq, D] (fused_sh_attention_dropout,
+// :817).  With neither (the eval launch, keep_prob 1) no factor is applied.
+//
 // What bounds it on the H100: operations.  A pair costs ~100 MFLOP, nearly
 // all in the three 512 x 512 projections and fc, against 64-128 KB of
 // activations.  On the TPU the 512 x 512 weights sat whole in VMEM; here they
@@ -32,6 +41,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -78,6 +88,56 @@ static_assert(kTm * kLds <= kSlab, "scores must fit in the slab area");
 static_assert(kTm * kMmaLd / 2 <= kTm * kLdq, "bf16 o must fit in q's place");
 static_assert(kOffSt % 8 == 0 && kOffK % 8 == 0 && kOffV % 8 == 0 &&
               kOffO % 8 == 0, "WMMA tiles need 32-byte alignment");
+
+// A launch's dropout: the Philox stream of `seed`, or the operand masks
+// akeep [H, P*Tq, Tk] and okeep [P*Tq, D] (f32); neither: none.
+struct AttnDrop {
+  const int* seed;
+  const float* akeep;
+  const float* okeep;
+  uint32_t thresh;
+  float inv_keep;
+  __device__ __forceinline__ bool on() const {
+    return seed != nullptr || akeep != nullptr;
+  }
+};
+
+// the probability dropout's factor of head h, pair `pair` of `pairs`,
+// element (r, c) of its [tq, tk] block
+__device__ __forceinline__ float attn_factor(const AttnDrop& d, uint2 key,
+                                             int h, int pair, int pairs,
+                                             int tq, int tk, int r, int c) {
+  if (d.seed != nullptr)
+    return ait::drop_scale(ait::keep_word(key, ait::kTagAttn, h, pair, r * tk + c),
+                           d.thresh, d.inv_keep);
+  return d.akeep[((size_t)h * pairs * tq + (size_t)pair * tq + r) * tk + c] *
+         d.inv_keep;
+}
+
+// the output dropout's factors of columns c..c+7 (c % 8 == 0) of row r of
+// pair `pair`; 1 without dropout
+__device__ __forceinline__ void out_factors(const AttnDrop& d, uint2 key,
+                                            int pair, int tq, int r, int c,
+                                            float m[8]) {
+  if (d.seed != nullptr) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const uint4 w = ait::keep_group(key, ait::kTagOut, 0, pair,
+                                      (r * kD + c) / 4 + q);
+      m[4 * q + 0] = ait::drop_scale(w.x, d.thresh, d.inv_keep);
+      m[4 * q + 1] = ait::drop_scale(w.y, d.thresh, d.inv_keep);
+      m[4 * q + 2] = ait::drop_scale(w.z, d.thresh, d.inv_keep);
+      m[4 * q + 3] = ait::drop_scale(w.w, d.thresh, d.inv_keep);
+    }
+  } else if (d.akeep != nullptr) {
+    ait::load8(d.okeep + ((size_t)pair * tq + r) * kD + c, m);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) m[e] *= d.inv_keep;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) m[e] = 1.f;
+  }
+}
 
 // d0[r][c] = sum_k x[r][k] w0[k][col0 + c] (and d1 with w1) for r, c < 64;
 // rows r >= rows read as zero.  CUDA-core FMAs, 4 x 4 outputs per thread.
@@ -296,7 +356,7 @@ sh_attn_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
                const T* __restrict__ skb, const T* __restrict__ fcw,
                const float* __restrict__ lns, const float* __restrict__ lnb,
                const uint8_t* __restrict__ mask, T* __restrict__ out,
-               float* __restrict__ oh, int tq, int tk) {
+               float* __restrict__ oh, int tq, int tk, AttnDrop drop) {
   extern __shared__ __align__(128) float sm[];
   float* qs = sm + kOffQ;
   float* ks = sm + kOffK;
@@ -308,6 +368,9 @@ sh_attn_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
 
   const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
   const int warp = t >> 5, lane = t & 31;
+  const int pair = blockIdx.x, pairs = gridDim.x;
+  const uint2 key = drop.seed != nullptr ? ait::seed_key(drop.seed)
+                                         : make_uint2(0u, 0u);
   xq += (size_t)blockIdx.x * tq * kD;
   xkv += (size_t)blockIdx.x * tk * kD;
   out += (size_t)blockIdx.x * tq * kD;
@@ -348,7 +411,7 @@ sh_attn_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
     }
     __syncthreads();
 
-    // row softmax, one warp per row
+    // row softmax, one warp per row, then the probability dropout
     for (int r = warp; r < tq; r += kThreads / 32) {
       const float v0 = lane < tk ? sc[r * kLds + lane] : -CUDART_INF_F;
       const float v1 = lane + 32 < tk ? sc[r * kLds + lane + 32] : -CUDART_INF_F;
@@ -356,8 +419,14 @@ sh_attn_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
       const float e0 = lane < tk ? expf(v0 - m) : 0.f;
       const float e1 = lane + 32 < tk ? expf(v1 - m) : 0.f;
       const float sum = ait::warp_sum(e0 + e1);
-      if (lane < tk) sc[r * kLds + lane] = e0 / sum;
-      if (lane + 32 < tk) sc[r * kLds + lane + 32] = e1 / sum;
+      float p0 = e0 / sum, p1 = e1 / sum;
+      if (drop.on()) {
+        if (lane < tk) p0 *= attn_factor(drop, key, h, pair, pairs, tq, tk, r, lane);
+        if (lane + 32 < tk)
+          p1 *= attn_factor(drop, key, h, pair, pairs, tq, tk, r, lane + 32);
+      }
+      if (lane < tk) sc[r * kLds + lane] = p0;
+      if (lane + 32 < tk) sc[r * kLds + lane + 32] = p1;
     }
     __syncthreads();
 
@@ -444,21 +513,22 @@ sh_attn_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
   float* y = oall;
   out_proj(fcw, qs, ks, y);
 
-  // + residual, LayerNorm; one warp per row
+  // output dropout, + residual, LayerNorm; one warp per row
   for (int r = warp; r < tq; r += kThreads / 32) {
     float v[16];
     float s = 0.f;
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
       const int c = j * 256 + lane * 8;
-      float a[8];
+      float a[8], m[8];
       ait::load8(xq + (size_t)r * kD + c, a);
+      out_factors(drop, key, pair, tq, r, c, m);
       const float4 y0 = *reinterpret_cast<const float4*>(y + r * kD + c);
       const float4 y1 = *reinterpret_cast<const float4*>(y + r * kD + c + 4);
       const float yy[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
-        v[j * 8 + e] = yy[e] + a[e];
+        v[j * 8 + e] = yy[e] * m[e] + a[e];
         s += v[j * 8 + e];
       }
     }
@@ -483,7 +553,7 @@ sh_attn_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
 
 template <typename T>
 int launch(const void* const* p, void* out, void* oh, int pairs, int tq,
-           int tk, cudaStream_t stream) {
+           int tk, const AttnDrop& drop, cudaStream_t stream) {
   const int smem = kSmemFloats * (int)sizeof(float);
   cudaFuncSetAttribute(sh_attn_kernel<T>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -491,14 +561,15 @@ int launch(const void* const* p, void* out, void* oh, int pairs, int tq,
       (const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
       (const T*)p[4], (const T*)p[5], (const T*)p[6], (const T*)p[7],
       (const float*)p[8], (const float*)p[9], (const uint8_t*)p[10], (T*)out,
-      (float*)oh, tq, tk);
+      (float*)oh, tq, tk, drop);
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- backward
 //
 // Replaces the per-pair body of ait_tpu/ops/pallas_attention.py:630
-// _fused_bwd_call (kernel `_bwd_kernel`, :412) at dropout 0, without saved
+// _fused_bwd_call (kernel `_bwd_kernel`, :412), with or without dropout
+// (`_bwd_rng` :937 and `_bwd_drop` :866 reach it with masks), without saved
 // q/k/v.  One block per pair, from the forward's saved per-head outputs oh:
 //   1. rebuild the gate exactly as the forward computed it (same loops), and
 //      o = sum_h gate_h o_h rounded to the storage type (the fc input);
@@ -509,9 +580,15 @@ int launch(const void* const* p, void* out, void* oh, int pairs, int tq,
 //   4. per head: q/k/v recomputed (as in the forward: WMMA for bf16), the
 //      probabilities, dP = do_h v^T with do_h = do * gate_h + du, dv = P^T
 //      do_h, dS = P (dP - rowsum(P dP)), dz = dS k / 8, dk = dS^T q / 8.
-// Everything between products is f32, as in the Pallas kernel.  It writes
+// Everything between products is f32, as in the Pallas kernel.  With
+// dropout (the forward's `AttnDrop`, masks regenerated from the seed or read
+// from the operands) the LayerNorm input is y0 * ok / kp + x_q, the fc
+// backward takes dy0 = dy * ok / kp while the residual takes dy, and per head
+// dv = (P * ak / kp)^T do_h and dP = (do_h v^T) * ak / kp before the softmax
+// backward (pallas_attention.py:509-599); the head's factors ak / kp sit in
+// shared memory for the two uses.  It writes
 // dy, o, s (the gate input), dlogit, the LayerNorm partials and the per-head
-// dz/dk/dv [rows, 8 x 64] to device memory: the input gradients (dxq
+// dz/dk/dv [rows, 8 x 64] to device memory (and dy0, with dropout): the input gradients (dxq
 // [64, 512] and dxkv, f32) and the weight gradients, which reduce over all
 // pairs, do not fit beside this block's state in shared memory, so the
 // products over the pair batch run afterwards on csrc/gemm.cu.
@@ -540,7 +617,8 @@ constexpr int kBOffSt = kBOffV + kTm * kLdq;       // projection slabs
 constexpr int kBOffDoh = kBOffSt + kSlab;          // do_h [64][kLdq]
 constexpr int kBOffP = kBOffDoh + kTm * kLdq;      // P [64][kBLdp]
 constexpr int kBOffDp = kBOffP + kTm * kBLdp;      // dP, then dS
-constexpr int kBEnd4 = kBOffDp + kTm * kBLdp;
+constexpr int kBOffMk = kBOffDp + kTm * kBLdp;     // dropout factors
+constexpr int kBEnd4 = kBOffMk + kTm * kBLdp;
 constexpr int kBSmemFloats = kBEnd2 > kBEnd4 ? kBEnd2 : kBEnd4;
 static_assert(kBOffPh % 8 == 0 && kBOffK % 8 == 0 && kBOffV % 8 == 0 &&
               kBOffSt % 8 == 0, "WMMA tiles need 32-byte alignment");
@@ -560,7 +638,8 @@ sh_attn_bwd_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
                    float* __restrict__ s_out, float* __restrict__ dgl_out,
                    float* __restrict__ lnp_s, float* __restrict__ lnp_b,
                    float* __restrict__ dz_out, float* __restrict__ dk_out,
-                   float* __restrict__ dv_out, int tq, int tk) {
+                   float* __restrict__ dv_out, int tq, int tk, AttnDrop drop,
+                   float* __restrict__ dy0_out) {
   extern __shared__ __align__(128) float sm[];
   float* gm = sm + kBOffGm;
   float* dg = sm + kBOffDg;
@@ -572,6 +651,8 @@ sh_attn_bwd_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
   const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
   const int warp = t >> 5, lane = t & 31;
   const int pair = blockIdx.x, pairs = gridDim.x;
+  const uint2 key = drop.seed != nullptr ? ait::seed_key(drop.seed)
+                                         : make_uint2(0u, 0u);
   const size_t qrow0 = (size_t)pair * tq;          // first flat row of x_q
   const size_t krow0 = (size_t)pair * tk;
   auto ohp = [&](int h, int r, int c) {
@@ -657,7 +738,7 @@ sh_attn_bwd_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
     for (int i = warp; i < 16; i += kThreads / 32) {   // one warp per row
       const int r = r0 + i;
       if (r >= tq) continue;
-      float y[16], gv[16];
+      float y[16], gv[16], m[16];
       float s = 0.f;
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
@@ -665,9 +746,10 @@ sh_attn_bwd_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
         float a[8], q[8];
         ait::load8(xq + (size_t)r * kD + c, a);
         ait::load8(g + (size_t)r * kD + c, q);
+        out_factors(drop, key, pair, tq, r, c, m + j * 8);
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          y[j * 8 + e] = yt[i * kD + c + e] + a[e];
+          y[j * 8 + e] = yt[i * kD + c + e] * m[j * 8 + e] + a[e];
           gv[j * 8 + e] = q[e];
           s += y[j * 8 + e];
         }
@@ -698,17 +780,19 @@ sh_attn_bwd_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int c = j * 256 + lane * 8;
-        float o[8];
+        float o[8], o0[8];
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
           o[e] = rs * (gv[j * 8 + e] - m1 - y[j * 8 + e] * m2);
-          yt[i * kD + c + e] = o[e];
+          o0[e] = o[e] * m[j * 8 + e];       // fc's cotangent: dy * ok / kp
+          yt[i * kD + c + e] = o0[e];
         }
         ait::store8(dy_out + (qrow0 + r) * kD + c, o);
+        if (drop.on()) ait::store8(dy0_out + (qrow0 + r) * kD + c, o0);
       }
     }
     __syncthreads();
-    // do = dy @ fc^T: warp w takes 128 of the 16 x 64 outputs, lanes split n
+    // do = dy0 @ fc^T: warp w takes 128 of the 16 x 64 outputs, lanes split n
     for (int k = 0; k < 128; ++k) {
       const int idx = warp * 128 + k, i = idx / kDk, c = idx % kDk;
       if (r0 + i >= tq) continue;
@@ -780,6 +864,7 @@ sh_attn_bwd_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
   float* doh = sm + kBOffDoh;
   float* pp = sm + kBOffP;
   float* dp = sm + kBOffDp;
+  float* mk = sm + kBOffMk;
   for (int h = 0; h < kHeads; ++h) {
     project<T, 1>(xq, tq, wq, nullptr, h * kDk, st, qs, kLdq, nullptr, 0);
     project<T, 2>(xkv, tk, wk, wv, h * kDk, st, ks, kLdq, vs, kLdq);
@@ -829,8 +914,15 @@ sh_attn_bwd_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
       if (lane < tk) pp[r * kBLdp + lane] = e0 / sum;
       if (lane + 32 < tk) pp[r * kBLdp + lane + 32] = e1 / sum;
     }
+    if (drop.on()) {   // this head's factors ak / kp, 0 outside [tq, tk]
+      for (int e = t; e < kTm * kTm; e += kThreads) {
+        const int r = e / kTm, c = e % kTm;
+        mk[r * kBLdp + c] = r < tq && c < tk
+            ? attn_factor(drop, key, h, pair, pairs, tq, tk, r, c) : 0.f;
+      }
+    }
     __syncthreads();
-    {  // dP = do_h v^T and dv = P^T do_h
+    {  // dP = (do_h v^T) ak / kp and dv = (P ak / kp)^T do_h
       float a1[4][4], a2[4][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -851,7 +943,10 @@ sh_attn_bwd_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
       for (int r = 0; r < tq; ++r) {
         float a[4], b[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = pp[r * kBLdp + ty + 16 * i];
+        for (int i = 0; i < 4; ++i) {
+          a[i] = pp[r * kBLdp + ty + 16 * i];
+          if (drop.on()) a[i] *= mk[r * kBLdp + ty + 16 * i];
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) b[j] = doh[r * kLdq + tx + 16 * j];
 #pragma unroll
@@ -864,7 +959,7 @@ sh_attn_bwd_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int r = ty + 16 * i, c = tx + 16 * j;
-          dp[r * kBLdp + c] = a1[i][j];
+          dp[r * kBLdp + c] = drop.on() ? a1[i][j] * mk[r * kBLdp + c] : a1[i][j];
           if (r < tk)
             dv_out[(krow0 + r) * kD + h * kDk + c] = a2[i][j];
         }
@@ -923,7 +1018,7 @@ sh_attn_bwd_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
 
 template <typename T>
 int launch_bwd(const void* const* p, void* const* out, int pairs, int tq,
-               int tk, cudaStream_t stream) {
+               int tk, const AttnDrop& drop, cudaStream_t stream) {
   const int smem = kBSmemFloats * (int)sizeof(float);
   cudaFuncSetAttribute(sh_attn_bwd_kernel<T>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -933,39 +1028,54 @@ int launch_bwd(const void* const* p, void* const* out, int pairs, int tq,
       (const float*)p[8], (const uint8_t*)p[9], (const float*)p[10],
       (const T*)p[11], (float*)out[0], (float*)out[1], (float*)out[2],
       (float*)out[3], (float*)out[4], (float*)out[5], (float*)out[6],
-      (float*)out[7], (float*)out[8], tq, tk);
+      (float*)out[7], (float*)out[8], tq, tk, drop, (float*)out[9]);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// oh: null at eval; on the train path the per-head outputs [8, P*Tq, 64] f32
+// oh: null at eval; on the train path the per-head outputs [8, P*Tq, 64]
+// f32.  Dropout: the Philox stream of `seed`, or the f32 operand masks akeep
+// [8, P*Tq, tk] and okeep [P*Tq, 512]; all three null at eval
 extern "C" int sh_attention_fwd(int bf16_io, const void* xq, const void* xkv,
                                 const void* wq, const void* wk, const void* wv,
                                 const void* skw, const void* skb,
                                 const void* fcw, const void* lns,
                                 const void* lnb, const void* mask, void* out,
                                 void* oh, int pairs, int tq, int tk,
-                                void* stream) {
+                                const void* seed, const void* akeep,
+                                const void* okeep, unsigned thresh,
+                                float inv_keep, void* stream) {
   const void* p[11] = {xq, xkv, wq, wk, wv, skw, skb, fcw, lns, lnb, mask};
+  if ((akeep == nullptr) != (okeep == nullptr) || (seed && akeep))
+    return (int)cudaErrorInvalidValue;
+  const AttnDrop d{(const int*)seed, (const float*)akeep, (const float*)okeep,
+                   thresh, inv_keep};
   cudaStream_t s = (cudaStream_t)stream;
-  return bf16_io ? launch<bf16>(p, out, oh, pairs, tq, tk, s)
-                 : launch<float>(p, out, oh, pairs, tq, tk, s);
+  return bf16_io ? launch<bf16>(p, out, oh, pairs, tq, tk, d, s)
+                 : launch<float>(p, out, oh, pairs, tq, tk, d, s);
 }
 
 // the per-pair part of the backward; every output is f32: dy [P*Tq, 512],
 // o [P*Tq, 64], s [P, 64], dlogit [P, 512], LayerNorm partials [P, 512] x 2,
-// dz [P*Tq, 512], dk and dv [P*Tk, 512] (head h in columns 64h..64h+63)
+// dz [P*Tq, 512], dk and dv [P*Tk, 512] (head h in columns 64h..64h+63), and
+// with dropout (the forward's) dy0 [P*Tq, 512], fc's output cotangent
 extern "C" int sh_attention_bwd_pairs(
     int bf16_io, const void* xq, const void* xkv, const void* wq,
     const void* wk, const void* wv, const void* skw, const void* skb,
     const void* fcw, const void* lns, const void* mask, const void* oh,
     const void* g, void* dy, void* o, void* s, void* dgl, void* lnp_s,
     void* lnp_b, void* dz, void* dk, void* dv, int pairs, int tq, int tk,
-    void* stream) {
+    const void* seed, const void* akeep, const void* okeep, unsigned thresh,
+    float inv_keep, void* dy0, void* stream) {
   const void* p[12] = {xq, xkv, wq, wk, wv, skw, skb, fcw, lns, mask, oh, g};
-  void* out[9] = {dy, o, s, dgl, lnp_s, lnp_b, dz, dk, dv};
+  void* out[10] = {dy, o, s, dgl, lnp_s, lnp_b, dz, dk, dv, dy0};
+  if ((akeep == nullptr) != (okeep == nullptr) || (seed && akeep) ||
+      ((seed || akeep) && dy0 == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const AttnDrop d{(const int*)seed, (const float*)akeep, (const float*)okeep,
+                   thresh, inv_keep};
   cudaStream_t st = (cudaStream_t)stream;
-  return bf16_io ? launch_bwd<bf16>(p, out, pairs, tq, tk, st)
-                 : launch_bwd<float>(p, out, pairs, tq, tk, st);
+  return bf16_io ? launch_bwd<bf16>(p, out, pairs, tq, tk, d, st)
+                 : launch_bwd<float>(p, out, pairs, tq, tk, d, st);
 }

@@ -4,15 +4,20 @@ ait_tpu/models/coattention.py::MHACoAttention).
 A 1x1-conv embed to 512, a pair of cross MultiHeadAttentions, and a linear
 map back to 1024 (faster_rcnn_sys_transformer_sk_dilat.py:31-102).  The
 reference's naming is crossed and kept: `q2i_attn` attends image -> query.
-With ~1900 image tokens both attentions take the plain path, as in JAX.
+With ~1900 image tokens both attentions take the plain path, as in JAX, and
+in training both drop out their probabilities and fc's output at
+model.t_dropout (coattention.py:56-65 passes the rate to both).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
 from ait_tpu_torch.models.attention import MultiHeadAttention
+from ait_tpu_torch.models.dropout import Dropout
 from ait_tpu_torch.models.layers import Conv, Dense, to_nchw, to_nhwc
 
 
@@ -28,14 +33,15 @@ class MHACoAttention(nn.Module):
         self.img_trans = Dense(d, channels, dtype=dtype)
         self.qry_trans = Dense(d, channels, dtype=dtype)
 
-    def forward(self, x_img, x_qry):
-        """[B, Hi, Wi, C], [B, Hq, Wq, C] (NHWC) -> the same shapes."""
+    def forward(self, x_img, x_qry, drop: Optional[Dropout] = None):
+        """[B, Hi, Wi, C], [B, Hq, Wq, C] (NHWC) -> the same shapes; drop:
+        the training forward's dropout (None at eval)."""
         b, hi, wi, c = x_img.shape
         _, hq, wq, _ = x_qry.shape
         img = to_nhwc(self.img_emb(to_nchw(x_img))).reshape(b, hi * wi, -1)
         qry = to_nhwc(self.qry_emb(to_nchw(x_qry))).reshape(b, hq * wq, -1)
-        enc_img = self.q2i_attn(img, qry, qry)
-        enc_qry = self.i2q_attn(qry, img, img)
+        enc_img = self.q2i_attn(img, qry, qry, drop=drop)
+        enc_qry = self.i2q_attn(qry, img, img, drop=drop)
         enc_img = self.img_trans(enc_img)
         enc_qry = self.qry_trans(enc_qry)
         return enc_img.reshape(b, hi, wi, c), enc_qry.reshape(b, hq, wq, c)

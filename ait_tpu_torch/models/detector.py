@@ -14,10 +14,12 @@ five losses and rois_label.
 
 Training takes the TRAIN tops of the proposal layer, samples anchor and
 proposal targets with the caller's `torch.Generator` (models/targets.py),
-and runs the transformer's kernels through their autograd Functions.  The
-port trains at model.t_dropout = 0: dropout inside the fused kernels comes
-with a later slice, so a config with dropout raises rather than train
-without it.
+and runs the transformer's kernels through their autograd Functions.
+Dropout at model.t_dropout (the co-attention's two attentions, and every
+glue, attention and FFN of the transformer, inside their kernels) draws from
+the same generator: one `Dropout` (models/dropout.py) goes down the forward,
+and the sites draw their seeds from it in call order (co-attention, then,
+after the target sampling, the transformer).  Eval draws nothing.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from ait_tpu_torch.config import Config
 from ait_tpu_torch.models import losses as L
 from ait_tpu_torch.models.ait_transformer import AITTransformer
 from ait_tpu_torch.models.coattention import MHACoAttention
+from ait_tpu_torch.models.dropout import Dropout
 from ait_tpu_torch.models.layers import Dense
 from ait_tpu_torch.models.resnet import ResNetBackbone, ResNetTop
 from ait_tpu_torch.models.rpn import RPNHead, proposal_layer
@@ -106,7 +109,8 @@ class AITDetector(nn.Module):
             d_model=mc.t_d_model, d_inner=mc.t_d_inner,
             n_layers=mc.t_n_layers, n_head=mc.t_n_head, d_k=mc.t_d_k,
             d_v=mc.t_d_v, n_position=mc.t_n_position,
-            causal_mask=mc.t_causal_mask, channels=ch, dtype=dtype)
+            causal_mask=mc.t_causal_mask, channels=ch,
+            dec_prefix_per_image=cfg.tpu.dec_prefix_per_image, dtype=dtype)
         self.sk = SKNet(ch, dtype=dtype)
         self.cls_score_0 = Dense(2 * 2048, 8, dtype=dtype)
         self.cls_score_1 = Dense(8, 2, dtype=dtype)
@@ -116,22 +120,20 @@ class AITDetector(nn.Module):
                 *, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> DetectorOut:
         """num_boxes is unused (kept for the JAX call signature); gt_boxes
-        and the sampling `generator` are read in training only."""
+        and the `generator` (target sampling and dropout) are read in
+        training only."""
         c = self.cfg
         b = query.shape[0]
         if image.shape[0] != b:
             raise ValueError(f"image batch {image.shape[0]} != query batch {b}")
+        drop = None
         if train:
-            if c.model.t_dropout > 0:
-                raise NotImplementedError(
-                    "training with model.t_dropout > 0 is not ported yet "
-                    "(dropout inside the fused kernels); set "
-                    "model.t_dropout = 0")
             if gt_boxes is None:
                 raise ValueError("training needs gt_boxes")
+            drop = Dropout(c.model.t_dropout, generator)
         image_feat = self.backbone(_to_model_input(image, self.dtype))
         query_feat = self.backbone(_to_model_input(query, self.dtype))
-        non_img, non_qry = self.coattention(image_feat, query_feat)
+        non_img, non_qry = self.coattention(image_feat, query_feat, drop)
 
         rpn_out = self.rpn(non_img)
         fh, fw = non_img.shape[1], non_img.shape[2]
@@ -170,7 +172,8 @@ class AITDetector(nn.Module):
             bbox_normalize_means=t.BBOX_NORMALIZE_MEANS,
             bbox_normalize_stds=t.BBOX_NORMALIZE_STDS,
             bbox_inside_weights=t.BBOX_INSIDE_WEIGHTS, generator=generator)
-        score, score_prob, bbox_pred = self._head(non_img, non_qry, pt.rois)
+        score, score_prob, bbox_pred = self._head(non_img, non_qry, pt.rois,
+                                                  drop)
         labels = pt.labels
         rcnn_loss_cls = L.masked_cross_entropy(
             score.reshape(-1, 2), labels.reshape(-1),
@@ -187,9 +190,9 @@ class AITDetector(nn.Module):
                            rpn_loss_box, rcnn_loss_cls, margin_loss,
                            rcnn_loss_bbox, labels)
 
-    def _head(self, non_img, non_qry, rois):
+    def _head(self, non_img, non_qry, rois, drop=None):
         """(match logits [B, R, 2] f32, match probability [B, R] f32,
-        bbox_pred [B*R, 4] f32)."""
+        bbox_pred [B*R, 4] f32); drop: the training forward's dropout."""
         c = self.cfg
         b, num_props = rois.shape[0], rois.shape[1]
         props = roi_align(non_img, rois[..., 1:5], out_size=c.POOLING_SIZE,
@@ -197,7 +200,7 @@ class AITDetector(nn.Module):
                           sampling_ratio=c.tpu.roi_sampling_ratio)
         props = props.reshape((b * num_props,) + props.shape[2:])
 
-        props = self.transformer(props, non_qry)
+        props = self.transformer(props, non_qry, drop)
         props, qfeat = self.sk(props, non_qry)
         props_vec = self.top(props)                       # [B*R, 2048]
         query_vec = self.top(qfeat)                       # [B, 2048]

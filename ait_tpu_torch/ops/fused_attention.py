@@ -14,7 +14,7 @@ CUDA kernel csrc/sh_attention.cu (which replaces ait_tpu/ops/
 pallas_attention.py:746 fused_sh_attention): a CUDA tensor goes to the
 kernel, a CPU tensor to the plain version.
 
-Training (dropout 0):
+Training:
 * `fused_sh_attention_saved` is the same kernel that also writes each
   head's f32 attention output [H, P*Tq, d_v], exactly what its gate
   consumed (replaces the `save_oh` forward, pallas_attention.py:760 `_fwd`);
@@ -23,9 +23,25 @@ Training (dropout 0):
   csrc/sh_attention.cu, the projections' input and weight gradients on
   csrc/gemm.cu.  Its plain version, `sh_attention_bwd_reference`, is torch
   autograd through `sh_attention_reference`;
+* dropout (keep_prob < 1): both take the mask source of the JAX package's
+  two dropout forms.  With `seed` ([2] int32 on the operands' device) the
+  kernels draw the masks from the port's Philox stream (csrc/philox.cuh:
+  tag 1 per head and pair for the probabilities, tag 2 per pair for fc's
+  output), forward and backward alike, as `fused_sh_attention_rngdrop`
+  (pallas_attention.py:891) draws them in-kernel; with `attn_keep` [H, P*Tq,
+  Tk] and `out_keep` [P*Tq, D] (f32 0/1) they read them, as
+  `fused_sh_attention_dropout` (:817) does.  The plain versions take the
+  same arguments (a seed's masks from ops/philox.py) with
+  `_reference_impl`'s cast points: the probabilities multiplied in f32, fc's
+  output in its own dtype by 1 / keep_prob rounded to that dtype.  A wrapper
+  counts a launch at keep_prob 1 in `launches`, with dropout in
+  `dropout_launches`;
 * `FusedSHAttention` is the autograd Function over the two, and
   `sh_attention` what the model calls: the Function when an input needs a
-  gradient, else the eval kernel, which writes no per-head outputs.
+  gradient or dropout is on, else the eval kernel, which writes no per-head
+  outputs.
+  `fused_sh_attention_rngdrop` and `fused_sh_attention_dropout` are the
+  differentiable dropout forms, named as in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,7 +50,9 @@ import ctypes
 
 import torch
 
-from ait_tpu_torch.ops import _build, _gemm
+from ait_tpu_torch.ops import _build, _gemm, philox
+from ait_tpu_torch.ops.dropout_masks import (count_launch, kernel_keep,
+                                             seed_args)
 
 LN_EPS = 1e-6
 
@@ -59,14 +77,31 @@ def vjp_of(fn, inputs, g):
         return torch.autograd.grad(out, leaves, g)
 
 
+def _plain_masks(attn_keep, out_keep, keep_prob, seed, p, tq, tk, d,
+                 n_head):
+    """The masks a plain version applies: the given ones, else the Philox
+    stream's for `seed` at keep_prob < 1, else (None, None)."""
+    if attn_keep is not None or keep_prob >= 1.0:
+        return attn_keep, out_keep
+    ak = philox.keep_mask(seed, philox.TAG_ATTN, n_head, p, tq * tk,
+                          keep_prob)
+    ok = philox.keep_mask(seed, philox.TAG_OUT, 1, p, tq * d, keep_prob)
+    return ak.view(n_head, p * tq, tk), ok.view(p * tq, d)
+
+
 def sh_attention_reference(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
                            ln_b, mask, n_head=8, d_k=64, d_v=64, *,
-                           return_oh=False):
+                           attn_keep=None, out_keep=None, keep_prob=1.0,
+                           seed=None, return_oh=False):
     """x_q [P, Tq, D], x_kv [P, Tk, D], weights in the JAX layout ([in, out],
-    x @ w), ln_s/ln_b f32, mask [Tq, Tk] bool (True = attend).  With
-    return_oh, also the per-head attention outputs [H, P*Tq, d_v] in f32."""
+    x @ w), ln_s/ln_b f32, mask [Tq, Tk] bool (True = attend).  Dropout at
+    keep_prob < 1: the masks attn_keep [H, P*Tq, Tk] and out_keep [P*Tq, D],
+    or those of `seed`.  With return_oh, also the per-head attention outputs
+    [H, P*Tq, d_v] in f32 (after the probability dropout)."""
     p, tq, d = x_q.shape
     tk = x_kv.shape[1]
+    attn_keep, out_keep = _plain_masks(attn_keep, out_keep, keep_prob, seed,
+                                       p, tq, tk, d, n_head)
     q = (x_q.reshape(p * tq, d) @ wq).reshape(p, tq, n_head, d_k)
     k = (x_kv.reshape(p * tk, d) @ wk).reshape(p, tk, n_head, d_k)
     v = (x_kv.reshape(p * tk, d) @ wv).reshape(p, tk, n_head, d_v)
@@ -78,6 +113,9 @@ def sh_attention_reference(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
                         k.float())
     attn = torch.where(mask[None, None], attn, -1e9)
     attn = torch.softmax(attn, dim=-1)
+    if attn_keep is not None:
+        ak = attn_keep.reshape(n_head, p, tq, tk).transpose(0, 1)
+        attn = attn * ak.to(attn.dtype) * (1.0 / keep_prob)
     o32 = torch.einsum("phts,phsd->phtd", attn.to(v.dtype).float(),
                        v.float())
     o = o32.to(v.dtype)
@@ -87,6 +125,10 @@ def sh_attention_reference(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
     gate = torch.softmax(gate.float(), dim=1).to(o.dtype)
     o = (o * gate[:, :, None, :]).sum(dim=1)
     y = (o.reshape(p * tq, d_v) @ fc_w).reshape(p, tq, d)
+    if out_keep is not None:
+        # jnp.asarray(1 / keep_prob, y.dtype): the factor rounded to y's type
+        y = y * out_keep.reshape(p, tq, d).to(y.dtype) * torch.tensor(
+            1.0 / keep_prob, dtype=y.dtype, device=y.device)
     y = y + x_q
     out = layer_norm_f32(y.float(), ln_s, ln_b).to(x_q.dtype)
     if return_oh:
@@ -95,18 +137,20 @@ def sh_attention_reference(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
 
 
 def sh_attention_saved_reference(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w,
-                                 ln_s, ln_b, mask, n_head=8, d_k=64, d_v=64):
+                                 ln_s, ln_b, mask, n_head=8, d_k=64, d_v=64,
+                                 **drop):
     """Plain version of `fused_sh_attention_saved`: (out, per-head outputs
     [H, P*Tq, d_v] f32)."""
     return sh_attention_reference(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w,
                                   ln_s, ln_b, mask, n_head, d_k, d_v,
-                                  return_oh=True)
+                                  return_oh=True, **drop)
 
 
-_FUNCS = {"sh_attention_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 13 +
-          [ctypes.c_int] * 3 + [ctypes.c_void_p],
-          "sh_attention_bwd_pairs": [ctypes.c_int] + [ctypes.c_void_p] * 21 +
-          [ctypes.c_int] * 3 + [ctypes.c_void_p]}
+_I, _P = ctypes.c_int, ctypes.c_void_p
+_DROP = [_P, _P, _P, ctypes.c_uint, ctypes.c_float]  # seed, masks, thresh, 1/kp
+_FUNCS = {"sh_attention_fwd": [_I] + [_P] * 13 + [_I] * 3 + _DROP + [_P],
+          "sh_attention_bwd_pairs": [_I] + [_P] * 21 + [_I] * 3 + _DROP +
+          [_P, _P]}
 
 
 def _check(name, x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s, ln_b, mask,
@@ -142,20 +186,42 @@ def _check(name, x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s, ln_b, mask,
     return p, tq, tk, d, dt, args
 
 
-def _forward(x_q, args, p, tq, tk, oh):
+def _kernel_drop(name, x_q, p, tq, tk, keep_prob, seed, attn_keep, out_keep):
+    """The kernels' dropout arguments (seed, akeep, okeep pointers, threshold,
+    1 / keep_prob): one mask source at keep_prob < 1, none at 1."""
+    if keep_prob >= 1.0:
+        return None, None, None, 0, 1.0
+    if seed is not None:
+        _build.require(attn_keep is None and out_keep is None,
+                       f"{name}: a seed or operand masks, not both")
+        ptr, thresh, inv = seed_args(name, keep_prob, seed, x_q.device)
+        return ptr, None, None, thresh, inv
+    thresh, inv = kernel_keep(name, keep_prob)
+    _build.require(attn_keep is not None and out_keep is not None,
+                   f"{name}: dropout needs a seed or both operand masks")
+    for mname, t, shape in (("attn_keep", attn_keep, (KERNEL_HEADS, p * tq, tk)),
+                            ("out_keep", out_keep, (p * tq, KERNEL_D))):
+        _build.require(tuple(t.shape) == shape and t.dtype == torch.float32,
+                       f"{name}: {mname} must be float32 {shape}")
+    _build.require_operands(name, x_q.device, (attn_keep, out_keep))
+    return None, attn_keep.data_ptr(), out_keep.data_ptr(), thresh, inv
+
+
+def _forward(x_q, args, p, tq, tk, oh, drop=(None, None, None, 0, 1.0)):
     out = torch.empty_like(x_q)
     if p:
         lib = _build.load("sh_attention", _FUNCS)
         _build.check(lib.sh_attention_fwd(
             int(x_q.dtype == torch.bfloat16), *(t.data_ptr() for t in args),
             out.data_ptr(), oh.data_ptr() if oh is not None else None, p,
-            tq, tk, _build.stream_ptr(x_q.device)), "sh_attention_fwd")
+            tq, tk, *drop, _build.stream_ptr(x_q.device)), "sh_attention_fwd")
     return out
 
 
 def fused_sh_attention(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s, ln_b,
                        mask, n_head=8, d_k=64, d_v=64):
-    """Same arguments and result as `sh_attention_reference`."""
+    """Same arguments and result as `sh_attention_reference` (no dropout:
+    the eval kernel)."""
     if x_q.device.type == "cpu":
         return sh_attention_reference(x_q, x_kv, wq, wk, wv, sk_w, sk_b,
                                       fc_w, ln_s, ln_b, mask, n_head=n_head,
@@ -173,44 +239,59 @@ fused_sh_attention.launches = 0
 
 
 def fused_sh_attention_saved(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
-                             ln_b, mask, n_head=8, d_k=64, d_v=64):
+                             ln_b, mask, n_head=8, d_k=64, d_v=64, *,
+                             attn_keep=None, out_keep=None, keep_prob=1.0,
+                             seed=None):
     """(out, per-head outputs [H, P*Tq, d_v] f32): the forward of the train
-    path, same arguments as `fused_sh_attention`."""
+    path, same arguments as `sh_attention_saved_reference`."""
+    drop = dict(attn_keep=attn_keep, out_keep=out_keep, keep_prob=keep_prob,
+                seed=seed)
     if x_q.device.type == "cpu":
         return sh_attention_saved_reference(x_q, x_kv, wq, wk, wv, sk_w, sk_b,
                                             fc_w, ln_s, ln_b, mask, n_head,
-                                            d_k, d_v)
+                                            d_k, d_v, **drop)
     p, tq, tk, _, _, args = _check(
         "sh_attention_saved", x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
         ln_b, mask, n_head, d_k, d_v)
+    kdrop = _kernel_drop("sh_attention_saved", x_q, p, tq, tk, **drop)
     oh = torch.empty((n_head, p * tq, d_v), dtype=torch.float32,
                      device=x_q.device)
-    out = _forward(x_q, args, p, tq, tk, oh)
+    out = _forward(x_q, args, p, tq, tk, oh, kdrop)
     if p:
-        fused_sh_attention_saved.launches += 1
+        count_launch(fused_sh_attention_saved, keep_prob)
     return out, oh
 
 
 fused_sh_attention_saved.launches = 0
+fused_sh_attention_saved.dropout_launches = 0
 
 
 def sh_attention_bwd_reference(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
-                               ln_b, mask, oh, g, n_head=8, d_k=64, d_v=64):
+                               ln_b, mask, oh, g, n_head=8, d_k=64, d_v=64, *,
+                               attn_keep=None, out_keep=None, keep_prob=1.0,
+                               seed=None):
     """Plain backward: torch autograd through `sh_attention_reference`
     (the saved per-head outputs `oh` are not needed).  Returns the
     cotangents of (x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s, ln_b)."""
+    ak, ok = _plain_masks(attn_keep, out_keep, keep_prob, seed, x_q.shape[0],
+                          x_q.shape[1], x_kv.shape[1], x_q.shape[2], n_head)
+
     def f(*a):
         return sh_attention_reference(*a, mask, n_head=n_head, d_k=d_k,
-                                      d_v=d_v)
+                                      d_v=d_v, attn_keep=ak, out_keep=ok,
+                                      keep_prob=keep_prob)
 
     return vjp_of(f, (x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s, ln_b),
                   g)
 
 
 def fused_sh_attention_bwd(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
-                           ln_b, mask, oh, g, n_head=8, d_k=64, d_v=64):
+                           ln_b, mask, oh, g, n_head=8, d_k=64, d_v=64, *,
+                           attn_keep=None, out_keep=None, keep_prob=1.0,
+                           seed=None):
     """Same arguments and result as `sh_attention_bwd_reference`; oh is the
-    second output of `fused_sh_attention_saved`, g [P, Tq, D] in x_q's dtype.
+    second output of `fused_sh_attention_saved` with the same dropout, g
+    [P, Tq, D] in x_q's dtype.
 
     Kernel path, with the Pallas kernel's f32-between-products numerics
     (pallas_attention.py:474-627): one block per pair rebuilds the gate and
@@ -220,15 +301,22 @@ def fused_sh_attention_bwd(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
     and logit cotangent, and the per-head dz/dk/dv in f32.  The products
     over the pair batch then run on csrc/gemm.cu: dxq = dy + dz wq^T,
     dxkv = dk wk^T + dv wv^T, dwq = xq^T dz, dwk = xkv^T dk, dwv = xkv^T dv,
-    dfc_w = o^T dy, dsk_w = s^T dlogit; column sums give dsk_b, dln_s and
-    dln_b.  Weight cotangents come back in the weights' dtype, as JAX's."""
+    dfc_w = o^T dy0, dsk_w = s^T dlogit; column sums give dsk_b, dln_s and
+    dln_b.  With dropout the kernel regenerates (or reads) the forward's
+    masks and also writes dy0 = dy * out_keep / keep_prob, fc's output
+    cotangent ([P*Tq, 512] f32 more); without, dy0 is dy.  Weight cotangents
+    come back in the weights' dtype, as JAX's."""
+    drop = dict(attn_keep=attn_keep, out_keep=out_keep, keep_prob=keep_prob,
+                seed=seed)
     if x_q.device.type == "cpu":
         return sh_attention_bwd_reference(x_q, x_kv, wq, wk, wv, sk_w, sk_b,
                                           fc_w, ln_s, ln_b, mask, oh, g,
-                                          n_head=n_head, d_k=d_k, d_v=d_v)
+                                          n_head=n_head, d_k=d_k, d_v=d_v,
+                                          **drop)
     p, tq, tk, d, dt, args = _check(
         "sh_attention_bwd", x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
         ln_b, mask, n_head, d_k, d_v)
+    kdrop = _kernel_drop("sh_attention_bwd", x_q, p, tq, tk, **drop)
     req = _build.require
     req(tuple(oh.shape) == (n_head, p * tq, d_v) and
         oh.dtype == torch.float32,
@@ -246,12 +334,14 @@ def fused_sh_attention_bwd(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
     dy, o, s, dgl, lnp = (f32(p * tq, d), f32(p * tq, d_v), f32(p, d_v),
                           f32(p, n_head * d_v), f32(2, p, d))
     dz, dk, dv = f32(p * tq, d), f32(p * tk, d), f32(p * tk, d)
+    dy0 = f32(p * tq, d) if keep_prob < 1.0 else dy
     lib = _build.load("sh_attention", _FUNCS)
     _build.check(lib.sh_attention_bwd_pairs(
         int(dt == torch.bfloat16),
         *(t.data_ptr() for t in args[:9] + (mask, oh, g, dy, o, s, dgl)),
         lnp[0].data_ptr(), lnp[1].data_ptr(), dz.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), p, tq, tk, _build.stream_ptr(dev)),
+        dv.data_ptr(), p, tq, tk, *kdrop,
+        dy0.data_ptr() if keep_prob < 1.0 else None, _build.stream_ptr(dev)),
         "sh_attention_bwd_pairs")
     gemm, NT, TN = _gemm.gemm, _gemm.NT, _gemm.TN
     xq2, xkv2 = x_q.view(p * tq, d), x_kv.view(p * tk, d)
@@ -260,43 +350,70 @@ def fused_sh_attention_bwd(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
     dxkv = gemm(NT, dv, wv, cadd=dxkv, out=dxkv).to(dt).view(p, tk, d)
     grads = (dxq, dxkv, gemm(TN, xq2, dz).to(dt), gemm(TN, xkv2, dk).to(dt),
              gemm(TN, xkv2, dv).to(dt), gemm(TN, s, dgl).to(dt),
-             _gemm.colsum(dgl).to(dt), gemm(TN, o, dy).to(dt),
+             _gemm.colsum(dgl).to(dt), gemm(TN, o, dy0).to(dt),
              _gemm.colsum(lnp[0]), _gemm.colsum(lnp[1]))
-    fused_sh_attention_bwd.launches += 1
+    count_launch(fused_sh_attention_bwd, keep_prob)
     return grads
 
 
 fused_sh_attention_bwd.launches = 0
+fused_sh_attention_bwd.dropout_launches = 0
 
 
 class FusedSHAttention(torch.autograd.Function):
     """`fused_sh_attention_saved` with `fused_sh_attention_bwd` as its
-    backward.  Self-attention passes one tensor as x_q and x_kv; autograd
-    sums its two cotangents."""
+    backward; the dropout arguments reach both.  Self-attention passes one
+    tensor as x_q and x_kv; autograd sums its two cotangents."""
 
     @staticmethod
     def forward(ctx, x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s, ln_b,
-                mask, n_head, d_k, d_v):
+                mask, n_head, d_k, d_v, keep_prob, seed, attn_keep, out_keep):
+        drop = dict(keep_prob=keep_prob, seed=seed, attn_keep=attn_keep,
+                    out_keep=out_keep)
         out, oh = fused_sh_attention_saved(x_q, x_kv, wq, wk, wv, sk_w,
                                            sk_b, fc_w, ln_s, ln_b, mask,
-                                           n_head, d_k, d_v)
+                                           n_head, d_k, d_v, **drop)
         ctx.save_for_backward(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
                               ln_b, mask, oh)
         ctx.heads = (n_head, d_k, d_v)
+        ctx.drop = drop
         return out
 
     @staticmethod
     def backward(ctx, g):
         grads = fused_sh_attention_bwd(*ctx.saved_tensors, g.contiguous(),
-                                       *ctx.heads)
-        return tuple(grads) + (None,) * 4
+                                       *ctx.heads, **ctx.drop)
+        return tuple(grads) + (None,) * 8
 
 
 def sh_attention(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s, ln_b, mask,
-                 n_head=8, d_k=64, d_v=64):
+                 n_head=8, d_k=64, d_v=64, *, keep_prob=1.0, seed=None,
+                 attn_keep=None, out_keep=None):
     """The model's fused attention block: the differentiable Function when
-    an input needs a gradient, else the eval kernel."""
+    an input needs a gradient or dropout is on, else the eval kernel."""
     args = (x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s, ln_b, mask)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args[:10]):
-        return FusedSHAttention.apply(*args, n_head, d_k, d_v)
+    if keep_prob < 1.0 or (torch.is_grad_enabled() and
+                           any(t.requires_grad for t in args[:10])):
+        return FusedSHAttention.apply(*args, n_head, d_k, d_v, keep_prob,
+                                      seed, attn_keep, out_keep)
     return fused_sh_attention(*args, n_head, d_k, d_v)
+
+
+def fused_sh_attention_rngdrop(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
+                               ln_b, mask, seed, n_head=8, d_k=64, d_v=64,
+                               keep_prob=0.9):
+    """The attention block with dropout drawn in the kernels from `seed`
+    ([2] int32), differentiable (pallas_attention.py:891)."""
+    return sh_attention(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s, ln_b,
+                        mask, n_head, d_k, d_v, keep_prob=keep_prob, seed=seed)
+
+
+def fused_sh_attention_dropout(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
+                               ln_b, mask, attn_keep, out_keep, n_head=8,
+                               d_k=64, d_v=64, keep_prob=0.9):
+    """The attention block with dropout from the operand masks attn_keep
+    [H, P*Tq, Tk] and out_keep [P*Tq, D], differentiable
+    (pallas_attention.py:817)."""
+    return sh_attention(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s, ln_b,
+                        mask, n_head, d_k, d_v, keep_prob=keep_prob,
+                        attn_keep=attn_keep, out_keep=out_keep)

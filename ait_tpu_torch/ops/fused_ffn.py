@@ -16,11 +16,22 @@ and backward (counterpart of ait_tpu/ops/pallas_ffn.py).
 * `FusedFFN` and `FusedPosLN` are the autograd Functions over them; `ffn`
   and `posln` are what the model calls.
 
-Dropout is off (it comes with the train path's next slice).  LayerNorm eps
-is 1e-6 with f32 statistics.  A CUDA tensor goes to the kernel, a CPU tensor
-to the plain version beside it (`ffn_reference`, `posln_reference`, and for
-the backward, torch autograd through them: `ffn_bwd_reference`,
-`posln_bwd_reference`).
+Dropout (training): the FFN drops its output y2 = y1 @ w2 + b2 before the
+residual, the glue drops x + pos before the LayerNorm, each kept value
+scaled by 1 / keep_prob.  With keep_prob < 1 and a `seed` ([2] int32, on the
+operands' device) the kernels draw the keep-mask from the port's Philox
+stream (csrc/philox.cuh; tag 3 for the FFN, 4 for the glue, a block per
+absolute row), forward and backward alike, as the Pallas kernels draw theirs
+in-kernel (pallas_ffn.py:70 `_gen_keep`, :288-294).  The plain versions draw
+the same mask from `ops/philox.py`, or take it as `keep` ([N, D] 0/1, as the
+JAX package's references do; the CPU parity tests inject masks so), and
+multiply by keep * (1 / keep_prob) in f32, as those do.  A wrapper counts a
+launch at keep_prob 1 in `launches`, with dropout in `dropout_launches`.
+
+LayerNorm eps is 1e-6 with f32 statistics.  A CUDA tensor goes to the
+kernel, a CPU tensor to the plain version beside it (`ffn_reference`,
+`posln_reference`, and for the backward, torch autograd through them:
+`ffn_bwd_reference`, `posln_bwd_reference`).
 """
 
 from __future__ import annotations
@@ -29,31 +40,52 @@ import ctypes
 
 import torch
 
-from ait_tpu_torch.ops import _build, _gemm
+from ait_tpu_torch.ops import _build, _gemm, philox
+from ait_tpu_torch.ops.dropout_masks import count_launch, seed_args
 from ait_tpu_torch.ops.fused_attention import layer_norm_f32, vjp_of
 
 # the widths the kernels are compiled for (the flagship AIT head)
 KERNEL_D, KERNEL_HIDDEN = 512, 2048
 
 
-def ffn_reference(x, w1, b1, w2, b2, ln_s, ln_b):
+def _plain_keep(keep, keep_prob, seed, tag, x):
+    """The [N, D] keep-mask a plain version applies: the given one, else the
+    Philox stream's for `seed` at keep_prob < 1, else None."""
+    if keep is not None or keep_prob >= 1.0:
+        return keep
+    n, d = x.shape
+    return philox.keep_mask(seed, tag, 1, n, d, keep_prob).view(n, d)
+
+
+def ffn_reference(x, w1, b1, w2, b2, ln_s, ln_b, keep=None, keep_prob=1.0,
+                  seed=None):
     """x [N, D] in the compute dtype; w1 [D, H], w2 [H, D] in the JAX layout;
-    biases and LayerNorm params f32."""
+    biases and LayerNorm params f32; the output dropout's mask `keep` [N, D]
+    or `seed` at keep_prob < 1."""
     dt = x.dtype
-    # jnp.dot(..., preferred_element_type=f32): exact products, f32 sums
+    keep = _plain_keep(keep, keep_prob, seed, philox.TAG_FFN, x)
+    # jnp.dot(..., preferred_element_type=f32): exact products, f32 sums;
+    # relu's derivative is 0 at a pre-activation of exactly 0, as the Pallas
+    # backward's `y1 > 0` mask has it (pallas_ffn.py:128)
     y1 = x.float() @ w1.to(dt).float() + b1
-    y1 = y1.clamp(min=0.0).to(dt)
+    y1 = torch.relu(y1).to(dt)
     y2 = y1.float() @ w2.to(dt).float() + b2
+    if keep is not None:
+        y2 = y2 * keep.float() * (1.0 / keep_prob)
     y = y2 + x.float()
     return layer_norm_f32(y, ln_s, ln_b).to(dt)
 
 
-def posln_reference(x, pos, ln_s, ln_b):
+def posln_reference(x, pos, ln_s, ln_b, keep=None, keep_prob=1.0, seed=None):
     """x [N, D] flat pair-major rows, pos [T, D] with N % T == 0 (row i gets
-    position i % T)."""
+    position i % T); the dropout's mask `keep` [N, D] or `seed` at
+    keep_prob < 1."""
     t = pos.shape[0]
     n = x.shape[0]
+    keep = _plain_keep(keep, keep_prob, seed, philox.TAG_GLUE, x)
     y = x.float() + pos.float().repeat(n // t, 1)
+    if keep is not None:
+        y = y * keep.float() * (1.0 / keep_prob)
     return layer_norm_f32(y, ln_s, ln_b).to(x.dtype)
 
 
@@ -67,21 +99,33 @@ def _check_rows(name, x, params):
     _build.require_operands(name, x.device, (x,) + tuple(params))
 
 
-_FFN_FUNCS = {"ffn_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 8 +
-              [ctypes.c_int, ctypes.c_void_p]}
-_POSLN_FUNCS = {"posln_fwd": [ctypes.c_int] + [ctypes.c_void_p] * 5 +
-                [ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-                "ln_bwd": [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2 +
-                [ctypes.c_int] + [ctypes.c_void_p] * 5 +
-                [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+_I, _P = ctypes.c_int, ctypes.c_void_p
+_DROP = [_P, ctypes.c_uint, ctypes.c_float]        # seed, threshold, 1 / keep
+_FFN_FUNCS = {"ffn_fwd": [_I] + [_P] * 8 + [_I] + _DROP + [_P]}
+_POSLN_FUNCS = {"posln_fwd": [_I] + [_P] * 5 + [_I, _I] + _DROP + [_P],
+                "ln_bwd": [_I] * 3 + [_P] * 2 + [_I] + [_P] * 5 +
+                [_I, _I, _I] + _DROP + [_P, _P]}
+# ln_bwd's dropout modes (csrc/posln.cu)
+_LN_PLAIN, _LN_GLUE, _LN_FFN = 0, 1, 2
 
 
-def fused_ffn(x, w1, b1, w2, b2, ln_s, ln_b):
+def _kernel_drop(name, x, keep, keep_prob, seed):
+    """(seed pointer, threshold, 1 / keep_prob) for a kernel; no operand
+    masks: the kernels draw theirs from the seed."""
+    _build.require(keep is None, f"{name}: the kernel draws its dropout mask "
+                   "from a seed; operand masks are for the plain version")
+    return seed_args(name, keep_prob, seed, x.device)
+
+
+def fused_ffn(x, w1, b1, w2, b2, ln_s, ln_b, keep=None, keep_prob=1.0,
+              seed=None):
     """Same arguments and result as `ffn_reference`; on CUDA w1 and w2 must
-    already be in x's dtype."""
+    already be in x's dtype, and dropout comes from `seed`."""
     if x.device.type == "cpu":
-        return ffn_reference(x, w1, b1, w2, b2, ln_s, ln_b)
+        return ffn_reference(x, w1, b1, w2, b2, ln_s, ln_b, keep=keep,
+                             keep_prob=keep_prob, seed=seed)
     _check_rows("ffn", x, (w1, b1, w2, b2, ln_s, ln_b))
+    drop = _kernel_drop("ffn", x, keep, keep_prob, seed)
     req = _build.require
     d, h = KERNEL_D, KERNEL_HIDDEN
     req(tuple(w1.shape) == (d, h) and tuple(w2.shape) == (h, d) and
@@ -97,21 +141,23 @@ def fused_ffn(x, w1, b1, w2, b2, ln_s, ln_b):
         _build.check(lib.ffn_fwd(
             int(x.dtype == torch.bfloat16), x.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), ln_s.data_ptr(),
-            ln_b.data_ptr(), out.data_ptr(), x.shape[0],
+            ln_b.data_ptr(), out.data_ptr(), x.shape[0], *drop,
             _build.stream_ptr(x.device)), "ffn_fwd")
-        fused_ffn.launches += 1
+        count_launch(fused_ffn, keep_prob)
     return out
 
 
-fused_ffn.launches = 0
+fused_ffn.launches = fused_ffn.dropout_launches = 0
 
 
-def fused_posln(x, pos, ln_s, ln_b):
+def fused_posln(x, pos, ln_s, ln_b, keep=None, keep_prob=1.0, seed=None):
     """Same arguments and result as `posln_reference`; on CUDA pos must be
-    in x's dtype."""
+    in x's dtype, and dropout comes from `seed`."""
     if x.device.type == "cpu":
-        return posln_reference(x, pos, ln_s, ln_b)
+        return posln_reference(x, pos, ln_s, ln_b, keep=keep,
+                               keep_prob=keep_prob, seed=seed)
     _check_rows("posln", x, (pos, ln_s, ln_b))
+    drop = _kernel_drop("posln", x, keep, keep_prob, seed)
     req = _build.require
     n, d = x.shape
     t = pos.shape[0]
@@ -126,41 +172,51 @@ def fused_posln(x, pos, ln_s, ln_b):
         lib = _build.load("posln", _POSLN_FUNCS)
         _build.check(lib.posln_fwd(
             int(x.dtype == torch.bfloat16), x.data_ptr(), pos.data_ptr(),
-            ln_s.data_ptr(), ln_b.data_ptr(), out.data_ptr(), n, t,
+            ln_s.data_ptr(), ln_b.data_ptr(), out.data_ptr(), n, t, *drop,
             _build.stream_ptr(x.device)), "posln_fwd")
-        fused_posln.launches += 1
+        count_launch(fused_posln, keep_prob)
     return out
 
 
-fused_posln.launches = 0
+fused_posln.launches = fused_posln.dropout_launches = 0
 
 
 # ------------------------------------------------------------------ backward
 
 
-def ffn_bwd_reference(x, w1, b1, w2, b2, ln_s, ln_b, g):
+def ffn_bwd_reference(x, w1, b1, w2, b2, ln_s, ln_b, g, keep=None,
+                      keep_prob=1.0, seed=None):
     """Plain backward: torch autograd through `ffn_reference`.  Returns the
     cotangents of (x, w1, b1, w2, b2, ln_s, ln_b)."""
-    return vjp_of(ffn_reference, (x, w1, b1, w2, b2, ln_s, ln_b), g)
+    keep = _plain_keep(keep, keep_prob, seed, philox.TAG_FFN, x)
+    return vjp_of(lambda *a: ffn_reference(*a, keep, keep_prob),
+                  (x, w1, b1, w2, b2, ln_s, ln_b), g)
 
 
-def posln_bwd_reference(x, pos, ln_s, ln_b, g):
+def posln_bwd_reference(x, pos, ln_s, ln_b, g, keep=None, keep_prob=1.0,
+                        seed=None):
     """Plain backward: torch autograd through `posln_reference`; the
     position table gets zeros, as in the JAX package."""
+    keep = _plain_keep(keep, keep_prob, seed, philox.TAG_GLUE, x)
     dx, dln_s, dln_b = vjp_of(
-        lambda x_, s_, b_: posln_reference(x_, pos, s_, b_), (x, ln_s, ln_b),
-        g)
+        lambda x_, s_, b_: posln_reference(x_, pos, s_, b_, keep, keep_prob),
+        (x, ln_s, ln_b), g)
     return dx, torch.zeros_like(pos), dln_s, dln_b
 
 
-def _ln_bwd(x, add, period, ln_s, g, out_dtype):
-    """csrc/posln.cu `ln_bwd`: (dx, dln_s, dln_b) of LayerNorm(x + add[i mod
-    period]) on the card."""
+def _ln_bwd(x, add, period, ln_s, g, out_dtype, mode=_LN_PLAIN,
+            drop=(None, 0, 1.0)):
+    """csrc/posln.cu `ln_bwd`: (dx, dln_s, dln_b, dy2) of the LayerNorm of
+    x + add[i mod period] on the card, with the dropout of `mode` (drop =
+    the kernel's seed pointer, threshold and 1 / keep_prob).  dy2 [N, 512]
+    f32 in the FFN mode, else None."""
     n = x.shape[0]
     per_block = -(-n // 1024)                    # ~1024 blocks, 8-row runs
     rpb = max(8, -(-per_block // 8) * 8)
     blocks = -(-n // rpb)
     dx = torch.empty((n, KERNEL_D), dtype=out_dtype, device=x.device)
+    dy2 = (torch.empty((n, KERNEL_D), dtype=torch.float32, device=x.device)
+           if mode == _LN_FFN else None)
     parts = torch.empty((2, blocks, KERNEL_D), dtype=torch.float32,
                         device=x.device)
     lib = _build.load("posln", _POSLN_FUNCS)
@@ -168,24 +224,32 @@ def _ln_bwd(x, add, period, ln_s, g, out_dtype):
         int(x.dtype == torch.bfloat16), int(add.dtype == torch.bfloat16),
         int(out_dtype == torch.bfloat16), x.data_ptr(), add.data_ptr(),
         period, ln_s.data_ptr(), g.data_ptr(), dx.data_ptr(),
-        parts[0].data_ptr(), parts[1].data_ptr(), n, rpb,
+        parts[0].data_ptr(), parts[1].data_ptr(), n, rpb, mode, *drop,
+        dy2.data_ptr() if dy2 is not None else None,
         _build.stream_ptr(x.device)), "ln_bwd")
-    return dx, _gemm.colsum(parts[0]), _gemm.colsum(parts[1])
+    return dx, _gemm.colsum(parts[0]), _gemm.colsum(parts[1]), dy2
 
 
-def fused_ffn_bwd(x, w1, b1, w2, b2, ln_s, ln_b, g):
+def fused_ffn_bwd(x, w1, b1, w2, b2, ln_s, ln_b, g, keep=None, keep_prob=1.0,
+                  seed=None):
     """Same arguments and result as `ffn_bwd_reference`; on CUDA the
     operands are those `fused_ffn` takes, and g is [N, D] in x's dtype.
 
     Kernel path, with the JAX kernel's cast points (pallas_ffn.py:126-164):
     y1 = relu(x @ w1 + b1) rounded to x's dtype, y2 = y1 @ w2 + b2 (f32),
-    dy = LayerNorm backward of y2 + x (f32), dy1 = (dy as x's dtype) @ w2^T
-    where y1 > 0 (f32), dx = (dy1 as x's dtype) @ w1^T + dy; dw1 = x^T dy1,
-    dw2 = y1^T dy, db1, db2 column sums.  It stores y1 [N, 2048] in x's
-    dtype and y2, dy [N, 512] and dy1 [N, 2048] in f32 between launches."""
+    dy = LayerNorm backward of y2 * m + x (f32, m = keep / keep_prob, 1
+    without dropout), dy2 = dy * m, dy1 = (dy2 as x's dtype) @ w2^T where
+    y1 > 0 (f32), dx = (dy1 as x's dtype) @ w1^T + dy (the residual takes the
+    unmasked dy); dw1 = x^T dy1, dw2 = y1^T dy2, db1, db2 column sums.  The
+    LayerNorm backward (csrc/posln.cu `ln_bwd`) regenerates m from the seed
+    and writes dy2 beside dy, one more [N, 512] f32 array with dropout
+    (134 MB at N = 65,536).  It stores y1 [N, 2048] in x's dtype and y2, dy
+    (dy2) [N, 512] and dy1 [N, 2048] in f32 between launches."""
     if x.device.type == "cpu":
-        return ffn_bwd_reference(x, w1, b1, w2, b2, ln_s, ln_b, g)
+        return ffn_bwd_reference(x, w1, b1, w2, b2, ln_s, ln_b, g, keep=keep,
+                                 keep_prob=keep_prob, seed=seed)
     _check_rows("ffn_bwd", x, (w1, b1, w2, b2, ln_s, ln_b, g))
+    drop = _kernel_drop("ffn_bwd", x, keep, keep_prob, seed)
     req = _build.require
     d, h = KERNEL_D, KERNEL_HIDDEN
     dt = x.dtype
@@ -206,25 +270,34 @@ def fused_ffn_bwd(x, w1, b1, w2, b2, ln_s, ln_b, g):
     gemm, NN, NT, TN = _gemm.gemm, _gemm.NN, _gemm.NT, _gemm.TN
     y1 = gemm(NN, x, w1, bias=b1, relu=True, out_dtype=dt)
     y2 = gemm(NN, y1, w2, bias=b2)
-    dy, dln_s, dln_b = _ln_bwd(x, y2, x.shape[0], ln_s, g, torch.float32)
+    dy, dln_s, dln_b, dy2 = _ln_bwd(
+        x, y2, x.shape[0], ln_s, g, torch.float32,
+        _LN_FFN if keep_prob < 1.0 else _LN_PLAIN, drop)
     del y2
-    dy1 = gemm(NT, dy.to(dt), w2, mask=y1)
+    if dy2 is None:
+        dy2 = dy
+    dy1 = gemm(NT, dy2.to(dt), w2, mask=y1)
     dx = gemm(NT, dy1.to(dt), w1, cadd=dy).to(dt)
     dw1 = gemm(TN, x, dy1).to(dt)
-    dw2 = gemm(TN, y1, dy).to(dt)
-    db1, db2 = _gemm.colsum(dy1), _gemm.colsum(dy)
-    fused_ffn_bwd.launches += 1
+    dw2 = gemm(TN, y1, dy2).to(dt)
+    db1, db2 = _gemm.colsum(dy1), _gemm.colsum(dy2)
+    count_launch(fused_ffn_bwd, keep_prob)
     return dx, dw1, db1, dw2, db2, dln_s, dln_b
 
 
-fused_ffn_bwd.launches = 0
+fused_ffn_bwd.launches = fused_ffn_bwd.dropout_launches = 0
 
 
-def fused_posln_bwd(x, pos, ln_s, ln_b, g):
-    """Same arguments and result as `posln_bwd_reference`."""
+def fused_posln_bwd(x, pos, ln_s, ln_b, g, keep=None, keep_prob=1.0,
+                    seed=None):
+    """Same arguments and result as `posln_bwd_reference`; with dropout
+    `ln_bwd` regenerates the forward's mask from the seed and scales dx by
+    it."""
     if x.device.type == "cpu":
-        return posln_bwd_reference(x, pos, ln_s, ln_b, g)
+        return posln_bwd_reference(x, pos, ln_s, ln_b, g, keep=keep,
+                                   keep_prob=keep_prob, seed=seed)
     _check_rows("posln_bwd", x, (pos, ln_s, ln_b, g))
+    drop = _kernel_drop("posln_bwd", x, keep, keep_prob, seed)
     req = _build.require
     n, d = x.shape
     t = pos.shape[0]
@@ -239,45 +312,53 @@ def fused_posln_bwd(x, pos, ln_s, ln_b, g):
     if not n:
         return (torch.zeros_like(x), torch.zeros_like(pos),
                 torch.zeros_like(ln_s), torch.zeros_like(ln_b))
-    dx, dln_s, dln_b = _ln_bwd(x, pos, t, ln_s, g, x.dtype)
-    fused_posln_bwd.launches += 1
+    mode = _LN_GLUE if keep_prob < 1.0 else _LN_PLAIN
+    dx, dln_s, dln_b, _ = _ln_bwd(x, pos, t, ln_s, g, x.dtype, mode, drop)
+    count_launch(fused_posln_bwd, keep_prob)
     return dx, torch.zeros_like(pos), dln_s, dln_b
 
 
-fused_posln_bwd.launches = 0
+fused_posln_bwd.launches = fused_posln_bwd.dropout_launches = 0
 
 
 class FusedFFN(torch.autograd.Function):
-    """`fused_ffn` with `fused_ffn_bwd` as its backward."""
+    """`fused_ffn` with `fused_ffn_bwd` as its backward; the dropout
+    arguments (keep, keep_prob, seed) reach both."""
 
     @staticmethod
-    def forward(ctx, x, w1, b1, w2, b2, ln_s, ln_b):
+    def forward(ctx, x, w1, b1, w2, b2, ln_s, ln_b, keep, keep_prob, seed):
         ctx.save_for_backward(x, w1, b1, w2, b2, ln_s, ln_b)
-        return fused_ffn(x, w1, b1, w2, b2, ln_s, ln_b)
+        ctx.drop = (keep, keep_prob, seed)
+        return fused_ffn(x, w1, b1, w2, b2, ln_s, ln_b, keep, keep_prob, seed)
 
     @staticmethod
     def backward(ctx, g):
-        return fused_ffn_bwd(*ctx.saved_tensors, g.contiguous())
+        return fused_ffn_bwd(*ctx.saved_tensors, g.contiguous(),
+                             *ctx.drop) + (None,) * 3
 
 
 class FusedPosLN(torch.autograd.Function):
-    """`fused_posln` with `fused_posln_bwd` as its backward."""
+    """`fused_posln` with `fused_posln_bwd` as its backward; the dropout
+    arguments reach both."""
 
     @staticmethod
-    def forward(ctx, x, pos, ln_s, ln_b):
+    def forward(ctx, x, pos, ln_s, ln_b, keep, keep_prob, seed):
         ctx.save_for_backward(x, pos, ln_s, ln_b)
-        return fused_posln(x, pos, ln_s, ln_b)
+        ctx.drop = (keep, keep_prob, seed)
+        return fused_posln(x, pos, ln_s, ln_b, keep, keep_prob, seed)
 
     @staticmethod
     def backward(ctx, g):
-        return fused_posln_bwd(*ctx.saved_tensors, g.contiguous())
+        return fused_posln_bwd(*ctx.saved_tensors, g.contiguous(),
+                               *ctx.drop) + (None,) * 3
 
 
-def ffn(x, w1, b1, w2, b2, ln_s, ln_b):
+def ffn(x, w1, b1, w2, b2, ln_s, ln_b, keep=None, keep_prob=1.0, seed=None):
     """The model's FFN block: `fused_ffn`, differentiable."""
-    return FusedFFN.apply(x, w1, b1, w2, b2, ln_s, ln_b)
+    return FusedFFN.apply(x, w1, b1, w2, b2, ln_s, ln_b, keep, keep_prob,
+                          seed)
 
 
-def posln(x, pos, ln_s, ln_b):
+def posln(x, pos, ln_s, ln_b, keep=None, keep_prob=1.0, seed=None):
     """The model's input glue: `fused_posln`, differentiable."""
-    return FusedPosLN.apply(x, pos, ln_s, ln_b)
+    return FusedPosLN.apply(x, pos, ln_s, ln_b, keep, keep_prob, seed)

@@ -1,6 +1,6 @@
 """Train and eval steps (counterpart of ait_tpu/train/state.py).
 
-    model = AITDetector(cfg)             # cfg.model.t_dropout == 0
+    model = AITDetector(cfg)             # Config(): t_dropout 0.1
     model.load_state_dict(state_dict)
     optimizer = make_optimizer(cfg, model)
     step = make_train_step(model, optimizer, lr_schedule(...))   # on the GPU
@@ -8,7 +8,11 @@
 
 A step is the forward with the five losses, the backward (the fused
 kernels' backward kernels on the transformer, torch autograd elsewhere) and
-one SGD update at the schedule's lr for the step.  Gradient accumulation
+one SGD update at the schedule's lr for the step.  The step's generator is
+its only source of randomness: in one fixed order it draws the co-attention's
+dropout seeds, the anchor and proposal sampling uniforms, then the
+transformer's dropout seeds (models/dropout.py), so one generator state gives
+one step, on the kernel path or the plain path alike.  Gradient accumulation
 (accum_steps > 1) is not ported yet.
 """
 
@@ -53,8 +57,8 @@ def make_train_step(model: AITDetector, optimizer: torch.optim.Optimizer,
                     accum_steps: int = 1) -> Callable:
     """Returns train_step(batch, generator) -> metrics.  The model moves to
     `device`: the GPU unless the caller names another.  The generator draws
-    the anchor and proposal sampling of each step; the schedule gives the
-    base lr of step 0, 1, ..."""
+    the dropout seeds and the anchor and proposal sampling of each step; the
+    schedule gives the base lr of step 0, 1, ..."""
     dev = resolve_device(device)
     model.to(dev).train()
     params = [p for g in optimizer.param_groups for p in g["params"]]
@@ -65,7 +69,7 @@ def make_train_step(model: AITDetector, optimizer: torch.optim.Optimizer,
         nonlocal step
         if not isinstance(generator, torch.Generator):
             raise TypeError("train_step needs a torch.Generator for the "
-                            "target sampling")
+                            "dropout and the target sampling")
         optimizer.zero_grad(set_to_none=True)
         batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
         metrics = grads_and_metrics(model, batch, generator, accum_steps)

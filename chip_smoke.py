@@ -26,15 +26,26 @@
    its expected launches per forward.  The outputs must be finite and
    well-formed, and the kernel path must agree with the same model run
    through the plain versions (float32, batch 2).
-4. Trains the same flagship (model.t_dropout = 0, bfloat16 compute, float32
-   parameters) with make_train_step: one warm-up and 3 timed steps on
-   batches of 8 with a few ground-truth boxes each.  The launch counts are
-   set to 0 before and read after; each kernel must show its launches per
-   step.  The five losses must be finite, every trainable leaf must move
-   and every frozen leaf and buffer must stay bitwise unchanged; and one
-   float32 train step at batch 2 must agree with the plain path on the
-   same weights and draws (losses within 1e-4 relative, every gradient
-   within 5e-3 of its leaf's max |plain|).
+   * dropout (keep_prob 0.9, the train path's default): the mask dump
+     kernel at the B=8 train shapes bit-equal to the plain Philox stream
+     (ops/philox.py), two launches bit-equal, the keep rate of every dump
+     within 0.01 of 0.9, a pair's masks the same from a dump of 4 pairs as
+     from one of 1024; then the dropout forms of the attention (masks from a
+     seed, and from operand masks), FFN and glue kernels, forward and
+     backward, each against its plain version fed the dumped masks, at the
+     tolerances above.
+4. Trains the same flagship, `Config()` unchanged (model.t_dropout 0.1,
+   bfloat16 compute, float32 parameters), with make_train_step: one warm-up
+   and 3 timed steps on batches of 8 with a few ground-truth boxes each.
+   The launch counts are set to 0 before and read after; each kernel must
+   show its launches per step.  The five losses must be finite, every
+   trainable leaf must move and every frozen leaf and buffer must stay
+   bitwise unchanged; and one float32 train step at batch 2 must agree with
+   the plain path on the same weights and draws, dropout masks included
+   (losses within 1e-4 relative, every gradient within 5e-3 of its leaf's
+   max |plain|).  Then the same at model.t_dropout = 0, shorter (one
+   warm-up, one timed step, the f32 comparison), so that the kernels'
+   keep-1 forms keep their train launches.
 5. Prints the per-kernel JSON line, then the device JSON line last.
 
 Exits non-zero, with no result line, without a CUDA device or outside a
@@ -69,6 +80,12 @@ BWD_REL = 5e-3            # its backward bound, relative to max |plain|
 # each rounding is 2^-9 relative and a cotangent passes through a few
 # (measured <= 9.4e-3 at 64 pairs on an H100)
 BF16_BWD_REL = 2e-2
+KEEP = 0.9                # 1 - Config().model.t_dropout
+# integer operations of one Philox4x32-10 call (10 rounds of 2 high and 2
+# low 32-bit products, 4 xors and 2 key additions) and the 4 compares and
+# selects of its words; counted at the CUDA cores' f32 rate (the card's
+# table gives no int32 rate)
+PHILOX_OPS = 110
 
 
 def log(msg: str) -> None:
@@ -518,40 +535,358 @@ def check_posln_train(torch, dev):
             "bound_ms": bound_sum, "bound_by": "bytes"}
 
 
+# ---------------------------------------------------------------- dropout
+
+
+# the co-attention's plain-path dropout masks per train step at B = 8 (the
+# main path's dump launches): image tokens 38 x 50 at stride 16, 64 query
+# tokens; (tag, heads, blocks, length) per dump
+COATT_DUMPS = ((1, 8, B, 1900 * 64), (2, 1, B, 1900 * 512),
+               (1, 8, B, 64 * 1900), (2, 1, B, 64 * 512))
+
+
+def _seed(torch, dev, i):
+    g = torch.Generator(device="cpu").manual_seed(100 + i)
+    return torch.randint(-2 ** 31, 2 ** 31, (2,), dtype=torch.int32,
+                         generator=g).to(dev)
+
+
+def check_masks(torch, dev):
+    """The dump kernel at the train path's shapes: bit-equal to the plain
+    Philox stream, two launches bit-equal, keep rate within 0.01 of KEEP,
+    and tiling-independent; held likewise (but for the second launch) and
+    timed at the co-attention's dumps, the main path's."""
+    from ait_tpu_torch.ops import dropout_masks as dm, philox
+
+    dumps = []
+    for i, (name, p, tq, tk, _) in enumerate(ATTN_TRAIN):
+        seed = _seed(torch, dev, i)
+        dumps.append((f"attention {name}", seed, lambda s=seed, p=p, tq=tq,
+                      tk=tk: dm.dropout_keep_masks(s, p, tq, tk, 512,
+                                                   keep_prob=KEEP)))
+    for i, (name, fn, n) in enumerate((
+            ("ffn encoder", dm.ffn_keep_mask, B * ROIS * 56),
+            ("ffn decoder", dm.ffn_keep_mask, B * ROIS * 64),
+            ("glue encoder", dm.posln_keep_mask, B * ROIS * 56),
+            ("glue decoder", dm.posln_keep_mask, B * 64))):
+        seed = _seed(torch, dev, 10 + i)
+        dumps.append((name, seed, lambda s=seed, f=fn, n=n: (
+            f(s, n, 512, keep_prob=KEEP),)))
+    with plain_path():
+        want_all = [[m.clone() for m in fn()] for _, _, fn in dumps]
+    g = torch.Generator(device=dev).manual_seed(0)
+    errs = []
+
+    def held(name, got, want, again=None):
+        """Fail unless the dump is bit-equal to the plain stream (and to a
+        second launch) with a keep rate within 0.01 of KEEP."""
+        errs.append((got - want).abs().max().item())
+        if not (torch.equal(got, want) and
+                (again is None or torch.equal(got, again))):
+            fail(f"mask dump {name} {tuple(want.shape)}: not bit-equal to "
+                 "the plain Philox stream or not deterministic")
+        rate = got.mean().item()
+        if abs(rate - KEEP) > 0.01:
+            fail(f"mask dump {name}: keep rate {rate} (want {KEEP})")
+        log(f"mask dump {name} {tuple(want.shape)}: bit-equal to the plain "
+            f"stream{', two launches equal' if again is not None else ''}, "
+            f"keep rate {rate:.5f}")
+
+    for (name, seed, fn), want in zip(dumps, want_all):
+        got, again = fn(), fn()
+        for g1, g2, w in zip(got, again, want):
+            held(name, g1, w, g2)
+        # the check path's dumps, timed: the kernel, its plain version, and
+        # torch.rand < p of the same shapes (other bits)
+        n = sum(m.numel() for m in want)
+        ms = cuda_ms(fn, iters=20)
+        with plain_path():
+            plain_ms = cuda_ms(fn, iters=2, warmup=1)
+        lib_ms = cuda_ms(lambda: [torch.rand(m.shape, generator=g,
+                                             device=dev) < KEEP
+                                  for m in want], iters=20)
+        t_bound = bound(n * 4 + 8, n / 4 * PHILOX_OPS, F32_FLOP_S)[0]
+        log(f"mask dump {name}: kernel_ms {ms:.4f} plain_ms {plain_ms:.3f} "
+            f"library_ms {lib_ms:.4f} bound_ms {t_bound:.4f} (bytes)")
+    # a pair's masks do not depend on how many pairs one dump covers
+    seed = dumps[0][1]
+    small = dm.dropout_keep_masks(seed, 4, 56, 56, 512, keep_prob=KEEP)
+    big = dumps[0][2]()
+    if not (torch.equal(small[0], big[0][:, :4 * 56]) and
+            torch.equal(small[1], big[1][:4 * 56])):
+        fail("mask dump: pairs 0-3 differ between a 4-pair and a 1024-pair "
+             "dump")
+    log("mask dump: pairs 0-3 equal in a 4-pair and a 1024-pair dump")
+
+    # held and timed at the main path's shapes (the co-attention's dumps)
+    seed = _seed(torch, dev, 20)
+    ms = plain_ms = lib_ms = t_bound = 0.0
+    for tag, heads, blocks, length in COATT_DUMPS:
+        held(f"co-attention tag {tag}",
+             dm.keep_mask(seed, tag, heads, blocks, length, KEEP),
+             philox.keep_mask(seed, tag, heads, blocks, length, KEEP))
+        ms += cuda_ms(lambda: dm.keep_mask(seed, tag, heads, blocks, length,
+                                           KEEP), iters=20)
+        plain_ms += cuda_ms(lambda: philox.keep_mask(
+            seed, tag, heads, blocks, length, KEEP), iters=3, warmup=1)
+        # one PyTorch call for a Bernoulli(KEEP) mask of the same shape (it
+        # draws other bits than the port's stream)
+        lib_ms += cuda_ms(lambda: torch.rand(
+            (heads, blocks, length), generator=g, device=dev) < KEEP,
+            iters=20)
+        n = heads * blocks * length
+        t_bound += bound(n * 4 + 8, n / 4 * PHILOX_OPS, F32_FLOP_S)[0]
+    log(f"keep_mask_dump (the co-attention's 4 dumps per step): kernel_ms "
+        f"{ms:.4f} plain_ms {plain_ms:.3f} library_ms (torch.rand < p) "
+        f"{lib_ms:.4f} bound_ms {t_bound:.4f} (bytes)")
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": t_bound, "bound_by": "bytes", "library_ms": lib_ms}
+
+
+def _res():
+    return [[], 0.0, 0.0, 0.0]
+
+
+def _finish(res, by):
+    return {"max_abs_err": max(res[0]), "ms": res[1], "plain_ms": res[2],
+            "bound_ms": res[3], "bound_by": by}
+
+
+def check_attention_dropout(torch, dev):
+    """The attention's dropout forms: the saved-outputs forward and the
+    backward with masks from a seed (the train path's form) and from operand
+    masks, against the plain versions fed the dumped masks.  The forward
+    tolerances are the eval check's, with room in bf16 for the plain
+    version's output-dropout factor 1 / 0.9 rounded to bf16 (1.109375, as
+    `_reference_impl` rounds it; the kernel multiplies in f32), 0.16% of
+    fc's output."""
+    from ait_tpu_torch.ops import dropout_masks as dm, fused_attention as fa
+
+    d, dk, h = 512, 64, 8
+    res = {"fwd": _res(), "bwd": _res()}
+    for i, (name, p, tq, tk, self_attn) in enumerate(ATTN_TRAIN):
+        mask = _attn_mask(torch, dev, tq, tk, self_attn)
+        gen = torch.Generator(device="cpu").manual_seed(p + tq + 1)
+        seed = _seed(torch, dev, 30 + i)
+        ak, ok = dm.dropout_keep_masks(seed, p, tq, tk, d, keep_prob=KEEP)
+        fed = dict(attn_keep=ak, out_keep=ok, keep_prob=KEEP)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _attn_args(torch, dev, p, tq, tk, dtype, seed=tq + tk)
+            g = torch.randn((p, tq, d), generator=gen).to(dev, dtype)
+            rout, roh = fa.sh_attention_saved_reference(*args, mask, **fed)
+            want = fa.sh_attention_bwd_reference(*args, mask, roh, g, **fed)
+            for source, drop in (("seed", dict(seed=seed, keep_prob=KEEP)),
+                                 ("operand masks", fed)):
+                out, oh = fa.fused_sh_attention_saved(*args, mask, **drop)
+                e_out, e_oh = err_of(out, rout), (oh - roh).abs().max().item()
+                if dtype == torch.float32:
+                    tol_out = tol_oh = F32_TOL
+                    tol_bwd = BWD_REL
+                else:
+                    tol_out = tol_oh = 2.0 ** -5
+                    e_oh = ((oh - roh).abs() /
+                            roh.abs().clamp(min=1.0)).max().item()
+                    tol_bwd = BF16_BWD_REL
+                if not (e_out <= tol_out and e_oh <= tol_oh):
+                    fail(f"sh_attention dropout ({source}) {name} {dtype}: "
+                         f"out err {e_out} (tol {tol_out}), saved err {e_oh} "
+                         f"(tol {tol_oh})")
+                got = fa.fused_sh_attention_bwd(*args, mask, oh, g, **drop)
+                e_bwd, abs_bwd = check_grads(
+                    f"sh_attention_bwd dropout ({source}) {name} {dtype}",
+                    got, want, tol_bwd)
+                if dtype == torch.float32:
+                    res["fwd"][0].append(max(e_out, e_oh))
+                    res["bwd"][0].append(abs_bwd)
+                log(f"sh_attention dropout ({source}) {name} P={p} "
+                    f"{tq}x{tk} {dtype}: out err {e_out:.3e}, saved err "
+                    f"{e_oh:.3e}, bwd rel err {e_bwd:.3e} (tol {tol_bwd}), "
+                    f"abs err {abs_bwd:.3e}")
+        # timed in bf16 from the seed, the train path's form; the plain
+        # version draws its masks from the seed too (ops/philox.py)
+        drop = dict(seed=seed, keep_prob=KEEP)
+        ms_f = cuda_ms(lambda: fa.fused_sh_attention_saved(*args, mask,
+                                                           **drop))
+        plain_f = cuda_ms(lambda: fa.sh_attention_saved_reference(
+            *args, mask, **drop), iters=3, warmup=1)
+        ms_b = cuda_ms(lambda: fa.fused_sh_attention_bwd(*args, mask, oh, g,
+                                                         **drop), iters=5)
+        plain_b = cuda_ms(lambda: fa.sh_attention_bwd_reference(
+            *args, mask, oh, g, **drop), iters=3, warmup=1)
+        n_in = p * (tq if self_attn else tq + tk) * d * 2
+        w_bytes = (3 * d * d + dk * h * dk + h * dk + dk * d) * 2 + 2 * d * 4
+        oh_bytes = h * p * tq * dk * 4
+        philox_s = (h * p * tq * tk + p * tq * d) / 4 * PHILOX_OPS / F32_FLOP_S
+        flops_f = p * (2 * tq * d * d + 4 * tk * d * d + 4 * tq * tk * d +
+                       2 * dk * h * dk + 2 * tq * dk * d)
+        flops_b = p * (2 * tq * d * d + 4 * tk * d * d + 10 * tq * tk * d +
+                       6 * tq * dk * d + 4 * tq * d * d + 8 * tk * d * d)
+        t_b = []
+        for nbytes, flops in ((n_in + w_bytes + tq * tk + p * tq * d * 2 +
+                               oh_bytes + 8, flops_f),
+                              (n_in + w_bytes + oh_bytes + tq * tk + 8 +
+                               p * tq * d * 2 + p * (tq + tk) * d * 2 +
+                               w_bytes, flops_b)):
+            t_bytes = nbytes / HBM_BYTES_S * 1e3
+            t_ops = (flops / BF16_FLOP_S + philox_s) * 1e3
+            t_b.append(max(t_bytes, t_ops))
+        log(f"sh_attention dropout fwd {name}: kernel_ms {ms_f:.3f} "
+            f"plain_ms {plain_f:.3f} bound_ms {t_b[0]:.4f} (operations)")
+        log(f"sh_attention dropout bwd {name}: kernel_ms {ms_b:.3f} "
+            f"plain_ms {plain_b:.3f} bound_ms {t_b[1]:.4f} (operations)")
+        for key, vals in (("fwd", (ms_f, plain_f, t_b[0])),
+                          ("bwd", (ms_b, plain_b, t_b[1]))):
+            for j, v in enumerate(vals):
+                res[key][j + 1] += v
+    return {k: _finish(v, "operations") for k, v in res.items()}
+
+
+def check_rows_dropout(torch, dev):
+    """The FFN's and the glue's dropout forms, forward and backward, with
+    the mask from a seed, against the plain versions fed the dumped mask
+    (the same tolerances as their keep_prob 1 checks)."""
+    from ait_tpu_torch.models.layers import sinusoid_table
+    from ait_tpu_torch.ops import dropout_masks as dm, fused_ffn as ff
+
+    g = torch.Generator(device="cpu").manual_seed(7)
+    d, hid = 512, 2048
+    res = {k: _res() for k in ("ffn_fwd", "ffn_bwd", "posln_fwd",
+                               "posln_bwd")}
+    cases = (("ffn", "encoder", B * ROIS * 56, None),
+             ("ffn", "decoder", B * ROIS * 64, None),
+             ("posln", "encoder", B * ROIS * 56, 56),
+             ("posln", "decoder", B * 64, 64))
+    for i, (kind, name, n, t) in enumerate(cases):
+        seed = _seed(torch, dev, 40 + i)
+        if kind == "ffn":
+            base = [torch.randn(n, d, generator=g),
+                    torch.randn(d, hid, generator=g) * d ** -0.5,
+                    0.05 * torch.randn(hid, generator=g),
+                    torch.randn(hid, d, generator=g) * hid ** -0.5,
+                    0.05 * torch.randn(d, generator=g)]
+            lowp = (0, 1, 3)                 # in the compute type
+            fwd, bwd = ff.fused_ffn, ff.fused_ffn_bwd
+            pfwd, pbwd = ff.ffn_reference, ff.ffn_bwd_reference
+            keep = dm.ffn_keep_mask(seed, n, d, keep_prob=KEEP)
+        else:
+            base = [torch.randn(n, d, generator=g),
+                    torch.from_numpy(sinusoid_table(64, d)[:t])]
+            lowp = (0, 1)
+            fwd, bwd = ff.fused_posln, ff.fused_posln_bwd
+            pfwd, pbwd = ff.posln_reference, ff.posln_bwd_reference
+            keep = dm.posln_keep_mask(seed, n, d, keep_prob=KEEP)
+        base += [1 + 0.1 * torch.randn(d, generator=g),
+                 0.1 * torch.randn(d, generator=g)]
+        gy = torch.randn(n, d, generator=g).to(dev)
+        base = [x.to(dev) for x in base]
+        drop = dict(seed=seed, keep_prob=KEEP)
+        fed = dict(keep=keep, keep_prob=KEEP)
+        for dtype, tol, tol_b in ((torch.float32, F32_TOL, BWD_REL),
+                                  (torch.bfloat16, 2.0 ** -6, BF16_BWD_REL)):
+            args = [x.to(dtype) if j in lowp else x
+                    for j, x in enumerate(base)]
+            gd = gy.to(dtype)
+            err = err_of(fwd(*args, **drop), pfwd(*args, **fed))
+            if not math.isfinite(err) or err > tol:
+                fail(f"{kind} dropout {name} {dtype}: err {err} > {tol}")
+            e_b, abs_b = check_grads(f"{kind}_bwd dropout {name} {dtype}",
+                                     bwd(*args, gd, **drop),
+                                     pbwd(*args, gd, **fed), tol_b)
+            if dtype == torch.float32:
+                res[f"{kind}_fwd"][0].append(err)
+                res[f"{kind}_bwd"][0].append(abs_b)
+            log(f"{kind} dropout {name} N={n} {dtype}: fwd err {err:.3e} "
+                f"(tol {tol}), bwd rel err {e_b:.3e} (tol {tol_b}), abs "
+                f"err {abs_b:.3e}")
+        it = 5 if kind == "ffn" else 20
+        ms_f = cuda_ms(lambda: fwd(*args, **drop), iters=it)
+        plain_f = cuda_ms(lambda: pfwd(*args, **drop), iters=3, warmup=1)
+        ms_b = cuda_ms(lambda: bwd(*args, gd, **drop), iters=3, warmup=1)
+        plain_b = cuda_ms(lambda: pbwd(*args, gd, **drop), iters=3, warmup=1)
+        philox_s = n * d / 4 * PHILOX_OPS / F32_FLOP_S
+        if kind == "ffn":
+            specs = ((n * d * 2 * 2 + 2 * d * hid * 2 + (hid + 3 * d) * 4,
+                      4 * n * d * hid),
+                     (3 * n * d * 2 + 4 * d * hid * 2 + 2 * (hid + 3 * d) * 4,
+                      12 * n * d * hid))
+            rate = BF16_FLOP_S
+        else:
+            specs = ((n * d * 2 * 2 + t * d * 2 + 2 * d * 4, 8 * n * d),
+                     (3 * n * d * 2 + 2 * t * d * 2 + 4 * d * 4, 12 * n * d))
+            rate = F32_FLOP_S
+        for key, ms, pms, (nbytes, ops) in (
+                (f"{kind}_fwd", ms_f, plain_f, specs[0]),
+                (f"{kind}_bwd", ms_b, plain_b, specs[1])):
+            t_bytes = (nbytes + 8) / HBM_BYTES_S * 1e3
+            t_ops = (ops / rate + philox_s) * 1e3
+            t_bound = max(t_bytes, t_ops)
+            log(f"{key} dropout {name}: kernel_ms {ms:.4f} plain_ms "
+                f"{pms:.3f} bound_ms {t_bound:.4f} "
+                f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+            for j, v in enumerate((ms, pms, t_bound)):
+                res[key][j + 1] += v
+    return {k: _finish(v, "operations" if k.startswith("ffn") else "bytes")
+            for k, v in res.items()}
+
+
 # ------------------------------------------------------------------ slice
 
 
 def kernel_wrappers():
-    """JSON name -> the wrapper whose `launches` counts that kernel."""
-    from ait_tpu_torch.ops import fused_attention as fa, fused_ffn as ff, nms
+    """JSON name -> (the wrapper, its attribute that counts that kernel's
+    launches).  A wrapper with a dropout form counts its keep_prob 1
+    launches in `launches` and its dropout launches in `dropout_launches`."""
+    from ait_tpu_torch.ops import (dropout_masks as dm, fused_attention as fa,
+                                   fused_ffn as ff, nms)
 
-    return {"nms_keep_mask": nms.nms_keep_mask_batched,
-            "sh_attention_fwd": fa.fused_sh_attention,
-            "ffn_fwd": ff.fused_ffn,
-            "posln_fwd": ff.fused_posln,
-            "sh_attention_saved": fa.fused_sh_attention_saved,
-            "sh_attention_bwd": fa.fused_sh_attention_bwd,
-            "ffn_bwd": ff.fused_ffn_bwd,
-            "posln_bwd": ff.fused_posln_bwd}
+    return {"nms_keep_mask": (nms.nms_keep_mask_batched, "launches"),
+            "sh_attention_fwd": (fa.fused_sh_attention, "launches"),
+            "ffn_fwd": (ff.fused_ffn, "launches"),
+            "posln_fwd": (ff.fused_posln, "launches"),
+            "sh_attention_saved": (fa.fused_sh_attention_saved, "launches"),
+            "sh_attention_bwd": (fa.fused_sh_attention_bwd, "launches"),
+            "ffn_bwd": (ff.fused_ffn_bwd, "launches"),
+            "posln_bwd": (ff.fused_posln_bwd, "launches"),
+            "sh_attention_drop_fwd": (fa.fused_sh_attention_saved,
+                                      "dropout_launches"),
+            "sh_attention_drop_bwd": (fa.fused_sh_attention_bwd,
+                                      "dropout_launches"),
+            "ffn_drop_fwd": (ff.fused_ffn, "dropout_launches"),
+            "ffn_drop_bwd": (ff.fused_ffn_bwd, "dropout_launches"),
+            "posln_drop_fwd": (ff.fused_posln, "dropout_launches"),
+            "posln_drop_bwd": (ff.fused_posln_bwd, "dropout_launches"),
+            "keep_mask_dump": (dm.keep_mask, "launches")}
 
 
 # launches of each kernel per eval forward and per train step (a wrapper
-# counts one launch per call, also where it runs several CUDA kernels)
+# counts one launch per call, also where it runs several CUDA kernels); the
+# default train step's dump launches are the co-attention's plain-path
+# masks (2 per attention)
+_DROP_KERNELS = ("sh_attention_drop_fwd", "sh_attention_drop_bwd",
+                 "ffn_drop_fwd", "ffn_drop_bwd", "posln_drop_fwd",
+                 "posln_drop_bwd", "keep_mask_dump")
 PER_FORWARD = {"nms_keep_mask": 2, "sh_attention_fwd": 3, "ffn_fwd": 2,
                "posln_fwd": 2, "sh_attention_saved": 0, "sh_attention_bwd": 0,
-               "ffn_bwd": 0, "posln_bwd": 0}
-PER_STEP = {"nms_keep_mask": 1, "sh_attention_fwd": 0, "ffn_fwd": 2,
-            "posln_fwd": 2, "sh_attention_saved": 3, "sh_attention_bwd": 3,
-            "ffn_bwd": 2, "posln_bwd": 2}
+               "ffn_bwd": 0, "posln_bwd": 0, **dict.fromkeys(_DROP_KERNELS, 0)}
+PER_STEP = {"nms_keep_mask": 1, "sh_attention_fwd": 0, "ffn_fwd": 0,
+            "posln_fwd": 0, "sh_attention_saved": 0, "sh_attention_bwd": 0,
+            "ffn_bwd": 0, "posln_bwd": 0, "sh_attention_drop_fwd": 3,
+            "sh_attention_drop_bwd": 3, "ffn_drop_fwd": 2, "ffn_drop_bwd": 2,
+            "posln_drop_fwd": 2, "posln_drop_bwd": 2, "keep_mask_dump": 4}
+PER_STEP_NO_DROPOUT = {"nms_keep_mask": 1, "sh_attention_fwd": 0,
+                       "ffn_fwd": 2, "posln_fwd": 2, "sh_attention_saved": 3,
+                       "sh_attention_bwd": 3, "ffn_bwd": 2, "posln_bwd": 2,
+                       **dict.fromkeys(_DROP_KERNELS, 0)}
 
 
 def zero_counts():
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
+    for fn, attr in kernel_wrappers().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts(expected, runs, what):
-    launches = {k: fn.launches for k, fn in kernel_wrappers().items()}
+    launches = {k: getattr(fn, attr)
+                for k, (fn, attr) in kernel_wrappers().items()}
     for k, n in expected.items():
         if launches[k] != n * runs:
             fail(f"{k}: {launches[k]} launches over {runs} {what}, "
@@ -564,7 +899,8 @@ def plain_path():
     """Route every kernel wrapper to its plain version (to hold the whole
     kernel path against the plain path on the same card); the model and
     the autograd Functions look the wrappers up at call time."""
-    from ait_tpu_torch.ops import fused_attention as fa, fused_ffn as ff, nms
+    from ait_tpu_torch.ops import (dropout_masks as dm, fused_attention as fa,
+                                   fused_ffn as ff, nms, philox)
 
     swaps = [(fa, "fused_sh_attention", fa.sh_attention_reference),
              (fa, "fused_sh_attention_saved", fa.sh_attention_saved_reference),
@@ -573,7 +909,8 @@ def plain_path():
              (ff, "fused_ffn_bwd", ff.ffn_bwd_reference),
              (ff, "fused_posln", ff.posln_reference),
              (ff, "fused_posln_bwd", ff.posln_bwd_reference),
-             (nms, "nms_keep_mask_batched", nms.nms_keep_mask_reference)]
+             (nms, "nms_keep_mask_batched", nms.nms_keep_mask_reference),
+             (dm, "keep_mask", philox.keep_mask)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     for m, n, f in swaps:
         setattr(m, n, f)
@@ -688,12 +1025,15 @@ LOSS_FIELDS = ("rpn_loss_cls", "rpn_loss_box", "rcnn_loss_cls",
 LOSS_KEYS = ("rpn_cls", "rpn_box", "rcnn_cls", "margin", "rcnn_box")
 
 
-def train_config():
-    """The flagship with dropout off: the port trains at t_dropout = 0."""
+def train_config(t_dropout=None):
+    """The flagship as `Config()` trains it, or at another t_dropout."""
     from ait_tpu_torch.config import Config
 
     cfg = Config()
-    return cfg.replace(model=dataclasses.replace(cfg.model, t_dropout=0.0))
+    if t_dropout is None:
+        return cfg
+    return cfg.replace(model=dataclasses.replace(cfg.model,
+                                                 t_dropout=t_dropout))
 
 
 def make_train_batch(np, cfg, rng, b):
@@ -711,16 +1051,17 @@ def make_train_batch(np, cfg, rng, b):
             "gt_boxes": gt}
 
 
-def drive_train(torch, np, dev, params):
-    """One warm-up and STEPS timed train steps of the full-width flagship
-    in bf16 at a batch of B images."""
+def drive_train(torch, np, dev, params, cfg, steps, per_step):
+    """One warm-up and `steps` timed train steps of the full-width
+    flagship in bf16 at a batch of B images; per_step: the launches each
+    kernel must show per step."""
     from ait_tpu_torch import bridge
     from ait_tpu_torch.models import AITDetector
     from ait_tpu_torch.train import (lr_schedule, make_optimizer,
                                      make_train_step)
 
-    cfg = train_config()
     t = cfg.TRAIN
+    what = f"t_dropout {cfg.model.t_dropout}"
     model = AITDetector(cfg, dtype=torch.bfloat16)
     model.load_state_dict(bridge.to_state_dict(model, params))
     opt = make_optimizer(cfg, model)
@@ -730,7 +1071,7 @@ def drive_train(torch, np, dev, params):
     names = {k for k, p in model.named_parameters() if id(p) in trainable}
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
     rng = np.random.RandomState(1)
-    batches = [make_train_batch(np, cfg, rng, B) for _ in range(STEPS + 1)]
+    batches = [make_train_batch(np, cfg, rng, B) for _ in range(steps + 1)]
     gen = torch.Generator(device=dev).manual_seed(0)
 
     zero_counts()
@@ -748,8 +1089,8 @@ def drive_train(torch, np, dev, params):
         if met["fg_cnt"] + met["bg_cnt"] != B * t.BATCH_SIZE:
             fail(f"train step {i}: {met['fg_cnt']} + {met['bg_cnt']} "
                  f"sampled rois, expected {B * t.BATCH_SIZE}")
-        log(f"train step {i}: {met}")
-    launches = read_counts(PER_STEP, len(batches), "steps")
+        log(f"train ({what}) step {i}: {met}")
+    launches = read_counts(per_step, len(batches), "steps")
     after = model.state_dict()
     still = sorted(k for k in names if torch.equal(before[k], after[k]))
     moved = sorted(k for k in before
@@ -759,21 +1100,25 @@ def drive_train(torch, np, dev, params):
     if moved:
         fail(f"frozen leaves or buffers that moved: {moved[:10]}")
     mean = sum(times) / len(times)
-    log(f"train: {len(batches)} steps of {B} images at "
+    log(f"train ({what}): {len(batches)} steps of {B} images at "
         f"{cfg.tpu.image_size[0]}x{cfg.tpu.image_size[1]}, {ROIS} rois "
         f"each; launches {launches}; {len(names)} trainable leaves moved, "
         f"{len(before) - len(names)} frozen leaves and buffers unchanged")
-    log(f"train: ms per step of {B} (after one warm-up): "
+    log(f"train ({what}): ms per step of {B} (after one warm-up): "
         f"{[round(x, 3) for x in times]}, mean {mean:.3f}, pairs/s "
         f"{B * 1e3 / mean:.2f}, peak memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+    del model, opt, step
     compare_train_paths(torch, dev, cfg, params, batches[0])
     return launches
 
 
 def compare_train_paths(torch, dev, cfg, params, batch):
     """One f32 train step (forward, losses, backward) of the kernel path
-    against the plain path, at 2 images, same weights and draws, TF32 off."""
+    against the plain path, at 2 images, same weights and draws (the
+    generator's seed, so the same sampling and the same dropout masks: the
+    kernels' in-kernel Philox masks on one path, ops/philox.py's on the
+    other), TF32 off."""
     from ait_tpu_torch import bridge
     from ait_tpu_torch.models import AITDetector
 
@@ -806,8 +1151,9 @@ def compare_train_paths(torch, dev, cfg, params, batch):
         fail("train step: the two paths give gradients to other leaves")
     grad_err = {k: rel_err(gk[k], gp[k]) for k in gp}
     worst = max(grad_err, key=grad_err.get)
-    log(f"train kernel path vs plain path (f32, 2 images): losses {lk} vs "
-        f"{lp}, max rel diff {loss_err:.3e}; {len(gp)} gradients, max diff "
+    log(f"train kernel path vs plain path (f32, 2 images, t_dropout "
+        f"{cfg.model.t_dropout}): losses {lk} vs {lp}, max rel diff "
+        f"{loss_err:.3e}; {len(gp)} gradients, max diff "
         f"{grad_err[worst]:.3e} of the leaf's max |plain| ({worst})")
     if not loss_err <= 1e-4:
         fail(f"train step: losses differ by {loss_err} relative (tol 1e-4)")
@@ -842,7 +1188,7 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.time()
-    sources = ["nms", "sh_attention", "ffn", "posln", "gemm"]
+    sources = ["nms", "sh_attention", "ffn", "posln", "gemm", "dropout"]
     _build.build_all(sources)
     log(f"built {sources} in {time.time() - t0:.1f} s")
 
@@ -855,8 +1201,18 @@ def main() -> int:
                     "sh_attention_bwd": attn["bwd"],
                     "ffn_bwd": check_ffn_train(torch, dev),
                     "posln_bwd": check_posln_train(torch, dev)})
+    results["keep_mask_dump"] = check_masks(torch, dev)
+    attn = check_attention_dropout(torch, dev)
+    rows = check_rows_dropout(torch, dev)
+    results.update({"sh_attention_drop_fwd": attn["fwd"],
+                    "sh_attention_drop_bwd": attn["bwd"],
+                    **{f"{k.split('_')[0]}_drop_{k.split('_')[1]}": v
+                       for k, v in rows.items()}})
     eval_launches, params = drive_slice(torch, np, dev)
-    train_launches = drive_train(torch, np, dev, params)
+    train_launches = drive_train(torch, np, dev, params, train_config(),
+                                 STEPS, PER_STEP)
+    keep1_launches = drive_train(torch, np, dev, params, train_config(0.0),
+                                 1, PER_STEP_NO_DROPOUT)
 
     meta = {"nms_keep_mask": ("ait_tpu_torch/csrc/nms.cu",
                               "ait_tpu/ops/nms_pallas.py:133"),
@@ -876,13 +1232,29 @@ def main() -> int:
             "ffn_bwd": ("ait_tpu_torch/csrc/gemm.cu",
                         "ait_tpu/ops/pallas_ffn.py:216"),
             "posln_bwd": ("ait_tpu_torch/csrc/posln.cu",
-                          "ait_tpu/ops/pallas_ffn.py:387")}
+                          "ait_tpu/ops/pallas_ffn.py:387"),
+            # the dropout forms: the same kernels, the masks from a seed
+            "sh_attention_drop_fwd": ("ait_tpu_torch/csrc/sh_attention.cu",
+                                      "ait_tpu/ops/pallas_attention.py:915"),
+            "sh_attention_drop_bwd": ("ait_tpu_torch/csrc/sh_attention.cu",
+                                      "ait_tpu/ops/pallas_attention.py:937"),
+            "ffn_drop_fwd": ("ait_tpu_torch/csrc/ffn.cu",
+                             "ait_tpu/ops/pallas_ffn.py:195"),
+            "ffn_drop_bwd": ("ait_tpu_torch/csrc/gemm.cu",
+                             "ait_tpu/ops/pallas_ffn.py:216"),
+            "posln_drop_fwd": ("ait_tpu_torch/csrc/posln.cu",
+                               "ait_tpu/ops/pallas_ffn.py:355"),
+            "posln_drop_bwd": ("ait_tpu_torch/csrc/posln.cu",
+                               "ait_tpu/ops/pallas_ffn.py:387"),
+            "keep_mask_dump": ("ait_tpu_torch/csrc/dropout.cu",
+                               "ait_tpu/ops/pallas_attention.py:954")}
+    paths = {"eval": eval_launches, "train": train_launches,
+             "train_t_dropout_0": keep1_launches}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": eval_launches[name] + train_launches[name],
-         "launches_by_path": {"eval": eval_launches[name],
-                              "train": train_launches[name]},
-         **results[name], "library_ms": None}
+         "launches": sum(v[name] for v in paths.values()),
+         "launches_by_path": {k: v[name] for k, v in paths.items()},
+         "library_ms": None, **results[name]}
         for name, (src, rep) in meta.items()]}
     log(smi)
     print(json.dumps(line), flush=True)

@@ -58,7 +58,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, ait_tpu_torch, ait_tpu_torch.predict, "
             "ait_tpu_torch.bridge, ait_tpu_torch.ops.nms, "
             "ait_tpu_torch.ops.fused_attention, ait_tpu_torch.ops.fused_ffn, "
-            "ait_tpu_torch.ops._gemm, ait_tpu_torch.models.targets, "
+            "ait_tpu_torch.ops._gemm, ait_tpu_torch.ops.philox, "
+            "ait_tpu_torch.ops.dropout_masks, ait_tpu_torch.models.dropout, "
+            "ait_tpu_torch.models.targets, "
             "ait_tpu_torch.models.losses, ait_tpu_torch.train.optim, "
             "ait_tpu_torch.train.state; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -82,19 +84,44 @@ def test_train_step_without_device_raises_when_no_gpu(monkeypatch):
                         lr_schedule(1e-3, 1, 1, 0.1))
 
 
-def test_training_with_dropout_raises():
-    """Dropout inside the fused kernels is not ported: a config with
-    t_dropout > 0 refuses to train rather than train without it."""
+def test_default_config_trains_on_cpu():
+    """`Config()` unchanged (model.t_dropout 0.1, dec_prefix_per_image)
+    trains: one step of one image on the CPU with finite losses, and every
+    trainable leaf moved."""
+    import numpy as np
+
+    from ait_tpu_torch import bridge
     from ait_tpu_torch.config import Config
     from ait_tpu_torch.models import AITDetector
+    from ait_tpu_torch.train import (lr_schedule, make_optimizer,
+                                     make_train_step)
 
     cfg = Config()
-    assert cfg.model.t_dropout > 0
-    x = torch.zeros(1, 64, 64, 3, dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="t_dropout"):
-        AITDetector(cfg)(x, torch.zeros(1, 128, 128, 3, dtype=torch.uint8),
-                         torch.tensor([[64.0, 64.0, 1.0]]),
-                         torch.zeros(1, 2, 5), train=True)
+    assert cfg.model.t_dropout > 0 and cfg.tpu.dec_prefix_per_image
+    model = AITDetector(cfg)
+    model.load_state_dict(bridge.to_state_dict(
+        model, bridge.random_tree(bridge.jax_shapes(model), 0)))
+    opt = make_optimizer(cfg, model)
+    trainable = {id(p) for g in opt.param_groups for p in g["params"]}
+    names = [k for k, p in model.named_parameters() if id(p) in trainable]
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    rng = np.random.RandomState(0)
+    h, w = 160, 224
+    gt = np.zeros((1, cfg.MAX_NUM_GT_BOXES, 5), np.float32)
+    gt[0, 0] = [20, 30, 140, 120, 1]
+    batch = {"image": rng.randint(0, 256, (1, h, w, 3)).astype(np.uint8),
+             "query": rng.randint(0, 256, (1, 128, 128, 3)).astype(np.uint8),
+             "im_info": np.asarray([[h, w, 1.0]], np.float32),
+             "gt_boxes": gt}
+    step = make_train_step(model, opt, lr_schedule(1e-3, 100, 5, 0.1),
+                           device="cpu")
+    met = step(batch, torch.Generator().manual_seed(0))
+    assert all(np.isfinite(float(met[k])) for k in
+               ("loss", "rpn_cls", "rpn_box", "rcnn_cls", "margin",
+                "rcnn_box"))
+    after = model.state_dict()
+    assert names and not [k for k in names
+                          if torch.equal(before[k], after[k])]
 
 
 def test_gradient_accumulation_raises():

@@ -112,3 +112,32 @@ def proposal_draws(key, b, n_p, r):
                      zip(jax.random.split(k, 4), (n_p, n_p, r, r)))
 
     return ProposalDraws(*_as_torch(*jax.vmap(one)(jax.random.split(key, b))))
+
+
+class BernoulliFeed:
+    """Stands in for `jax.random.bernoulli` while JAX traces a train
+    forward: hands out the keep-masks of `masks` in call order (one trace
+    consumes all of them; the next trace starts over), checking each
+    shape.  Under `jax.jit` the masks become constants of the trace.  With
+    masks=None it records the shapes the trace asks for and keeps all."""
+
+    def __init__(self, masks=None):
+        self.masks = masks
+        self.shapes = []
+        self.i = 0
+
+    def __call__(self, key, p=0.5, shape=None, *args, **kw):
+        shape = tuple(shape)
+        if self.masks is None:
+            self.shapes.append(shape)
+            return jnp.ones(shape, bool)
+        m = self.masks[self.i % len(self.masks)]
+        self.i += 1
+        assert m.shape == shape, (self.i - 1, m.shape, shape)
+        return jnp.asarray(m)
+
+
+def keep_masks(shapes, keep_prob, seed):
+    """numpy bool keep-masks of Bernoulli(keep_prob), one per shape."""
+    rng = np.random.RandomState(seed)
+    return [rng.rand(*s) < keep_prob for s in shapes]

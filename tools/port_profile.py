@@ -2,13 +2,15 @@
 """Where the time of the PyTorch port's eval slice or train step goes, on one
 GPU.
 
-    python3 tools/port_profile.py [--train] [--out FILE.json]
+    python3 tools/port_profile.py [--train [--t-dropout P]] [--out FILE.json]
 
 Builds the full-width ResNet-50 flagship (random weights from a numpy seed
 through ait_tpu_torch.bridge).  By default it serves it with
 OneShotPredictor on uint8 608x800 canvases; with --train it trains it
-instead (model.t_dropout = 0, bf16 compute, make_train_step on batches of 8
-with a few ground-truth boxes each).  Then it reports, as JSON lines on
+instead (`Config()` unchanged, model.t_dropout 0.1, bf16 compute,
+make_train_step on batches of 8 with a few ground-truth boxes each;
+--t-dropout trains it at another dropout rate, e.g. 0 for the kernels'
+keep-1 forms).  Then it reports, as JSON lines on
 stdout (and in --out):
 
 * `stages` (eval only): device time per stage of the forward (CUDA events
@@ -40,6 +42,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--train", action="store_true",
                     help="profile the train step instead of the eval slice")
+    ap.add_argument("--t-dropout", type=float, default=None,
+                    help="train at this model.t_dropout (default: the "
+                    "config's, 0.1)")
     ap.add_argument("--out", help="also write the full result here")
     args = ap.parse_args()
     bs, batches = 8, 5
@@ -79,7 +84,7 @@ def main() -> int:
 
     events = collections.defaultdict(list)
     if args.train:
-        run = _train_runner(cfg, state, request, rng)
+        run = _train_runner(cfg, state, request, rng, args.t_dropout)
     else:
         pred = OneShotPredictor(cfg, state)
         m = pred.model
@@ -147,6 +152,8 @@ def main() -> int:
     mean_ms = sum(batch_ms) / len(batch_ms)
     result = {
         "card": card, "path": "train" if args.train else "eval", "bs": bs,
+        "t_dropout": (cfg.model.t_dropout if args.t_dropout is None
+                      else args.t_dropout) if args.train else None,
         "batches": batches,
         "batch_ms": batch_ms,
         "stages_ms_per_batch": stages,
@@ -160,7 +167,8 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)
     print(card)
-    print(json.dumps({"batch_ms": batch_ms,
+    print(json.dumps({"path": result["path"], "t_dropout": result["t_dropout"],
+                      "batch_ms": batch_ms,
                       "device_busy_ms_per_batch": busy_ms,
                       "device_busy_share": result["device_busy_share"]}))
     if stages:
@@ -170,9 +178,10 @@ def main() -> int:
     return 0
 
 
-def _train_runner(cfg, state, request, rng):
-    """run(request) = one train step of the flagship at t_dropout = 0, bf16,
-    with 1-4 ground-truth boxes of class 1 per image."""
+def _train_runner(cfg, state, request, rng, t_dropout=None):
+    """run(request) = one train step of the flagship as `Config()` trains
+    it (dropout included, or at `t_dropout`), bf16, with 1-4 ground-truth
+    boxes of class 1 per image."""
     import dataclasses
 
     import numpy as np
@@ -182,7 +191,9 @@ def _train_runner(cfg, state, request, rng):
     from ait_tpu_torch.train import (lr_schedule, make_optimizer,
                                      make_train_step)
 
-    cfg = cfg.replace(model=dataclasses.replace(cfg.model, t_dropout=0.0))
+    if t_dropout is not None:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                    t_dropout=t_dropout))
     model = AITDetector(cfg, dtype=torch.bfloat16)
     model.load_state_dict(state)
     t = cfg.TRAIN
