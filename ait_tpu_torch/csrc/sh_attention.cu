@@ -40,6 +40,7 @@
 #include <mma.h>
 #include <type_traits>
 
+#include "attn_drop.cuh"
 #include "common.cuh"
 #include "philox.cuh"
 
@@ -89,55 +90,11 @@ static_assert(kTm * kMmaLd / 2 <= kTm * kLdq, "bf16 o must fit in q's place");
 static_assert(kOffSt % 8 == 0 && kOffK % 8 == 0 && kOffV % 8 == 0 &&
               kOffO % 8 == 0, "WMMA tiles need 32-byte alignment");
 
-// A launch's dropout: the Philox stream of `seed`, or the operand masks
-// akeep [H, P*Tq, Tk] and okeep [P*Tq, D] (f32); neither: none.
-struct AttnDrop {
-  const int* seed;
-  const float* akeep;
-  const float* okeep;
-  uint32_t thresh;
-  float inv_keep;
-  __device__ __forceinline__ bool on() const {
-    return seed != nullptr || akeep != nullptr;
-  }
-};
-
-// the probability dropout's factor of head h, pair `pair` of `pairs`,
-// element (r, c) of its [tq, tk] block
-__device__ __forceinline__ float attn_factor(const AttnDrop& d, uint2 key,
-                                             int h, int pair, int pairs,
-                                             int tq, int tk, int r, int c) {
-  if (d.seed != nullptr)
-    return ait::drop_scale(ait::keep_word(key, ait::kTagAttn, h, pair, r * tk + c),
-                           d.thresh, d.inv_keep);
-  return d.akeep[((size_t)h * pairs * tq + (size_t)pair * tq + r) * tk + c] *
-         d.inv_keep;
-}
-
-// the output dropout's factors of columns c..c+7 (c % 8 == 0) of row r of
-// pair `pair`; 1 without dropout
-__device__ __forceinline__ void out_factors(const AttnDrop& d, uint2 key,
-                                            int pair, int tq, int r, int c,
-                                            float m[8]) {
-  if (d.seed != nullptr) {
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const uint4 w = ait::keep_group(key, ait::kTagOut, 0, pair,
-                                      (r * kD + c) / 4 + q);
-      m[4 * q + 0] = ait::drop_scale(w.x, d.thresh, d.inv_keep);
-      m[4 * q + 1] = ait::drop_scale(w.y, d.thresh, d.inv_keep);
-      m[4 * q + 2] = ait::drop_scale(w.z, d.thresh, d.inv_keep);
-      m[4 * q + 3] = ait::drop_scale(w.w, d.thresh, d.inv_keep);
-    }
-  } else if (d.akeep != nullptr) {
-    ait::load8(d.okeep + ((size_t)pair * tq + r) * kD + c, m);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) m[e] *= d.inv_keep;
-  } else {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) m[e] = 1.f;
-  }
-}
+// A launch's dropout (the Philox stream of a seed, or operand masks) and its
+// factors: csrc/attn_drop.cuh.
+using ait::AttnDrop;
+using ait::attn_factor;
+using ait::out_factors;
 
 // d0[r][c] = sum_k x[r][k] w0[k][col0 + c] (and d1 with w1) for r, c < 64;
 // rows r >= rows read as zero.  CUDA-core FMAs, 4 x 4 outputs per thread.
@@ -356,7 +313,9 @@ sh_attn_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
                const T* __restrict__ skb, const T* __restrict__ fcw,
                const float* __restrict__ lns, const float* __restrict__ lnb,
                const uint8_t* __restrict__ mask, T* __restrict__ out,
-               float* __restrict__ oh, int tq, int tk, AttnDrop drop) {
+               float* __restrict__ oh, float* __restrict__ qsv,
+               float* __restrict__ ksv, float* __restrict__ vsv, int tq,
+               int tk, AttnDrop drop) {
   extern __shared__ __align__(128) float sm[];
   float* qs = sm + kOffQ;
   float* ks = sm + kOffK;
@@ -379,6 +338,21 @@ sh_attn_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
     project<T, 1>(xq, tq, wq, nullptr, h * kDk, st, qs, kLdq, nullptr, 0);
     project<T, 2>(xkv, tk, wk, wv, h * kDk, st, ks, kLdq, vs, kDk);
     __syncthreads();
+    if (qsv != nullptr) {
+      // the save-qkv policy: this head's q / 8, k and v [H, P*T, 64], the
+      // values the backward would otherwise recompute
+      for (int e = t; e < kTm * kDk; e += kThreads) {
+        const int r = e / kDk, c = e % kDk;
+        if (r < tq)
+          qsv[((size_t)h * pairs * tq + (size_t)pair * tq + r) * kDk + c] =
+              qs[r * kLdq + c] * 0.125f;
+        if (r < tk) {
+          const size_t i = ((size_t)h * pairs * tk + (size_t)pair * tk + r) * kDk + c;
+          ksv[i] = ks[r * kLdq + c];
+          vsv[i] = vs[r * kDk + c];
+        }
+      }
+    }
 
     // masked scores (q k^T / 8) into the slab area
     float* sc = st;
@@ -552,8 +526,9 @@ sh_attn_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
 }
 
 template <typename T>
-int launch(const void* const* p, void* out, void* oh, int pairs, int tq,
-           int tk, const AttnDrop& drop, cudaStream_t stream) {
+int launch(const void* const* p, void* out, void* oh, void* const* qkv,
+           int pairs, int tq, int tk, const AttnDrop& drop,
+           cudaStream_t stream) {
   const int smem = kSmemFloats * (int)sizeof(float);
   cudaFuncSetAttribute(sh_attn_kernel<T>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -561,7 +536,8 @@ int launch(const void* const* p, void* out, void* oh, int pairs, int tq,
       (const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
       (const T*)p[4], (const T*)p[5], (const T*)p[6], (const T*)p[7],
       (const float*)p[8], (const float*)p[9], (const uint8_t*)p[10], (T*)out,
-      (float*)oh, tq, tk, drop);
+      (float*)oh, (float*)qkv[0], (float*)qkv[1], (float*)qkv[2], tq, tk,
+      drop);
   return (int)cudaGetLastError();
 }
 
@@ -569,8 +545,10 @@ int launch(const void* const* p, void* out, void* oh, int pairs, int tq,
 //
 // Replaces the per-pair body of ait_tpu/ops/pallas_attention.py:630
 // _fused_bwd_call (kernel `_bwd_kernel`, :412), with or without dropout
-// (`_bwd_rng` :937 and `_bwd_drop` :866 reach it with masks), without saved
-// q/k/v.  One block per pair, from the forward's saved per-head outputs oh:
+// (`_bwd_rng` :937 and `_bwd_drop` :866 reach it with masks), and with the
+// forward's saved q/k/v in place of the recompute of step 4 under the
+// save-qkv policy (`qkv=`, :559-566).  One block per pair, from the
+// forward's saved per-head outputs oh:
 //   1. rebuild the gate exactly as the forward computed it (same loops), and
 //      o = sum_h gate_h o_h rounded to the storage type (the fc input);
 //   2. in 16-row tiles: y0 = o @ fc, the LayerNorm of y0 + x_q and its
@@ -634,6 +612,9 @@ sh_attn_bwd_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
                    const float* __restrict__ lns,
                    const uint8_t* __restrict__ mask,
                    const float* __restrict__ oh, const T* __restrict__ g,
+                   const float* __restrict__ qsv,
+                   const float* __restrict__ ksv,
+                   const float* __restrict__ vsv,
                    float* __restrict__ dy_out, float* __restrict__ o_out,
                    float* __restrict__ s_out, float* __restrict__ dgl_out,
                    float* __restrict__ lnp_s, float* __restrict__ lnp_b,
@@ -866,12 +847,26 @@ sh_attn_bwd_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
   float* dp = sm + kBOffDp;
   float* mk = sm + kBOffMk;
   for (int h = 0; h < kHeads; ++h) {
-    project<T, 1>(xq, tq, wq, nullptr, h * kDk, st, qs, kLdq, nullptr, 0);
-    project<T, 2>(xkv, tk, wk, wv, h * kDk, st, ks, kLdq, vs, kLdq);
+    if (qsv != nullptr) {
+      // the save-qkv policy: the forward's q / 8, k and v instead of the
+      // recompute (the same f32 values, so the same gradients bit for bit)
+      for (int e = t; e < kTm * kDk; e += kThreads) {
+        const int r = e / kDk, c = e % kDk;
+        const size_t iq = ((size_t)h * pairs * tq + qrow0 + r) * kDk + c;
+        const size_t ik = ((size_t)h * pairs * tk + krow0 + r) * kDk + c;
+        qs[r * kLdq + c] = r < tq ? qsv[iq] : 0.f;
+        ks[r * kLdq + c] = r < tk ? ksv[ik] : 0.f;
+        vs[r * kLdq + c] = r < tk ? vsv[ik] : 0.f;
+      }
+    } else {
+      project<T, 1>(xq, tq, wq, nullptr, h * kDk, st, qs, kLdq, nullptr, 0);
+      project<T, 2>(xkv, tk, wk, wv, h * kDk, st, ks, kLdq, vs, kLdq);
+    }
     __syncthreads();
     for (int e = t; e < kTm * kDk; e += kThreads) {
       const int r = e / kDk, c = e % kDk;
-      qs[r * kLdq + c] *= 0.125f;      // exact: the Pallas kernel's q * scale
+      // exact: the Pallas kernel's q * scale
+      if (qsv == nullptr) qs[r * kLdq + c] *= 0.125f;
       doh[r * kLdq + c] = r < tq ? dos[e] * gm[h * kDk + c] + du[c] : 0.f;
     }
     __syncthreads();
@@ -1026,7 +1021,8 @@ int launch_bwd(const void* const* p, void* const* out, int pairs, int tq,
       (const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
       (const T*)p[4], (const T*)p[5], (const T*)p[6], (const T*)p[7],
       (const float*)p[8], (const uint8_t*)p[9], (const float*)p[10],
-      (const T*)p[11], (float*)out[0], (float*)out[1], (float*)out[2],
+      (const T*)p[11], (const float*)p[12], (const float*)p[13],
+      (const float*)p[14], (float*)out[0], (float*)out[1], (float*)out[2],
       (float*)out[3], (float*)out[4], (float*)out[5], (float*)out[6],
       (float*)out[7], (float*)out[8], tq, tk, drop, (float*)out[9]);
   return (int)cudaGetLastError();
@@ -1035,43 +1031,52 @@ int launch_bwd(const void* const* p, void* const* out, int pairs, int tq,
 }  // namespace
 
 // oh: null at eval; on the train path the per-head outputs [8, P*Tq, 64]
-// f32.  Dropout: the Philox stream of `seed`, or the f32 operand masks akeep
+// f32.  qsv, ksv, vsv: all null, or (the save-qkv policy) the per-head q / 8
+// [8, P*Tq, 64], k and v [8, P*Tk, 64] f32 to write.  Dropout: the Philox stream of `seed`, or the f32 operand masks akeep
 // [8, P*Tq, tk] and okeep [P*Tq, 512]; all three null at eval
 extern "C" int sh_attention_fwd(int bf16_io, const void* xq, const void* xkv,
                                 const void* wq, const void* wk, const void* wv,
                                 const void* skw, const void* skb,
                                 const void* fcw, const void* lns,
                                 const void* lnb, const void* mask, void* out,
-                                void* oh, int pairs, int tq, int tk,
+                                void* oh, void* qsv, void* ksv, void* vsv,
+                                int pairs, int tq, int tk,
                                 const void* seed, const void* akeep,
                                 const void* okeep, unsigned thresh,
                                 float inv_keep, void* stream) {
   const void* p[11] = {xq, xkv, wq, wk, wv, skw, skb, fcw, lns, lnb, mask};
-  if ((akeep == nullptr) != (okeep == nullptr) || (seed && akeep))
+  void* const qkv[3] = {qsv, ksv, vsv};
+  if ((akeep == nullptr) != (okeep == nullptr) || (seed && akeep) ||
+      (qsv == nullptr) != (ksv == nullptr) || (qsv == nullptr) != (vsv == nullptr))
     return (int)cudaErrorInvalidValue;
   const AttnDrop d{(const int*)seed, (const float*)akeep, (const float*)okeep,
                    thresh, inv_keep};
   cudaStream_t s = (cudaStream_t)stream;
-  return bf16_io ? launch<bf16>(p, out, oh, pairs, tq, tk, d, s)
-                 : launch<float>(p, out, oh, pairs, tq, tk, d, s);
+  return bf16_io ? launch<bf16>(p, out, oh, qkv, pairs, tq, tk, d, s)
+                 : launch<float>(p, out, oh, qkv, pairs, tq, tk, d, s);
 }
 
 // the per-pair part of the backward; every output is f32: dy [P*Tq, 512],
 // o [P*Tq, 64], s [P, 64], dlogit [P, 512], LayerNorm partials [P, 512] x 2,
 // dz [P*Tq, 512], dk and dv [P*Tk, 512] (head h in columns 64h..64h+63), and
-// with dropout (the forward's) dy0 [P*Tq, 512], fc's output cotangent
+// with dropout (the forward's) dy0 [P*Tq, 512], fc's output cotangent.
+// qsv, ksv, vsv: all null (q/k/v recomputed per head), or the forward's saved
+// q / 8, k, v [8, P*T, 64] f32 (the save-qkv policy)
 extern "C" int sh_attention_bwd_pairs(
     int bf16_io, const void* xq, const void* xkv, const void* wq,
     const void* wk, const void* wv, const void* skw, const void* skb,
     const void* fcw, const void* lns, const void* mask, const void* oh,
-    const void* g, void* dy, void* o, void* s, void* dgl, void* lnp_s,
+    const void* g, const void* qsv, const void* ksv, const void* vsv,
+    void* dy, void* o, void* s, void* dgl, void* lnp_s,
     void* lnp_b, void* dz, void* dk, void* dv, int pairs, int tq, int tk,
     const void* seed, const void* akeep, const void* okeep, unsigned thresh,
     float inv_keep, void* dy0, void* stream) {
-  const void* p[12] = {xq, xkv, wq, wk, wv, skw, skb, fcw, lns, mask, oh, g};
+  const void* p[15] = {xq,  xkv,  wq, wk, wv,  skw, skb, fcw,
+                       lns, mask, oh, g,  qsv, ksv, vsv};
   void* out[10] = {dy, o, s, dgl, lnp_s, lnp_b, dz, dk, dv, dy0};
   if ((akeep == nullptr) != (okeep == nullptr) || (seed && akeep) ||
-      ((seed || akeep) && dy0 == nullptr))
+      ((seed || akeep) && dy0 == nullptr) ||
+      (qsv == nullptr) != (ksv == nullptr) || (qsv == nullptr) != (vsv == nullptr))
     return (int)cudaErrorInvalidValue;
   const AttnDrop d{(const int*)seed, (const float*)akeep, (const float*)okeep,
                    thresh, inv_keep};

@@ -4,15 +4,18 @@ ait_tpu/models/attention.py).
 * `MultiHeadAttention`: scaled-dot-product attention over 8 heads, the
   SHBlock selective-head gate that collapses the heads into one d_v-wide
   vector, then Linear(d_v -> d_model), residual and post-LayerNorm
-  (SubLayers.py:9-102).  Short sequences with one shared mask and k is v go
-  to the fused kernels (ops/fused_attention.py), the same cases the JAX
-  package sends to its Pallas kernel; in training they run the kernels'
-  autograd Function (forward with saved per-head outputs, fused backward),
-  with the probability and output dropout inside the kernels (drawn from a
-  seed, or injected masks), as `fused_sh_attention_rngdrop` does in JAX.
-  Everything else (the co-attention's ~1900 image tokens) takes the plain
-  path below and trains by torch autograd, with flax-form dropout on the
-  f32 probabilities and on fc's output (attention.py:313-316, :171-172), its
+  (SubLayers.py:9-102).  Sequences with one shared mask and k is v go to
+  the fused kernels (ops/fused_attention.py) in the cases the JAX package
+  sends to its Pallas kernel (attention.py:197-226): both sides up to 128
+  tokens, and, with the module switch `_LONG_SEQ_FUSION` on, one side up to
+  128 and Tq * Tk <= 192 K (the co-attention's ~1900 image tokens against 64
+  query tokens).  In training they run the kernels' autograd Function
+  (forward with saved per-head outputs, fused backward), with the
+  probability and output dropout inside the kernels (drawn from a seed, or
+  injected masks), as `fused_sh_attention_rngdrop` does in JAX.
+  Everything else (the co-attention by default) takes the plain path below
+  and trains by torch autograd, with flax-form dropout on the f32
+  probabilities and on fc's output (attention.py:313-316, :171-172), its
   masks drawn by the dump kernel from a seed (ops/dropout_masks.py).
 * `PositionwiseFeedForward`: post-LN FFN with output dropout, always through
   the fused kernels (ops/fused_ffn.py), as in the JAX package.
@@ -36,7 +39,13 @@ from ait_tpu_torch.models.dropout import (Dropout, dropping, flax_dropout,
                                           row_dropout)
 from ait_tpu_torch.models.layers import Params
 from ait_tpu_torch.ops import dropout_masks, fused_attention, fused_ffn
-from ait_tpu_torch.ops.fused_attention import KERNEL_MAX_TOKENS, layer_norm_f32
+from ait_tpu_torch.ops.fused_attention import layer_norm_f32
+
+# Fuse the long-sequence regime too (one side <= 128 tokens, area <= 192 K:
+# the co-attention's two attentions).  A module-level switch with the JAX
+# package's name and default (ait_tpu/models/attention.py:49): off, so the
+# co-attention takes the plain path unless a caller turns it on.
+_LONG_SEQ_FUSION = False
 
 
 def scaled_dot_attention(q, k, v, *, temperature, mask=None, keep=None,
@@ -57,12 +66,7 @@ def scaled_dot_attention(q, k, v, *, temperature, mask=None, keep=None,
 
 
 class MultiHeadAttention(nn.Module):
-    """MHA with the selective-head collapse; softmax distribution only.
-
-    The JAX package fuses sequences of up to 128 tokens; the port's kernel
-    keeps the 8 per-head outputs of a sequence in shared memory, which
-    bounds it at 64 tokens (the flagship's sequences are 56 and 64), so
-    longer sequences take the plain path."""
+    """MHA with the selective-head collapse; softmax distribution only."""
 
     def __init__(self, n_head: int = 8, d_model: int = 512, d_k: int = 64,
                  d_v: int = 64, *, dtype=torch.float32):
@@ -87,8 +91,9 @@ class MultiHeadAttention(nn.Module):
         sk = self.sh["sk"]
         ln = self.LayerNorm_0
         dev = q.device
-        fuse = (k is v and lq <= KERNEL_MAX_TOKENS and
-                lk <= KERNEL_MAX_TOKENS and
+        fusable = fused_attention.fuse_short(lq, lk) or (
+            _LONG_SEQ_FUSION and fused_attention.fuse_long(lq, lk))
+        fuse = (k is v and fusable and
                 (mask is None or mask.shape[0] == 1))
         if fuse:
             if mask is None:

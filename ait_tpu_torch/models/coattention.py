@@ -4,9 +4,12 @@ ait_tpu/models/coattention.py::MHACoAttention).
 A 1x1-conv embed to 512, a pair of cross MultiHeadAttentions, and a linear
 map back to 1024 (faster_rcnn_sys_transformer_sk_dilat.py:31-102).  The
 reference's naming is crossed and kept: `q2i_attn` attends image -> query.
-With ~1900 image tokens both attentions take the plain path, as in JAX, and
-in training both drop out their probabilities and fc's output at
-model.t_dropout (coattention.py:56-65 passes the rate to both).
+With ~1900 image tokens both attentions take the plain path by default, as
+in JAX; with `models.attention._LONG_SEQ_FUSION` on both go to the fused
+kernels' long-sequence regime (and in training draw a dropout seed each
+instead of dumped masks).  In training both drop out their probabilities and
+fc's output at model.t_dropout (coattention.py:56-65 passes the rate to
+both).
 """
 
 from __future__ import annotations

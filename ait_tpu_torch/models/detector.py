@@ -118,13 +118,23 @@ class AITDetector(nn.Module):
 
     def forward(self, image, query, im_info, gt_boxes=None, num_boxes=None,
                 *, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> DetectorOut:
+                generator: Optional[torch.Generator] = None,
+                pair_image_idx: Optional[torch.Tensor] = None) -> DetectorOut:
         """num_boxes is unused (kept for the JAX call signature); gt_boxes
         and the `generator` (target sampling and dropout) are read in
-        training only."""
+        training only.  pair_image_idx (eval only): [P] map from pair row to
+        image row, so `image` holds only the unique images of the pair batch
+        and the image backbone runs once per image, not once per pair."""
         c = self.cfg
         b = query.shape[0]
-        if image.shape[0] != b:
+        if pair_image_idx is not None:
+            if train:
+                raise ValueError("pair_image_idx is an eval-path feature")
+            if pair_image_idx.shape[0] != b:
+                raise ValueError(f"pair_image_idx maps "
+                                 f"{pair_image_idx.shape[0]} pairs, the "
+                                 f"query batch is {b}")
+        elif image.shape[0] != b:
             raise ValueError(f"image batch {image.shape[0]} != query batch {b}")
         drop = None
         if train:
@@ -132,6 +142,8 @@ class AITDetector(nn.Module):
                 raise ValueError("training needs gt_boxes")
             drop = Dropout(c.model.t_dropout, generator)
         image_feat = self.backbone(_to_model_input(image, self.dtype))
+        if pair_image_idx is not None:
+            image_feat = image_feat[pair_image_idx]
         query_feat = self.backbone(_to_model_input(query, self.dtype))
         non_img, non_qry = self.coattention(image_feat, query_feat, drop)
 

@@ -59,13 +59,12 @@ def seed_args(name: str, keep_prob: float, seed, device):
     return (seed.data_ptr(),) + kernel_keep(name, keep_prob)
 
 
-def count_launch(fn, keep_prob: float) -> None:
+def count_launch(fn, keep_prob: float, regime: str = "") -> None:
     """One launch of `fn`'s kernel: in `fn.launches` at keep_prob 1, else in
-    `fn.dropout_launches`."""
-    if keep_prob < 1.0:
-        fn.dropout_launches += 1
-    else:
-        fn.launches += 1
+    `fn.dropout_launches`; a kernel family of its own (the attention's
+    "general_" regime) counts under that prefix."""
+    name = regime + ("dropout_launches" if keep_prob < 1.0 else "launches")
+    setattr(fn, name, getattr(fn, name) + 1)
 
 
 def keep_mask(seed: torch.Tensor, tag: int, heads: int, blocks: int,

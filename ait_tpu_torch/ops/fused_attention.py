@@ -10,9 +10,21 @@ eps 1e-6 and f32 statistics.  The mask [Tq, Tk] is shared by all pairs.
 
 `sh_attention_reference` is the plain version, a line-by-line port of
 `_reference_impl` with its casts.  `fused_sh_attention` is the wrapper of the
-CUDA kernel csrc/sh_attention.cu (which replaces ait_tpu/ops/
-pallas_attention.py:746 fused_sh_attention): a CUDA tensor goes to the
-kernel, a CPU tensor to the plain version.
+CUDA kernels (which replace ait_tpu/ops/pallas_attention.py:746
+fused_sh_attention): a CUDA tensor goes to a kernel, a CPU tensor to the
+plain version.
+
+Two kernel regimes (`kernel_regime`), one result:
+* "short", both sides <= 64 tokens: csrc/sh_attention.cu, one thread block
+  per pair, everything of the pair on chip;
+* "general", everything else the JAX package fuses (both sides <= 128 tokens,
+  or, its long-sequence regime, one side <= 128 and Tq * Tk <= 192 K: the
+  co-attention's 1900 x 64 and 64 x 1900): csrc/sh_attention_general.cu, 64-row
+  tiles across blocks with the per-head projections (csrc/gemm.cu) and outputs
+  in device memory between its launches.
+Every wrapper counts a launch of the general regime in `general_launches` /
+`general_dropout_launches`, of the short one in `launches` /
+`dropout_launches`.
 
 Training:
 * `fused_sh_attention_saved` is the same kernel that also writes each
@@ -36,6 +48,11 @@ Training:
   output in its own dtype by 1 / keep_prob rounded to that dtype.  A wrapper
   counts a launch at keep_prob 1 in `launches`, with dropout in
   `dropout_launches`;
+* the save-qkv policy (`_SAVE_QKV`, off by default as in the JAX package,
+  pallas_attention.py:132-150): where both sides are <= 128 tokens the saved
+  forward also writes the per-head q / sqrt(d_k), k and v [H, P*T, d_k] in
+  f32 and the backward reads them instead of recomputing the projections
+  (`save_qkv=True`, `qkv=`); such launches also count in `qkv_launches`;
 * `FusedSHAttention` is the autograd Function over the two, and
   `sh_attention` what the model calls: the Function when an input needs a
   gradient or dropout is on, else the eval kernel, which writes no per-head
@@ -56,9 +73,44 @@ from ait_tpu_torch.ops.dropout_masks import (count_launch, kernel_keep,
 
 LN_EPS = 1e-6
 
-# the kernel's compiled widths (the flagship AIT head) and the longest
-# sequence whose 8 per-head outputs fit in one block's shared memory
+# the kernels' compiled widths (the flagship AIT head) and the longest
+# sequence whose 8 per-head outputs fit in one block's shared memory (the
+# short regime's kernels)
 KERNEL_D, KERNEL_HEADS, KERNEL_DK, KERNEL_MAX_TOKENS = 512, 8, 64, 64
+# what the JAX package fuses (models/attention.py:108-116,197-201): both
+# sides up to FUSE_MAX_TOKENS, or (long-sequence regime) one side up to it
+# and an attention area up to FUSE_MAX_AREA
+FUSE_MAX_TOKENS, FUSE_MAX_AREA = 128, 192 * 1024
+
+# Save the per-head q/k/v in the train forward and read them in the backward
+# instead of recomputing the projections (pallas_attention.py:141 `_SAVE_QKV`);
+# off by default, as there.  Read at call time by `FusedSHAttention`.
+_SAVE_QKV = False
+
+
+def fuse_short(tq: int, tk: int) -> bool:
+    return 1 <= tq <= FUSE_MAX_TOKENS and 1 <= tk <= FUSE_MAX_TOKENS
+
+
+def fuse_long(tq: int, tk: int) -> bool:
+    return (tq >= 1 and tk >= 1 and min(tq, tk) <= FUSE_MAX_TOKENS and
+            tq * tk <= FUSE_MAX_AREA)
+
+
+def kernel_regime(tq: int, tk: int):
+    """'short' (one block per pair), 'general' (tiled), or None where no
+    kernel takes the shape."""
+    if 1 <= tq <= KERNEL_MAX_TOKENS and 1 <= tk <= KERNEL_MAX_TOKENS:
+        return "short"
+    if fuse_short(tq, tk) or fuse_long(tq, tk):
+        return "general"
+    return None
+
+
+def _save_qkv_ok(tq: int, tk: int) -> bool:
+    """Whether a train forward saves q/k/v: the policy is on and both sides
+    are short (never in the long regime; pallas_attention.py:144-150)."""
+    return _SAVE_QKV and fuse_short(tq, tk)
 
 
 def layer_norm_f32(y: torch.Tensor, scale, bias) -> torch.Tensor:
@@ -92,12 +144,13 @@ def _plain_masks(attn_keep, out_keep, keep_prob, seed, p, tq, tk, d,
 def sh_attention_reference(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
                            ln_b, mask, n_head=8, d_k=64, d_v=64, *,
                            attn_keep=None, out_keep=None, keep_prob=1.0,
-                           seed=None, return_oh=False):
+                           seed=None, return_oh=False, return_qkv=False):
     """x_q [P, Tq, D], x_kv [P, Tk, D], weights in the JAX layout ([in, out],
     x @ w), ln_s/ln_b f32, mask [Tq, Tk] bool (True = attend).  Dropout at
     keep_prob < 1: the masks attn_keep [H, P*Tq, Tk] and out_keep [P*Tq, D],
     or those of `seed`.  With return_oh, also the per-head attention outputs
-    [H, P*Tq, d_v] in f32 (after the probability dropout)."""
+    [H, P*Tq, d_v] in f32 (after the probability dropout); with return_qkv,
+    then also the per-head (q / sqrt(d_k), k, v), each [H, P*T, d] in f32."""
     p, tq, d = x_q.shape
     tk = x_kv.shape[1]
     attn_keep, out_keep = _plain_masks(attn_keep, out_keep, keep_prob, seed,
@@ -131,26 +184,36 @@ def sh_attention_reference(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
             1.0 / keep_prob, dtype=y.dtype, device=y.device)
     y = y + x_q
     out = layer_norm_f32(y.float(), ln_s, ln_b).to(x_q.dtype)
-    if return_oh:
-        return out, o32.transpose(0, 1).reshape(n_head, p * tq, d_v)
-    return out
+    if not return_oh:
+        return out
+    res = (out, o32.transpose(0, 1).reshape(n_head, p * tq, d_v))
+    if return_qkv:
+        def heads(x, t, dh):
+            return x.float().transpose(0, 1).reshape(n_head, p * t, dh)
+
+        res += ((heads(q / (d_k ** 0.5), tq, d_k), heads(k, tk, d_k),
+                 heads(v, tk, d_v)),)
+    return res
 
 
 def sh_attention_saved_reference(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w,
                                  ln_s, ln_b, mask, n_head=8, d_k=64, d_v=64,
-                                 **drop):
+                                 save_qkv=False, **drop):
     """Plain version of `fused_sh_attention_saved`: (out, per-head outputs
-    [H, P*Tq, d_v] f32)."""
+    [H, P*Tq, d_v] f32) and, with save_qkv, the per-head (q scaled, k, v)."""
     return sh_attention_reference(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w,
                                   ln_s, ln_b, mask, n_head, d_k, d_v,
-                                  return_oh=True, **drop)
+                                  return_oh=True, return_qkv=save_qkv, **drop)
 
 
 _I, _P = ctypes.c_int, ctypes.c_void_p
 _DROP = [_P, _P, _P, ctypes.c_uint, ctypes.c_float]  # seed, masks, thresh, 1/kp
-_FUNCS = {"sh_attention_fwd": [_I] + [_P] * 13 + [_I] * 3 + _DROP + [_P],
-          "sh_attention_bwd_pairs": [_I] + [_P] * 21 + [_I] * 3 + _DROP +
+_FUNCS = {"sh_attention_fwd": [_I] + [_P] * 16 + [_I] * 3 + _DROP + [_P],
+          "sh_attention_bwd_pairs": [_I] + [_P] * 24 + [_I] * 3 + _DROP +
           [_P, _P]}
+_GENERAL_FUNCS = {
+    "sh_attention_general_fwd": [_I] + [_P] * 17 + [_I] * 3 + _DROP + [_P],
+    "sh_attention_general_bwd": [_I, _I] + [_P] * 26 + [_I] * 3 + _DROP + [_P]}
 
 
 def _check(name, x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s, ln_b, mask,
@@ -166,8 +229,11 @@ def _check(name, x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s, ln_b, mask,
     req((d, n_head, d_k, d_v) ==
         (KERNEL_D, KERNEL_HEADS, KERNEL_DK, KERNEL_DK),
         f"{name}: the kernel is built for D=512, 8 heads, d_k=d_v=64")
-    req(1 <= tq <= KERNEL_MAX_TOKENS and 1 <= tk <= KERNEL_MAX_TOKENS,
-        f"{name}: sequences must be 1..{KERNEL_MAX_TOKENS} tokens")
+    regime = kernel_regime(tq, tk)
+    req(regime is not None,
+        f"{name}: the kernels take sequences of 1..{FUSE_MAX_TOKENS} tokens "
+        f"on both sides, or one side up to {FUSE_MAX_TOKENS} and Tq * Tk <= "
+        f"{FUSE_MAX_AREA}; got {tq} x {tk}")
     req(x_kv.shape == (p, tk, d) and x_kv.dtype == dt,
         f"{name}: x_kv must be [P, Tk, D] in x_q's dtype")
     shapes = {"wq": (wq, (d, d)), "wk": (wk, (d, d)), "wv": (wv, (d, d)),
@@ -183,7 +249,7 @@ def _check(name, x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s, ln_b, mask,
         f"{name}: mask must be bool [Tq, Tk]")
     args = (x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s, ln_b, mask)
     _build.require_operands(name, x_q.device, args)
-    return p, tq, tk, d, dt, args
+    return p, tq, tk, d, dt, args, regime
 
 
 def _kernel_drop(name, x_q, p, tq, tk, keep_prob, seed, attn_keep, out_keep):
@@ -207,15 +273,72 @@ def _kernel_drop(name, x_q, p, tq, tk, keep_prob, seed, attn_keep, out_keep):
     return None, attn_keep.data_ptr(), out_keep.data_ptr(), thresh, inv
 
 
-def _forward(x_q, args, p, tq, tk, oh, drop=(None, None, None, 0, 1.0)):
+_NO_DROP = (None, None, None, 0, 1.0)
+
+
+def _f32(dev, *shape):
+    return torch.empty(shape, dtype=torch.float32, device=dev)
+
+
+def _count(fn, keep_prob, regime, qkv=False):
+    """One launch of `fn`'s kernel, by regime and dropout; a launch that
+    writes or reads saved q/k/v also counts in `qkv_launches`."""
+    count_launch(fn, keep_prob, "general_" if regime == "general" else "")
+    if qkv:
+        fn.qkv_launches += 1
+
+
+def _zero(fn, *counts):
+    for name in counts:
+        setattr(fn, name, 0)
+
+
+_TRAIN_COUNTS = ("launches", "dropout_launches", "general_launches",
+                 "general_dropout_launches", "qkv_launches")
+
+
+def _forward(x_q, args, p, tq, tk, regime, oh=None, drop=_NO_DROP,
+             save_qkv=False):
+    """Launch the regime's forward; returns (out, saved q/k/v or None).
+    oh: the [H, P*Tq, d_v] f32 output (the general regime needs one as
+    scratch at eval too and makes it)."""
+    dev, dt = x_q.device, x_q.dtype
     out = torch.empty_like(x_q)
-    if p:
+    qkv = None
+    if save_qkv:
+        qkv = (_f32(dev, KERNEL_HEADS, p * tq, KERNEL_DK),
+               _f32(dev, KERNEL_HEADS, p * tk, KERNEL_DK),
+               _f32(dev, KERNEL_HEADS, p * tk, KERNEL_DK))
+    if not p:
+        return out, qkv
+    qkv_ptrs = [t.data_ptr() for t in qkv] if save_qkv else [None] * 3
+    bf16 = int(dt == torch.bfloat16)
+    if regime == "short":
         lib = _build.load("sh_attention", _FUNCS)
         _build.check(lib.sh_attention_fwd(
-            int(x_q.dtype == torch.bfloat16), *(t.data_ptr() for t in args),
-            out.data_ptr(), oh.data_ptr() if oh is not None else None, p,
-            tq, tk, *drop, _build.stream_ptr(x_q.device)), "sh_attention_fwd")
-    return out
+            bf16, *(t.data_ptr() for t in args), out.data_ptr(),
+            oh.data_ptr() if oh is not None else None, *qkv_ptrs, p, tq, tk,
+            *drop, _build.stream_ptr(dev)), "sh_attention_fwd")
+        return out, qkv
+    x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s, ln_b, mask = args[1:]
+    d = x_q.shape[-1]
+    if oh is None:
+        oh = _f32(dev, KERNEL_HEADS, p * tq, KERNEL_DK)
+    # the projections over all pairs, f32 [P*T, 512] (head h in columns
+    # 64h..64h+63), on the hand-written tiled product
+    xkv2 = x_kv.view(p * tk, d)
+    qf = _gemm.gemm(_gemm.NN, x_q.view(p * tq, d), wq)
+    kf = _gemm.gemm(_gemm.NN, xkv2, wk)
+    vf = _gemm.gemm(_gemm.NN, xkv2, wv)
+    s, gate = _f32(dev, p, KERNEL_DK), _f32(dev, p, KERNEL_HEADS * KERNEL_DK)
+    lib = _build.load("sh_attention_general", _GENERAL_FUNCS)
+    _build.check(lib.sh_attention_general_fwd(
+        bf16, qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), sk_w.data_ptr(),
+        sk_b.data_ptr(), fc_w.data_ptr(), x_q.data_ptr(), ln_s.data_ptr(),
+        ln_b.data_ptr(), mask.data_ptr(), oh.data_ptr(), *qkv_ptrs,
+        s.data_ptr(), gate.data_ptr(), out.data_ptr(), p, tq, tk, *drop,
+        _build.stream_ptr(dev)), "sh_attention_general_fwd")
+    return out, qkv
 
 
 def fused_sh_attention(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s, ln_b,
@@ -226,53 +349,58 @@ def fused_sh_attention(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s, ln_b,
         return sh_attention_reference(x_q, x_kv, wq, wk, wv, sk_w, sk_b,
                                       fc_w, ln_s, ln_b, mask, n_head=n_head,
                                       d_k=d_k, d_v=d_v)
-    p, tq, tk, _, _, args = _check(
+    p, tq, tk, _, _, args, regime = _check(
         "sh_attention", x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s, ln_b,
         mask, n_head, d_k, d_v)
-    out = _forward(x_q, args, p, tq, tk, None)
+    out, _ = _forward(x_q, args, p, tq, tk, regime)
     if p:
-        fused_sh_attention.launches += 1
+        _count(fused_sh_attention, 1.0, regime)
     return out
 
 
-fused_sh_attention.launches = 0
+_zero(fused_sh_attention, "launches", "general_launches")
 
 
 def fused_sh_attention_saved(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
                              ln_b, mask, n_head=8, d_k=64, d_v=64, *,
                              attn_keep=None, out_keep=None, keep_prob=1.0,
-                             seed=None):
+                             seed=None, save_qkv=False):
     """(out, per-head outputs [H, P*Tq, d_v] f32): the forward of the train
-    path, same arguments as `sh_attention_saved_reference`."""
+    path, same arguments as `sh_attention_saved_reference`; with save_qkv
+    (both sides <= 128 tokens) also the per-head (q / sqrt(d_k), k, v), each
+    [H, P*T, d_k] f32, for `fused_sh_attention_bwd(qkv=...)`."""
     drop = dict(attn_keep=attn_keep, out_keep=out_keep, keep_prob=keep_prob,
                 seed=seed)
     if x_q.device.type == "cpu":
         return sh_attention_saved_reference(x_q, x_kv, wq, wk, wv, sk_w, sk_b,
                                             fc_w, ln_s, ln_b, mask, n_head,
-                                            d_k, d_v, **drop)
-    p, tq, tk, _, _, args = _check(
+                                            d_k, d_v, save_qkv=save_qkv,
+                                            **drop)
+    p, tq, tk, _, _, args, regime = _check(
         "sh_attention_saved", x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
         ln_b, mask, n_head, d_k, d_v)
+    _build.require(not save_qkv or fuse_short(tq, tk),
+                   "sh_attention_saved: q/k/v are saved only where both "
+                   f"sides are <= {FUSE_MAX_TOKENS} tokens")
     kdrop = _kernel_drop("sh_attention_saved", x_q, p, tq, tk, **drop)
-    oh = torch.empty((n_head, p * tq, d_v), dtype=torch.float32,
-                     device=x_q.device)
-    out = _forward(x_q, args, p, tq, tk, oh, kdrop)
+    oh = _f32(x_q.device, n_head, p * tq, d_v)
+    out, qkv = _forward(x_q, args, p, tq, tk, regime, oh, kdrop, save_qkv)
     if p:
-        count_launch(fused_sh_attention_saved, keep_prob)
-    return out, oh
+        _count(fused_sh_attention_saved, keep_prob, regime, save_qkv)
+    return (out, oh, qkv) if save_qkv else (out, oh)
 
 
-fused_sh_attention_saved.launches = 0
-fused_sh_attention_saved.dropout_launches = 0
+_zero(fused_sh_attention_saved, *_TRAIN_COUNTS)
 
 
 def sh_attention_bwd_reference(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
                                ln_b, mask, oh, g, n_head=8, d_k=64, d_v=64, *,
                                attn_keep=None, out_keep=None, keep_prob=1.0,
-                               seed=None):
+                               seed=None, qkv=None):
     """Plain backward: torch autograd through `sh_attention_reference`
-    (the saved per-head outputs `oh` are not needed).  Returns the
-    cotangents of (x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s, ln_b)."""
+    (the saved per-head outputs `oh` and projections `qkv` are not needed).
+    Returns the cotangents of (x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
+    ln_b)."""
     ak, ok = _plain_masks(attn_keep, out_keep, keep_prob, seed, x_q.shape[0],
                           x_q.shape[1], x_kv.shape[1], x_q.shape[2], n_head)
 
@@ -288,24 +416,28 @@ def sh_attention_bwd_reference(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
 def fused_sh_attention_bwd(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
                            ln_b, mask, oh, g, n_head=8, d_k=64, d_v=64, *,
                            attn_keep=None, out_keep=None, keep_prob=1.0,
-                           seed=None):
+                           seed=None, qkv=None):
     """Same arguments and result as `sh_attention_bwd_reference`; oh is the
     second output of `fused_sh_attention_saved` with the same dropout, g
-    [P, Tq, D] in x_q's dtype.
+    [P, Tq, D] in x_q's dtype, qkv its third output under save_qkv (else
+    None: the projections are recomputed).
 
     Kernel path, with the Pallas kernel's f32-between-products numerics
-    (pallas_attention.py:474-627): one block per pair rebuilds the gate and
+    (pallas_attention.py:474-627).  The per-pair part rebuilds the gate and
     fc/LayerNorm from oh, runs the LayerNorm, fc and gate backward and, per
-    head, recomputes q/k/v and the probabilities for dz, dk, dv; it writes
-    dy (the LayerNorm input's cotangent), the gated output o, the gate's s
-    and logit cotangent, and the per-head dz/dk/dv in f32.  The products
-    over the pair batch then run on csrc/gemm.cu: dxq = dy + dz wq^T,
-    dxkv = dk wk^T + dv wv^T, dwq = xq^T dz, dwk = xkv^T dk, dwv = xkv^T dv,
-    dfc_w = o^T dy0, dsk_w = s^T dlogit; column sums give dsk_b, dln_s and
-    dln_b.  With dropout the kernel regenerates (or reads) the forward's
-    masks and also writes dy0 = dy * out_keep / keep_prob, fc's output
-    cotangent ([P*Tq, 512] f32 more); without, dy0 is dy.  Weight cotangents
-    come back in the weights' dtype, as JAX's."""
+    head, the probabilities (from recomputed or saved q/k/v) for dz, dk, dv;
+    it writes dy (the LayerNorm input's cotangent), the gated output o, the
+    gate's s and logit cotangent, and the per-head dz/dk/dv in f32: one
+    block per pair in the short regime (csrc/sh_attention.cu), the tiled
+    launches of csrc/sh_attention_general.cu in the general one (which
+    recomputes the projections on csrc/gemm.cu first).  The products over
+    the pair batch then run on csrc/gemm.cu: dxq = dy + dz wq^T, dxkv = dk
+    wk^T + dv wv^T, dwq = xq^T dz, dwk = xkv^T dk, dwv = xkv^T dv, dfc_w =
+    o^T dy0, dsk_w = s^T dlogit; column sums give dsk_b, dln_s and dln_b.
+    With dropout the kernels regenerate (or read) the forward's masks and
+    also write dy0 = dy * out_keep / keep_prob, fc's output cotangent
+    ([P*Tq, 512] f32 more); without, dy0 is dy.  Weight cotangents come back
+    in the weights' dtype, as JAX's."""
     drop = dict(attn_keep=attn_keep, out_keep=out_keep, keep_prob=keep_prob,
                 seed=seed)
     if x_q.device.type == "cpu":
@@ -313,38 +445,69 @@ def fused_sh_attention_bwd(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
                                           fc_w, ln_s, ln_b, mask, oh, g,
                                           n_head=n_head, d_k=d_k, d_v=d_v,
                                           **drop)
-    p, tq, tk, d, dt, args = _check(
-        "sh_attention_bwd", x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
-        ln_b, mask, n_head, d_k, d_v)
-    kdrop = _kernel_drop("sh_attention_bwd", x_q, p, tq, tk, **drop)
+    name = "sh_attention_bwd"
+    p, tq, tk, d, dt, args, regime = _check(
+        name, x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s, ln_b, mask,
+        n_head, d_k, d_v)
+    kdrop = _kernel_drop(name, x_q, p, tq, tk, **drop)
     req = _build.require
     req(tuple(oh.shape) == (n_head, p * tq, d_v) and
         oh.dtype == torch.float32,
-        "sh_attention_bwd: oh must be float32 [H, P*Tq, d_v]")
+        f"{name}: oh must be float32 [H, P*Tq, d_v]")
     req(g.shape == x_q.shape and g.dtype == dt,
-        "sh_attention_bwd: g must be [P, Tq, D] in x_q's dtype")
-    _build.require_operands("sh_attention_bwd", x_q.device, (oh, g))
+        f"{name}: g must be [P, Tq, D] in x_q's dtype")
+    _build.require_operands(name, x_q.device, (oh, g))
+    if qkv is not None:
+        req(fuse_short(tq, tk), f"{name}: saved q/k/v are read only where "
+            f"both sides are <= {FUSE_MAX_TOKENS} tokens")
+        req(len(qkv) == 3 and all(
+            tuple(t.shape) == (n_head, p * n, d_k) and
+            t.dtype == torch.float32 for t, n in zip(qkv, (tq, tk, tk))),
+            f"{name}: qkv must be three float32 [H, P*T, d_k] tensors")
+        _build.require_operands(name, x_q.device, qkv)
     if not p:
         return tuple(torch.zeros_like(t) for t in args[:10])
     dev = x_q.device
 
     def f32(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
+        return _f32(dev, *shape)
 
+    tiles = 1 if regime == "short" else -(-tq // 64)
     dy, o, s, dgl, lnp = (f32(p * tq, d), f32(p * tq, d_v), f32(p, d_v),
-                          f32(p, n_head * d_v), f32(2, p, d))
+                          f32(p, n_head * d_v), f32(2, p * tiles, d))
     dz, dk, dv = f32(p * tq, d), f32(p * tk, d), f32(p * tk, d)
     dy0 = f32(p * tq, d) if keep_prob < 1.0 else dy
-    lib = _build.load("sh_attention", _FUNCS)
-    _build.check(lib.sh_attention_bwd_pairs(
-        int(dt == torch.bfloat16),
-        *(t.data_ptr() for t in args[:9] + (mask, oh, g, dy, o, s, dgl)),
-        lnp[0].data_ptr(), lnp[1].data_ptr(), dz.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), p, tq, tk, *kdrop,
-        dy0.data_ptr() if keep_prob < 1.0 else None, _build.stream_ptr(dev)),
-        "sh_attention_bwd_pairs")
-    gemm, NT, TN = _gemm.gemm, _gemm.NT, _gemm.TN
+    dy0_ptr = dy0.data_ptr() if keep_prob < 1.0 else None
+    bf16 = int(dt == torch.bfloat16)
+    gemm, NN, NT, TN = _gemm.gemm, _gemm.NN, _gemm.NT, _gemm.TN
     xq2, xkv2 = x_q.view(p * tq, d), x_kv.view(p * tk, d)
+    if regime == "short":
+        lib = _build.load("sh_attention", _FUNCS)
+        _build.check(lib.sh_attention_bwd_pairs(
+            bf16, *(t.data_ptr() for t in args[:9] + (mask, oh, g)),
+            *([t.data_ptr() for t in qkv] if qkv is not None else [None] * 3),
+            *(t.data_ptr() for t in (dy, o, s, dgl)),
+            lnp[0].data_ptr(), lnp[1].data_ptr(), dz.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), p, tq, tk, *kdrop, dy0_ptr,
+            _build.stream_ptr(dev)), "sh_attention_bwd_pairs")
+    else:
+        proj = qkv if qkv is not None else (gemm(NN, xq2, wq),
+                                            gemm(NN, xkv2, wk),
+                                            gemm(NN, xkv2, wv))
+        gate, dos, dgp, du, stats = (f32(p, n_head * d_v), f32(p * tq, d_v),
+                                     f32(p * tiles, n_head * d_v),
+                                     f32(p, d_v), f32(3, n_head * p * tq))
+        lib = _build.load("sh_attention_general", _GENERAL_FUNCS)
+        _build.check(lib.sh_attention_general_bwd(
+            bf16, int(qkv is not None), *(t.data_ptr() for t in proj),
+            sk_w.data_ptr(), sk_b.data_ptr(), fc_w.data_ptr(),
+            x_q.data_ptr(), ln_s.data_ptr(), mask.data_ptr(), oh.data_ptr(),
+            g.data_ptr(), gate.data_ptr(), s.data_ptr(), dy.data_ptr(),
+            dy0_ptr, o.data_ptr(), dos.data_ptr(), lnp[0].data_ptr(),
+            lnp[1].data_ptr(), dgp.data_ptr(), dgl.data_ptr(), du.data_ptr(),
+            stats.data_ptr(), dz.data_ptr(), dk.data_ptr(), dv.data_ptr(), p,
+            tq, tk, *kdrop, _build.stream_ptr(dev)),
+            "sh_attention_general_bwd")
     dxq = gemm(NT, dz, wq, cadd=dy).to(dt).view(p, tq, d)
     dxkv = gemm(NT, dk, wk)
     dxkv = gemm(NT, dv, wv, cadd=dxkv, out=dxkv).to(dt).view(p, tk, d)
@@ -352,37 +515,41 @@ def fused_sh_attention_bwd(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
              gemm(TN, xkv2, dv).to(dt), gemm(TN, s, dgl).to(dt),
              _gemm.colsum(dgl).to(dt), gemm(TN, o, dy0).to(dt),
              _gemm.colsum(lnp[0]), _gemm.colsum(lnp[1]))
-    count_launch(fused_sh_attention_bwd, keep_prob)
+    _count(fused_sh_attention_bwd, keep_prob, regime, qkv is not None)
     return grads
 
 
-fused_sh_attention_bwd.launches = 0
-fused_sh_attention_bwd.dropout_launches = 0
+_zero(fused_sh_attention_bwd, *_TRAIN_COUNTS)
 
 
 class FusedSHAttention(torch.autograd.Function):
     """`fused_sh_attention_saved` with `fused_sh_attention_bwd` as its
-    backward; the dropout arguments reach both.  Self-attention passes one
-    tensor as x_q and x_kv; autograd sums its two cotangents."""
+    backward; the dropout arguments reach both.  Under the save-qkv policy
+    (`_SAVE_QKV`, short sides only) the forward's q/k/v go to the backward
+    too.  Self-attention passes one tensor as x_q and x_kv; autograd sums
+    its two cotangents."""
 
     @staticmethod
     def forward(ctx, x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s, ln_b,
                 mask, n_head, d_k, d_v, keep_prob, seed, attn_keep, out_keep):
         drop = dict(keep_prob=keep_prob, seed=seed, attn_keep=attn_keep,
                     out_keep=out_keep)
-        out, oh = fused_sh_attention_saved(x_q, x_kv, wq, wk, wv, sk_w,
-                                           sk_b, fc_w, ln_s, ln_b, mask,
-                                           n_head, d_k, d_v, **drop)
+        save = _save_qkv_ok(x_q.shape[1], x_kv.shape[1])
+        out, oh, *rest = fused_sh_attention_saved(
+            x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s, ln_b, mask,
+            n_head, d_k, d_v, save_qkv=save, **drop)
         ctx.save_for_backward(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
-                              ln_b, mask, oh)
+                              ln_b, mask, oh, *(rest[0] if save else ()))
         ctx.heads = (n_head, d_k, d_v)
         ctx.drop = drop
         return out
 
     @staticmethod
     def backward(ctx, g):
-        grads = fused_sh_attention_bwd(*ctx.saved_tensors, g.contiguous(),
-                                       *ctx.heads, **ctx.drop)
+        saved = ctx.saved_tensors
+        grads = fused_sh_attention_bwd(
+            *saved[:12], g.contiguous(), *ctx.heads,
+            qkv=tuple(saved[12:]) or None, **ctx.drop)
         return tuple(grads) + (None,) * 8
 
 

@@ -80,6 +80,12 @@ BWD_REL = 5e-3            # its backward bound, relative to max |plain|
 # each rounding is 2^-9 relative and a cotangent passes through a few
 # (measured <= 9.4e-3 at 64 pairs on an H100)
 BF16_BWD_REL = 2e-2
+# the same in the long-sequence regime: there dk, dv and their weight
+# gradients sum over 1900 rows of probabilities that the plain version rounds
+# to bf16 (the kernels keep f32), and dwv reaches 2.04e-2 at 8 pairs of
+# 1900 x 64 on an H100; the bf16 kernel is also held to BF16_BWD_REL against
+# the plain version run in f32 on the same bf16-rounded operands
+BF16_BWD_REL_LONG = 4e-2
 KEEP = 0.9                # 1 - Config().model.t_dropout
 # integer operations of one Philox4x32-10 call (10 rounds of 2 high and 2
 # low 32-bit products, 4 xors and 2 key additions) and the 4 compares and
@@ -381,7 +387,6 @@ def check_attention_train(torch, dev):
     backward from them)."""
     from ait_tpu_torch.ops import fused_attention as fa
 
-    d, dk, h = 512, 64, 8
     res = {"saved": [[], 0.0, 0.0, 0.0], "bwd": [[], 0.0, 0.0, 0.0]}
     for name, p, tq, tk, self_attn in ATTN_TRAIN:
         mask = _attn_mask(torch, dev, tq, tk, self_attn)
@@ -424,21 +429,8 @@ def check_attention_train(torch, dev):
                        iters=5)
         plain_d = cuda_ms(lambda: fa.sh_attention_bwd_reference(
             *args, mask, oh, g), iters=5)
-        n_in = p * (tq if self_attn else tq + tk) * d * 2
-        w_bytes = (3 * d * d + dk * h * dk + h * dk + dk * d) * 2 + 2 * d * 4
-        oh_bytes = h * p * tq * dk * 4
-        flops_a = p * (2 * tq * d * d + 4 * tk * d * d + 4 * tq * tk * d +
-                       2 * dk * h * dk + 2 * tq * dk * d)
-        b_a, by_a = bound(n_in + w_bytes + tq * tk + p * tq * d * 2 +
-                          oh_bytes, flops_a, BF16_FLOP_S)
-        # recompute q/k/v; scores, dP, dv, dz, dk; fc, do, dfc; dxq, dxkv
-        # and the three projection weight gradients
-        flops_d = p * (2 * tq * d * d + 4 * tk * d * d + 10 * tq * tk * d +
-                       6 * tq * dk * d + 4 * tq * d * d + 8 * tk * d * d)
-        b_d, by_d = bound(n_in + w_bytes + oh_bytes + tq * tk +
-                          p * tq * d * 2 +                # g
-                          p * (tq + tk) * d * 2 +         # dxq, dxkv
-                          w_bytes, flops_d, BF16_FLOP_S)
+        bounds = attn_bounds(p, tq, tk, self_attn, False)
+        (b_a, by_a), (b_d, by_d) = bounds["saved"], bounds["bwd"]
         log(f"sh_attention_saved {name}: kernel_ms {ms_a:.3f} plain_ms "
             f"{plain_a:.3f} bound_ms {b_a:.4f} ({by_a})")
         log(f"sh_attention_bwd {name}: kernel_ms {ms_d:.3f} plain_ms "
@@ -662,7 +654,7 @@ def check_attention_dropout(torch, dev):
     fc's output."""
     from ait_tpu_torch.ops import dropout_masks as dm, fused_attention as fa
 
-    d, dk, h = 512, 64, 8
+    d = 512
     res = {"fwd": _res(), "bwd": _res()}
     for i, (name, p, tq, tk, self_attn) in enumerate(ATTN_TRAIN):
         mask = _attn_mask(torch, dev, tq, tk, self_attn)
@@ -713,23 +705,8 @@ def check_attention_dropout(torch, dev):
                                                          **drop), iters=5)
         plain_b = cuda_ms(lambda: fa.sh_attention_bwd_reference(
             *args, mask, oh, g, **drop), iters=3, warmup=1)
-        n_in = p * (tq if self_attn else tq + tk) * d * 2
-        w_bytes = (3 * d * d + dk * h * dk + h * dk + dk * d) * 2 + 2 * d * 4
-        oh_bytes = h * p * tq * dk * 4
-        philox_s = (h * p * tq * tk + p * tq * d) / 4 * PHILOX_OPS / F32_FLOP_S
-        flops_f = p * (2 * tq * d * d + 4 * tk * d * d + 4 * tq * tk * d +
-                       2 * dk * h * dk + 2 * tq * dk * d)
-        flops_b = p * (2 * tq * d * d + 4 * tk * d * d + 10 * tq * tk * d +
-                       6 * tq * dk * d + 4 * tq * d * d + 8 * tk * d * d)
-        t_b = []
-        for nbytes, flops in ((n_in + w_bytes + tq * tk + p * tq * d * 2 +
-                               oh_bytes + 8, flops_f),
-                              (n_in + w_bytes + oh_bytes + tq * tk + 8 +
-                               p * tq * d * 2 + p * (tq + tk) * d * 2 +
-                               w_bytes, flops_b)):
-            t_bytes = nbytes / HBM_BYTES_S * 1e3
-            t_ops = (flops / BF16_FLOP_S + philox_s) * 1e3
-            t_b.append(max(t_bytes, t_ops))
+        bounds = attn_bounds(p, tq, tk, self_attn, True)
+        t_b = [bounds["saved"][0], bounds["bwd"][0]]
         log(f"sh_attention dropout fwd {name}: kernel_ms {ms_f:.3f} "
             f"plain_ms {plain_f:.3f} bound_ms {t_b[0]:.4f} (operations)")
         log(f"sh_attention dropout bwd {name}: kernel_ms {ms_b:.3f} "
@@ -829,6 +806,300 @@ def check_rows_dropout(torch, dev):
             for k, v in res.items()}
 
 
+# ------------------------------------------- the general attention regime
+
+
+# the shapes csrc/sh_attention_general.cu serves: the co-attention's two
+# attentions at a batch of 8 (38 x 50 image tokens against 64 query tokens;
+# the main path under _LONG_SEQ_FUSION), and two 65-128 token shapes
+# (name, pairs, Tq, Tk, mask, on the main path)
+ATTN_GENERAL = (("co-attention q2i", B, 1900, 64, "none", True),
+                ("co-attention i2q", B, 64, 1900, "none", True),
+                ("128x128 causal", 64, 128, 128, "causal", False),
+                ("96x128 padded", 64, 96, 128, "pad", False))
+
+
+def _general_mask(torch, dev, tq, tk, kind):
+    if kind == "causal":
+        return torch.tril(torch.ones(tq, tk, dtype=torch.bool, device=dev))
+    if kind == "pad":
+        return (torch.arange(tk, device=dev) < tk - 28)[None, :].expand(
+            tq, tk).contiguous()
+    return torch.ones(tq, tk, dtype=torch.bool, device=dev)
+
+
+def attn_bounds(p, tq, tk, self_attn, dropout, qkv=False):
+    """{eval, saved, bwd}: (bound_ms, bound_by) of one attention call in
+    bf16: every operand read once and every result written once, the
+    products at the tensor cores' rate plus the Philox draws at the CUDA
+    cores'.  qkv: the save-qkv policy's three more f32 [H, P*T, 64] arrays,
+    written by the forward and read by the backward instead of the three
+    projections."""
+    d, dk, h = 512, 64, 8
+    n_in = p * (tq if self_attn else tq + tk) * d * 2
+    w_bytes = (3 * d * d + dk * h * dk + h * dk + dk * d) * 2 + 2 * d * 4
+    oh_bytes = h * p * tq * dk * 4
+    qkv_bytes = h * p * (tq + 2 * tk) * dk * 4 if qkv else 0
+    seed = 8 if dropout else 0
+    philox_s = ((h * p * tq * tk + p * tq * d) / 4 * PHILOX_OPS / F32_FLOP_S
+                if dropout else 0.0)
+    proj = p * (2 * tq * d * d + 4 * tk * d * d)
+    flops_f = proj + p * (4 * tq * tk * d + 2 * dk * h * dk + 2 * tq * dk * d)
+    # scores, dP, dv, dz, dk; fc, do, dfc; dxq, dxkv and the three
+    # projection weight gradients; the projections again unless saved
+    flops_b = (0 if qkv else proj) + p * (
+        10 * tq * tk * d + 6 * tq * dk * d + 4 * tq * d * d + 8 * tk * d * d)
+    eval_bytes = n_in + w_bytes + tq * tk + p * tq * d * 2
+    specs = {"eval": (eval_bytes, flops_f),
+             "saved": (eval_bytes + oh_bytes + qkv_bytes + seed, flops_f),
+             "bwd": (n_in + w_bytes + oh_bytes + qkv_bytes + tq * tk + seed +
+                     p * tq * d * 2 + p * (tq + tk) * d * 2 + w_bytes,
+                     flops_b)}
+    out = {}
+    for k, (nbytes, flops) in specs.items():
+        t_bytes = nbytes / HBM_BYTES_S * 1e3
+        t_ops = (flops / BF16_FLOP_S + (philox_s if k != "eval" else 0)) * 1e3
+        out[k] = (max(t_bytes, t_ops),
+                  "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def _attn_tols(torch, dtype):
+    """(forward and saved-output tolerance, backward tolerance) of the
+    attention checks, as the short kernel's."""
+    if dtype == torch.float32:
+        return F32_TOL, BWD_REL
+    return 2.0 ** -5, BF16_BWD_REL
+
+
+def _saved_err(torch, got, want, dtype):
+    """f32: max abs error; bf16 inputs: in units of max(1, |plain|) (the
+    plain version rounds q/k/v and the probabilities to bf16)."""
+    diff = (got - want).abs()
+    if dtype == torch.bfloat16:
+        diff = diff / want.abs().clamp(min=1.0)
+    return diff.max().item()
+
+
+def check_attention_general(torch, dev):
+    """csrc/sh_attention_general.cu against the plain versions: the eval
+    forward, the saved-outputs forward and the backward, at keep_prob 1 and
+    with dropout from a seed (the plain versions fed the masks that
+    csrc/dropout.cu dumps for that seed; at the 65-128 token shapes also
+    from operand masks), f32 and bf16; timed in bf16 at the co-attention's
+    shapes."""
+    from ait_tpu_torch.ops import dropout_masks as dm, fused_attention as fa
+
+    keys = ("fwd", "saved", "bwd", "drop_fwd", "drop_bwd")
+    res = {k: _res() for k in keys}
+    for i, (name, p, tq, tk, kind, main) in enumerate(ATTN_GENERAL):
+        if fa.kernel_regime(tq, tk) != "general":
+            fail(f"{name}: {tq}x{tk} is not in the general regime")
+        mask = _general_mask(torch, dev, tq, tk, kind)
+        gen = torch.Generator(device="cpu").manual_seed(p + tq + tk)
+        seed = _seed(torch, dev, 50 + i)
+        ak, ok = dm.dropout_keep_masks(seed, p, tq, tk, 512, keep_prob=KEEP)
+        with plain_path():
+            pk, po = dm.dropout_keep_masks(seed, p, tq, tk, 512,
+                                           keep_prob=KEEP)
+        if not (torch.equal(ak, pk) and torch.equal(ok, po)):
+            fail(f"mask dump {name}: not bit-equal to the plain stream")
+        del pk, po
+        fed = dict(attn_keep=ak, out_keep=ok, keep_prob=KEEP)
+        sources = [("keep 1", {}, {}),
+                   ("seed", dict(seed=seed, keep_prob=KEEP), fed)]
+        if not main:
+            sources.append(("operand masks", fed, fed))
+        for dtype in (torch.float32, torch.bfloat16):
+            tol, tol_bwd = _attn_tols(torch, dtype)
+            long_bf16 = main and dtype == torch.bfloat16
+            if long_bf16:
+                tol_bwd = BF16_BWD_REL_LONG
+            args = _attn_args(torch, dev, p, tq, tk, dtype, seed=tq + tk)
+            got = fa.fused_sh_attention(*args, mask)
+            err = err_of(got, fa.sh_attention_reference(*args, mask))
+            if not (math.isfinite(err) and err <= tol):
+                fail(f"sh_attention general {name} {dtype}: err {err} > {tol}")
+            if dtype == torch.float32:
+                res["fwd"][0].append(err)
+            g = torch.randn((p, tq, 512), generator=gen).to(dev, dtype)
+            line = [f"eval err {err:.3e}"]
+            for source, drop, plain_drop in sources:
+                out, oh = fa.fused_sh_attention_saved(*args, mask, **drop)
+                rout, roh = fa.sh_attention_saved_reference(*args, mask,
+                                                            **plain_drop)
+                e_out = err_of(out, rout)
+                e_oh = _saved_err(torch, oh, roh, dtype)
+                if not (e_out <= tol and e_oh <= tol):
+                    fail(f"sh_attention_saved general ({source}) {name} "
+                         f"{dtype}: out err {e_out}, saved err {e_oh} "
+                         f"(tol {tol})")
+                grads = fa.fused_sh_attention_bwd(*args, mask, oh, g, **drop)
+                want = fa.sh_attention_bwd_reference(*args, mask, roh, g,
+                                                     **plain_drop)
+                e_bwd, abs_bwd = check_grads(
+                    f"sh_attention_bwd general ({source}) {name} {dtype}",
+                    grads, want, tol_bwd)
+                if dtype == torch.float32:
+                    fkey, bkey = (("saved", "bwd") if not drop else
+                                  ("drop_fwd", "drop_bwd"))
+                    res[fkey][0].append(max(e_out, e_oh))
+                    res[bkey][0].append(abs_bwd)
+                line.append(f"{source}: out {e_out:.3e} saved {e_oh:.3e} "
+                            f"bwd rel {e_bwd:.3e} abs {abs_bwd:.3e}")
+                if long_bf16:
+                    want32 = fa.sh_attention_bwd_reference(
+                        *(a.float() for a in args), mask, roh, g.float(),
+                        **plain_drop)
+                    e32, _ = check_grads(
+                        f"sh_attention_bwd general ({source}) {name} bf16 "
+                        "against the plain version in f32", grads, want32,
+                        BF16_BWD_REL)
+                    line.append(f"bwd rel against the f32 plain version "
+                                f"{e32:.3e} (tol {BF16_BWD_REL})")
+                    del want32
+                del out, oh, rout, roh, grads, want
+            log(f"sh_attention general {name} P={p} {tq}x{tk} {dtype} (tol "
+                f"{tol}, bwd {tol_bwd}): " + "; ".join(line))
+        # timed in bf16 (args, g: the last dtype's)
+        drop = dict(seed=seed, keep_prob=KEEP)
+        _, oh = fa.fused_sh_attention_saved(*args, mask)
+        _, ohd = fa.fused_sh_attention_saved(*args, mask, **drop)
+        runs = {
+            "fwd": (lambda: fa.fused_sh_attention(*args, mask),
+                    lambda: fa.sh_attention_reference(*args, mask)),
+            "saved": (lambda: fa.fused_sh_attention_saved(*args, mask),
+                      lambda: fa.sh_attention_saved_reference(*args, mask)),
+            "bwd": (lambda: fa.fused_sh_attention_bwd(*args, mask, oh, g),
+                    lambda: fa.sh_attention_bwd_reference(*args, mask, oh,
+                                                          g)),
+            "drop_fwd": (lambda: fa.fused_sh_attention_saved(*args, mask,
+                                                             **drop),
+                         lambda: fa.sh_attention_saved_reference(
+                             *args, mask, **fed)),
+            "drop_bwd": (lambda: fa.fused_sh_attention_bwd(*args, mask, ohd,
+                                                           g, **drop),
+                         lambda: fa.sh_attention_bwd_reference(
+                             *args, mask, ohd, g, **fed))}
+        bounds = {False: attn_bounds(p, tq, tk, tq == tk, False),
+                  True: attn_bounds(p, tq, tk, tq == tk, True)}
+        for k, (kernel, plain) in runs.items():
+            ms = cuda_ms(kernel, iters=5)
+            plain_ms = cuda_ms(plain, iters=3, warmup=1)
+            bkey = {"fwd": "eval", "saved": "saved", "drop_fwd": "saved"}.get(
+                k, "bwd")
+            t_bound, by = bounds[k.startswith("drop")][bkey]
+            log(f"sh_attention general {k} {name}: kernel_ms {ms:.3f} "
+                f"plain_ms {plain_ms:.3f} bound_ms {t_bound:.4f} ({by})")
+            if main:
+                for j, v in enumerate((ms, plain_ms, t_bound)):
+                    res[k][j + 1] += v
+        del ak, ok, fed, oh, ohd
+    return {k: _finish(v, "operations") for k, v in res.items()}
+
+
+def check_save_qkv(torch, dev):
+    """The save-qkv policy at the train path's shapes (and one 65-128 token
+    shape of the general regime): the saved per-head q / 8, k, v against the
+    plain version's, the gradients with and without bit for bit, the peak
+    memory of a forward + backward both ways, and both timed in turns
+    (bf16, dropout from a seed: the train path's form)."""
+    from ait_tpu_torch.ops import fused_attention as fa
+
+    res = {"fwd": _res(), "bwd": _res()}
+    shapes = [(name, p, tq, tk, _attn_mask(torch, dev, tq, tk, sa), sa, True)
+              for name, p, tq, tk, sa in ATTN_TRAIN]
+    shapes.append(("128x128 causal", 64, 128, 128,
+                   _general_mask(torch, dev, 128, 128, "causal"), True,
+                   False))
+    for i, (name, p, tq, tk, mask, self_attn, main) in enumerate(shapes):
+        gen = torch.Generator(device="cpu").manual_seed(p + tq + 2)
+        seed = _seed(torch, dev, 60 + i)
+        drop = dict(seed=seed, keep_prob=KEEP)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _attn_args(torch, dev, p, tq, tk, dtype, seed=tq + tk)
+            g = torch.randn((p, tq, 512), generator=gen).to(dev, dtype)
+            out, oh, qkv = fa.fused_sh_attention_saved(*args, mask,
+                                                       save_qkv=True, **drop)
+            out0, oh0 = fa.fused_sh_attention_saved(*args, mask, **drop)
+            if not (torch.equal(out, out0) and torch.equal(oh, oh0)):
+                fail(f"save-qkv {name} {dtype}: the forward's results differ "
+                     "with and without the saved q/k/v")
+            want = fa.sh_attention_saved_reference(*args, mask,
+                                                   save_qkv=True)[2]
+            # bf16: the plain version rounds the projections to bf16 (and q
+            # again after the scale), the kernel saves its f32 sums
+            tol = F32_TOL if dtype == torch.float32 else 2.0 ** -6
+            errs = [_saved_err(torch, a, b, dtype) for a, b in zip(qkv, want)]
+            if not all(math.isfinite(e) and e <= tol for e in errs):
+                fail(f"save-qkv {name} {dtype}: saved q/k/v errors {errs} "
+                     f"(tol {tol})")
+            with_qkv = fa.fused_sh_attention_bwd(*args, mask, oh, g, qkv=qkv,
+                                                 **drop)
+            without = fa.fused_sh_attention_bwd(*args, mask, oh, g, **drop)
+            diffs = [(a.float() - b.float()).abs().max().item()
+                     for a, b in zip(with_qkv, without)]
+            if not all(torch.equal(a, b) for a, b in zip(with_qkv, without)):
+                fail(f"save-qkv {name} {dtype}: gradients differ from the "
+                     f"recompute's: max abs diffs {diffs}")
+            if dtype == torch.float32:
+                res["fwd"][0].append(max(errs))
+                res["bwd"][0].append(max(diffs))
+            log(f"save-qkv {name} P={p} {tq}x{tk} {dtype}: saved q/k/v errs "
+                f"{[f'{e:.3e}' for e in errs]} (tol {tol}); 10 gradients "
+                "bit-equal to the recompute's")
+            del out, oh, qkv, out0, oh0, want, with_qkv, without
+
+        def step(save):
+            o = fa.fused_sh_attention_saved(*args, mask, save_qkv=save,
+                                            **drop)
+            return fa.fused_sh_attention_bwd(
+                *args, mask, o[1], g, qkv=o[2] if save else None, **drop)
+
+        peak = {}
+        for save in (False, True):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            step(save)
+            torch.cuda.synchronize()
+            peak[save] = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
+        o = fa.fused_sh_attention_saved(*args, mask, save_qkv=True, **drop)
+        fwd = {s: (lambda s=s: fa.fused_sh_attention_saved(
+            *args, mask, save_qkv=s, **drop)) for s in (False, True)}
+        bwd = {s: (lambda s=s: fa.fused_sh_attention_bwd(
+            *args, mask, o[1], g, qkv=o[2] if s else None, **drop))
+            for s in (False, True)}
+        t = {}
+        for kind, fns in (("fwd", fwd), ("bwd", bwd)):
+            # off, on, on, off
+            a, b = cuda_ms(fns[False], iters=5), cuda_ms(fns[True], iters=5)
+            c, d_ = cuda_ms(fns[True], iters=5), cuda_ms(fns[False], iters=5)
+            t[kind] = ((a + d_) / 2, (b + c) / 2)
+        plain_f = cuda_ms(lambda: fa.sh_attention_saved_reference(
+            *args, mask, save_qkv=True, **drop), iters=3, warmup=1)
+        plain_b = cuda_ms(lambda: fa.sh_attention_bwd_reference(
+            *args, mask, o[1], g, **drop), iters=3, warmup=1)
+        bounds = attn_bounds(p, tq, tk, self_attn, True, qkv=True)
+        log(f"save-qkv {name} (bf16, seed dropout): forward {t['fwd'][1]:.3f} "
+            f"ms with, {t['fwd'][0]:.3f} ms without; backward "
+            f"{t['bwd'][1]:.3f} ms with, {t['bwd'][0]:.3f} ms without; peak "
+            f"memory of forward + backward {peak[True]:.1f} MiB with, "
+            f"{peak[False]:.1f} MiB without; plain_ms {plain_f:.3f} / "
+            f"{plain_b:.3f}; bound_ms {bounds['saved'][0]:.4f} "
+            f"({bounds['saved'][1]}) / {bounds['bwd'][0]:.4f} "
+            f"({bounds['bwd'][1]})")
+        if main:
+            for key, vals in (("fwd", (t["fwd"][1], plain_f,
+                                       bounds["saved"][0])),
+                              ("bwd", (t["bwd"][1], plain_b,
+                                       bounds["bwd"][0]))):
+                for j, v in enumerate(vals):
+                    res[key][j + 1] += v
+        del o
+    return {k: _finish(v, "operations") for k, v in res.items()}
+
+
 # ------------------------------------------------------------------ slice
 
 
@@ -855,7 +1126,23 @@ def kernel_wrappers():
             "ffn_drop_bwd": (ff.fused_ffn_bwd, "dropout_launches"),
             "posln_drop_fwd": (ff.fused_posln, "dropout_launches"),
             "posln_drop_bwd": (ff.fused_posln_bwd, "dropout_launches"),
-            "keep_mask_dump": (dm.keep_mask, "launches")}
+            "keep_mask_dump": (dm.keep_mask, "launches"),
+            # the general regime (csrc/sh_attention_general.cu)
+            "sh_attention_general_fwd": (fa.fused_sh_attention,
+                                         "general_launches"),
+            "sh_attention_general_saved": (fa.fused_sh_attention_saved,
+                                           "general_launches"),
+            "sh_attention_general_bwd": (fa.fused_sh_attention_bwd,
+                                         "general_launches"),
+            "sh_attention_general_drop_fwd": (fa.fused_sh_attention_saved,
+                                              "general_dropout_launches"),
+            "sh_attention_general_drop_bwd": (fa.fused_sh_attention_bwd,
+                                              "general_dropout_launches"),
+            # launches that also write / read the saved q/k/v
+            "sh_attention_saveqkv_fwd": (fa.fused_sh_attention_saved,
+                                         "qkv_launches"),
+            "sh_attention_saveqkv_bwd": (fa.fused_sh_attention_bwd,
+                                         "qkv_launches")}
 
 
 # launches of each kernel per eval forward and per train step (a wrapper
@@ -865,18 +1152,54 @@ def kernel_wrappers():
 _DROP_KERNELS = ("sh_attention_drop_fwd", "sh_attention_drop_bwd",
                  "ffn_drop_fwd", "ffn_drop_bwd", "posln_drop_fwd",
                  "posln_drop_bwd", "keep_mask_dump")
-PER_FORWARD = {"nms_keep_mask": 2, "sh_attention_fwd": 3, "ffn_fwd": 2,
-               "posln_fwd": 2, "sh_attention_saved": 0, "sh_attention_bwd": 0,
-               "ffn_bwd": 0, "posln_bwd": 0, **dict.fromkeys(_DROP_KERNELS, 0)}
-PER_STEP = {"nms_keep_mask": 1, "sh_attention_fwd": 0, "ffn_fwd": 0,
+# the opt-in policies' entries: 0 on every default path
+_OPT_IN = ("sh_attention_general_fwd", "sh_attention_general_saved",
+           "sh_attention_general_bwd", "sh_attention_general_drop_fwd",
+           "sh_attention_general_drop_bwd", "sh_attention_saveqkv_fwd",
+           "sh_attention_saveqkv_bwd")
+_ZERO = dict.fromkeys(_DROP_KERNELS + _OPT_IN, 0)
+PER_FORWARD = {**_ZERO, "nms_keep_mask": 2, "sh_attention_fwd": 3,
+               "ffn_fwd": 2, "posln_fwd": 2, "sh_attention_saved": 0,
+               "sh_attention_bwd": 0, "ffn_bwd": 0, "posln_bwd": 0}
+PER_STEP = {**_ZERO, "nms_keep_mask": 1, "sh_attention_fwd": 0, "ffn_fwd": 0,
             "posln_fwd": 0, "sh_attention_saved": 0, "sh_attention_bwd": 0,
             "ffn_bwd": 0, "posln_bwd": 0, "sh_attention_drop_fwd": 3,
             "sh_attention_drop_bwd": 3, "ffn_drop_fwd": 2, "ffn_drop_bwd": 2,
             "posln_drop_fwd": 2, "posln_drop_bwd": 2, "keep_mask_dump": 4}
-PER_STEP_NO_DROPOUT = {"nms_keep_mask": 1, "sh_attention_fwd": 0,
+PER_STEP_NO_DROPOUT = {**_ZERO, "nms_keep_mask": 1, "sh_attention_fwd": 0,
                        "ffn_fwd": 2, "posln_fwd": 2, "sh_attention_saved": 3,
-                       "sh_attention_bwd": 3, "ffn_bwd": 2, "posln_bwd": 2,
-                       **dict.fromkeys(_DROP_KERNELS, 0)}
+                       "sh_attention_bwd": 3, "ffn_bwd": 2, "posln_bwd": 2}
+# _LONG_SEQ_FUSION on: the co-attention's two attentions go to the general
+# regime (5 attention launches per forward) and draw seeds, so no mask dump
+PER_FORWARD_LONG = {**PER_FORWARD, "sh_attention_general_fwd": 2}
+PER_STEP_LONG = {**PER_STEP, "keep_mask_dump": 0,
+                 "sh_attention_general_drop_fwd": 2,
+                 "sh_attention_general_drop_bwd": 2}
+PER_STEP_LONG_NO_DROPOUT = {**PER_STEP_NO_DROPOUT,
+                            "sh_attention_general_saved": 2,
+                            "sh_attention_general_bwd": 2}
+# _SAVE_QKV on: the transformer's three attentions also save and read q/k/v
+PER_STEP_SAVE_QKV = {**PER_STEP, "sh_attention_saveqkv_fwd": 3,
+                     "sh_attention_saveqkv_bwd": 3}
+# accum_steps = 2: every kernel twice per optimizer step
+PER_STEP_ACCUM_2 = {k: 2 * v for k, v in PER_STEP.items()}
+
+
+@contextlib.contextmanager
+def policies(long_seq=False, save_qkv=False):
+    """The port's two opt-in kernel policies, as a caller turns them on: the
+    module switches models.attention._LONG_SEQ_FUSION and
+    ops.fused_attention._SAVE_QKV (restored on exit)."""
+    from ait_tpu_torch.models import attention
+    from ait_tpu_torch.ops import fused_attention
+
+    saved = attention._LONG_SEQ_FUSION, fused_attention._SAVE_QKV
+    attention._LONG_SEQ_FUSION = long_seq
+    fused_attention._SAVE_QKV = save_qkv
+    try:
+        yield
+    finally:
+        attention._LONG_SEQ_FUSION, fused_attention._SAVE_QKV = saved
 
 
 def zero_counts():
@@ -935,11 +1258,11 @@ def make_requests(np, cfg, rng, b):
     return canvas, query, im_info
 
 
-def drive_slice(torch, np, dev):
+def make_weights(torch):
+    """(cfg, the JAX-layout param tree from seed 0, its state dict)."""
     from ait_tpu_torch import bridge
     from ait_tpu_torch.config import Config
     from ait_tpu_torch.models import AITDetector
-    from ait_tpu_torch.predict import OneShotPredictor
 
     cfg = Config()
     t0 = time.time()
@@ -949,9 +1272,18 @@ def drive_slice(torch, np, dev):
     n_params = sum(v.numel() for v in state.values())
     log(f"weights: {n_params} parameters from seed 0 through the bridge "
         f"({time.time() - t0:.1f} s)")
+    return cfg, params, state
+
+
+def drive_slice(torch, np, dev, cfg, state, batches=BATCHES,
+                per_forward=PER_FORWARD, what="default"):
+    """One warm-up and `batches` timed batches of B requests through
+    OneShotPredictor, under whatever policies the caller turned on."""
+    from ait_tpu_torch.predict import OneShotPredictor
+
     predictor = OneShotPredictor(cfg, state, device=dev)
     rng = np.random.RandomState(0)
-    requests = [make_requests(np, cfg, rng, B) for _ in range(BATCHES + 1)]
+    requests = [make_requests(np, cfg, rng, B) for _ in range(batches + 1)]
 
     zero_counts()
     times = []
@@ -963,14 +1295,14 @@ def drive_slice(torch, np, dev):
         if i:                                   # the first is the warm-up
             times.append((time.perf_counter() - t0) * 1e3)
         check_dets(np, dets, req[2], cfg)
-    launches = read_counts(PER_FORWARD, len(requests), "forwards")
-    log(f"slice: {len(requests)} batches of {B} requests at "
+    launches = read_counts(per_forward, len(requests), "forwards")
+    log(f"slice ({what}): {len(requests)} batches of {B} requests at "
         f"{cfg.tpu.image_size[0]}x{cfg.tpu.image_size[1]}; launches "
         f"{launches}")
-    log(f"slice: ms per batch of {B} (after one warm-up): "
+    log(f"slice ({what}): ms per batch of {B} (after one warm-up): "
         f"{[round(t, 3) for t in times]}, mean {sum(times) / len(times):.3f}")
     compare_paths(torch, np, cfg, state, dev, requests[0])
-    return launches, params
+    return launches
 
 
 def check_dets(np, dets, im_info, cfg):
@@ -991,8 +1323,65 @@ def check_dets(np, dets, im_info, cfg):
             fail("malformed detections (box order, bounds, or score order)")
 
 
+def long_seq_on():
+    from ait_tpu_torch.models import attention
+
+    return attention._LONG_SEQ_FUSION
+
+
+def with_coattention(torch, model, fn, feats=None):
+    """(fn(), the co-attention's two outputs during it).  With `feats`,
+    another run's outputs, the rest of the model sees those values while
+    the gradients still flow into this run's co-attention.
+
+    Under _LONG_SEQ_FUSION the co-attention, upstream of the proposal layer,
+    differs between the kernel path and the plain path by f32 rounding, and
+    a proposal score that moves by one ulp can reorder the top-N cut: the
+    two paths would then head other rois and could not be compared.  So the
+    co-attention's outputs are compared on their own, and everything after
+    them runs on the kernel path's values on both paths."""
+
+    class TakeValue(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, own, other):
+            return other.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            return g, None
+
+    orig = model.coattention.forward
+    seen = []
+
+    def forward(*a, **k):
+        out = orig(*a, **k)
+        seen.append(tuple(t.detach() for t in out))
+        if feats is None:
+            return out
+        return tuple(TakeValue.apply(o, f) for o, f in zip(out, feats))
+
+    model.coattention.forward = forward
+    try:
+        res = fn()
+    finally:
+        del model.coattention.forward
+    return res, seen[0]
+
+
+def check_coattention_feats(got, want, what):
+    """The co-attention's outputs, kernel path against plain path (f32):
+    within 1e-4 of max |plain| (the kernels' f32 errors are ~1e-6)."""
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    log(f"{what}: co-attention outputs, kernel path vs plain path: "
+        f"{[f'{e:.3e}' for e in errs]} of max |plain| (tol 1e-4)")
+    if not all(math.isfinite(e) and e <= 1e-4 for e in errs):
+        fail(f"{what}: the fused co-attention disagrees with the plain path: "
+             f"{errs}")
+
+
 def compare_paths(torch, np, cfg, state, dev, req):
-    """The kernel path against the plain path, float32, TF32 off, 2 pairs."""
+    """The kernel path against the plain path, float32, TF32 off, 2 pairs
+    (under _LONG_SEQ_FUSION: see `with_coattention`)."""
     from ait_tpu_torch.models import AITDetector
 
     model = AITDetector(cfg, dtype=torch.float32)
@@ -1000,10 +1389,15 @@ def compare_paths(torch, np, cfg, state, dev, req):
     model.to(dev).eval()
     image, query, im_info = (torch.from_numpy(a[:2]).to(dev) for a in req)
     with torch.inference_mode():
-        got = model(image, query, im_info)
+        got, feats = with_coattention(
+            torch, model, lambda: model(image, query, im_info))
         with plain_path():
-            want = model(image, query, im_info)
+            want, pfeats = with_coattention(
+                torch, model, lambda: model(image, query, im_info),
+                feats if long_seq_on() else None)
     torch.cuda.synchronize()
+    if long_seq_on():
+        check_coattention_feats(feats, pfeats, "eval (f32, 2 pairs)")
     diffs = {k: (getattr(got, k) - getattr(want, k)).abs().max().item()
              for k in ("rois", "cls_prob", "bbox_pred")}
     # upstream of the proposal layer both runs are the same ops, and the NMS
@@ -1051,22 +1445,27 @@ def make_train_batch(np, cfg, rng, b):
             "gt_boxes": gt}
 
 
-def drive_train(torch, np, dev, params, cfg, steps, per_step):
+def drive_train(torch, np, dev, params, cfg, steps, per_step, *, what=None,
+                accum_steps=1, optimizer="sgd", clip_norm=None, lr=None,
+                compare=True):
     """One warm-up and `steps` timed train steps of the full-width
-    flagship in bf16 at a batch of B images; per_step: the launches each
-    kernel must show per step."""
+    flagship in bf16 at a batch of B images, under whatever policies the
+    caller turned on; per_step: the launches each kernel must show per
+    step."""
     from ait_tpu_torch import bridge
     from ait_tpu_torch.models import AITDetector
     from ait_tpu_torch.train import (lr_schedule, make_optimizer,
                                      make_train_step)
 
     t = cfg.TRAIN
-    what = f"t_dropout {cfg.model.t_dropout}"
+    what = f"t_dropout {cfg.model.t_dropout}" + (f", {what}" if what else "")
     model = AITDetector(cfg, dtype=torch.bfloat16)
     model.load_state_dict(bridge.to_state_dict(model, params))
-    opt = make_optimizer(cfg, model)
-    step = make_train_step(model, opt, lr_schedule(t.LEARNING_RATE, 1000, 5,
-                                                   t.GAMMA), device=dev)
+    opt = make_optimizer(cfg, model, optimizer=optimizer, clip_norm=clip_norm)
+    step = make_train_step(model, opt,
+                           lr_schedule(lr or t.LEARNING_RATE, 1000, 5,
+                                       t.GAMMA),
+                           device=dev, accum_steps=accum_steps)
     trainable = {id(p) for g in opt.param_groups for p in g["params"]}
     names = {k for k, p in model.named_parameters() if id(p) in trainable}
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -1074,6 +1473,7 @@ def drive_train(torch, np, dev, params, cfg, steps, per_step):
     batches = [make_train_batch(np, cfg, rng, B) for _ in range(steps + 1)]
     gen = torch.Generator(device=dev).manual_seed(0)
 
+    torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()
     times = []
     for i, batch in enumerate(batches):
@@ -1109,8 +1509,39 @@ def drive_train(torch, np, dev, params, cfg, steps, per_step):
         f"{B * 1e3 / mean:.2f}, peak memory "
         f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
     del model, opt, step
-    compare_train_paths(torch, dev, cfg, params, batches[0])
+    if compare:
+        compare_train_paths(torch, dev, cfg, params, batches[0])
     return launches
+
+
+def time_coattention(torch, np, dev, cfg, state):
+    """The co-attention's two attentions at a batch of B, eval, bf16: the
+    fused long-sequence regime against the plain path (cuBLAS products), in
+    turns in one process: off, on, on, off."""
+    from ait_tpu_torch.models import AITDetector
+
+    model = AITDetector(cfg, dtype=torch.bfloat16)
+    model.load_state_dict(state)
+    model.to(dev).eval()
+    co = model.coattention
+    g = torch.Generator(device="cpu").manual_seed(9)
+    img = torch.randn(B, 1900, 512, generator=g).to(dev, torch.bfloat16)
+    qry = torch.randn(B, 64, 512, generator=g).to(dev, torch.bfloat16)
+
+    def both():
+        co.q2i_attn(img, qry, qry)
+        co.i2q_attn(qry, img, img)
+
+    times = []
+    with torch.inference_mode():
+        for on in (False, True, True, False):
+            with policies(long_seq=on):
+                times.append(cuda_ms(both, iters=10))
+    fused, plain = (times[1] + times[2]) / 2, (times[0] + times[3]) / 2
+    log(f"co-attention q2i + i2q, eval, bf16, B={B}: fused {fused:.3f} ms "
+        f"(runs {times[1]:.3f}, {times[2]:.3f}), plain path {plain:.3f} ms "
+        f"(runs {times[0]:.3f}, {times[3]:.3f})")
+    return fused, plain
 
 
 def compare_train_paths(torch, dev, cfg, params, batch):
@@ -1123,6 +1554,7 @@ def compare_train_paths(torch, dev, cfg, params, batch):
     from ait_tpu_torch.models import AITDetector
 
     runs = []
+    feats = None
     det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
@@ -1133,9 +1565,15 @@ def compare_train_paths(torch, dev, cfg, params, batch):
             b2 = {k: torch.as_tensor(v[:2]).to(dev) for k, v in batch.items()}
             gen = torch.Generator(device=dev).manual_seed(7)
             with plain_path() if plain else contextlib.nullcontext():
-                out = model(b2["image"], b2["query"], b2["im_info"],
-                            b2["gt_boxes"], train=True, generator=gen)
+                out, seen = with_coattention(
+                    torch, model, lambda: model(
+                        b2["image"], b2["query"], b2["im_info"],
+                        b2["gt_boxes"], train=True, generator=gen),
+                    feats if plain and long_seq_on() else None)
                 out.total_loss.backward()
+            if plain and long_seq_on():
+                check_coattention_feats(feats, seen, "train (f32, 2 images)")
+            feats = seen
             runs.append(([getattr(out, k).item() for k in LOSS_FIELDS],
                          out.rois_label,
                          {k: p.grad for k, p in model.named_parameters()
@@ -1188,7 +1626,8 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.time()
-    sources = ["nms", "sh_attention", "ffn", "posln", "gemm", "dropout"]
+    sources = ["nms", "sh_attention", "sh_attention_general", "ffn", "posln",
+               "gemm", "dropout"]
     _build.build_all(sources)
     log(f"built {sources} in {time.time() - t0:.1f} s")
 
@@ -1208,11 +1647,40 @@ def main() -> int:
                     "sh_attention_drop_bwd": attn["bwd"],
                     **{f"{k.split('_')[0]}_drop_{k.split('_')[1]}": v
                        for k, v in rows.items()}})
-    eval_launches, params = drive_slice(torch, np, dev)
-    train_launches = drive_train(torch, np, dev, params, train_config(),
+    gen = check_attention_general(torch, dev)
+    results.update({f"sh_attention_general_{k}": v for k, v in gen.items()})
+    qkv = check_save_qkv(torch, dev)
+    results.update({f"sh_attention_saveqkv_{k}": v for k, v in qkv.items()})
+
+    cfg, params, state = make_weights(torch)
+    paths = {"eval": drive_slice(torch, np, dev, cfg, state)}
+    paths["train"] = drive_train(torch, np, dev, params, train_config(),
                                  STEPS, PER_STEP)
-    keep1_launches = drive_train(torch, np, dev, params, train_config(0.0),
-                                 1, PER_STEP_NO_DROPOUT)
+    paths["train_t_dropout_0"] = drive_train(
+        torch, np, dev, params, train_config(0.0), 1, PER_STEP_NO_DROPOUT)
+    # the two opt-in kernel policies, the accumulation and the other optimizer
+    with policies(long_seq=True):
+        paths["eval_long_seq"] = drive_slice(
+            torch, np, dev, cfg, state, 1, PER_FORWARD_LONG,
+            "_LONG_SEQ_FUSION on")
+        paths["train_long_seq"] = drive_train(
+            torch, np, dev, params, train_config(), 2, PER_STEP_LONG,
+            what="_LONG_SEQ_FUSION on")
+        paths["train_long_seq_t_dropout_0"] = drive_train(
+            torch, np, dev, params, train_config(0.0), 1,
+            PER_STEP_LONG_NO_DROPOUT, what="_LONG_SEQ_FUSION on")
+    with policies(save_qkv=True):
+        paths["train_save_qkv"] = drive_train(
+            torch, np, dev, params, train_config(), 2, PER_STEP_SAVE_QKV,
+            what="_SAVE_QKV on")
+    paths["train_accum_2"] = drive_train(
+        torch, np, dev, params, train_config(), 2, PER_STEP_ACCUM_2,
+        what="accum_steps 2 (2 x 4 images)", accum_steps=2, compare=False)
+    paths["train_adam_clip"] = drive_train(
+        torch, np, dev, params, train_config(), 2, PER_STEP,
+        what="Adam, clip_norm 1.0", optimizer="adam", clip_norm=1.0, lr=1e-4,
+        compare=False)
+    time_coattention(torch, np, dev, cfg, state)
 
     meta = {"nms_keep_mask": ("ait_tpu_torch/csrc/nms.cu",
                               "ait_tpu/ops/nms_pallas.py:133"),
@@ -1247,9 +1715,20 @@ def main() -> int:
             "posln_drop_bwd": ("ait_tpu_torch/csrc/posln.cu",
                                "ait_tpu/ops/pallas_ffn.py:387"),
             "keep_mask_dump": ("ait_tpu_torch/csrc/dropout.cu",
-                               "ait_tpu/ops/pallas_attention.py:954")}
-    paths = {"eval": eval_launches, "train": train_launches,
-             "train_t_dropout_0": keep1_launches}
+                               "ait_tpu/ops/pallas_attention.py:954"),
+            # the tiled kernels of the long-sequence and 65-128 token
+            # regimes (their projections and weight gradients on
+            # csrc/gemm.cu)
+            **{f"sh_attention_general_{k}": (
+                "ait_tpu_torch/csrc/sh_attention_general.cu",
+                f"ait_tpu/ops/pallas_attention.py:{line}")
+               for k, line in (("fwd", 400), ("saved", 400), ("bwd", 724),
+                               ("drop_fwd", 400), ("drop_bwd", 724))},
+            # the save-qkv policy: the short kernels with q/k/v saved and read
+            "sh_attention_saveqkv_fwd": ("ait_tpu_torch/csrc/sh_attention.cu",
+                                         "ait_tpu/ops/pallas_attention.py:394"),
+            "sh_attention_saveqkv_bwd": ("ait_tpu_torch/csrc/sh_attention.cu",
+                                         "ait_tpu/ops/pallas_attention.py:693")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(v[name] for v in paths.values()),

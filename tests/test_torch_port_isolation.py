@@ -125,11 +125,13 @@ def test_default_config_trains_on_cpu():
 
 
 def test_gradient_accumulation_raises():
-    """accum_steps > 1 is not ported: refused before any forward."""
+    """accum_steps > 1 runs the batch as equal microbatches: a batch it does
+    not divide is refused before any forward (no model is touched)."""
     from ait_tpu_torch.train import grads_and_metrics
 
-    with pytest.raises(NotImplementedError, match="accum_steps"):
-        grads_and_metrics(None, {}, torch.Generator(), accum_steps=2)
+    with pytest.raises(ValueError, match="accum_steps"):
+        grads_and_metrics(None, {"image": torch.zeros(3, 8, 8, 3)},
+                          torch.Generator(), accum_steps=2)
 
 
 def test_predictor_without_device_raises_when_no_gpu(monkeypatch):

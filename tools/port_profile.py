@@ -2,7 +2,8 @@
 """Where the time of the PyTorch port's eval slice or train step goes, on one
 GPU.
 
-    python3 tools/port_profile.py [--train [--t-dropout P]] [--out FILE.json]
+    python3 tools/port_profile.py [--train [--t-dropout P]] [--long-seq]
+                                  [--save-qkv] [--out FILE.json]
 
 Builds the full-width ResNet-50 flagship (random weights from a numpy seed
 through ait_tpu_torch.bridge).  By default it serves it with
@@ -10,8 +11,13 @@ OneShotPredictor on uint8 608x800 canvases; with --train it trains it
 instead (`Config()` unchanged, model.t_dropout 0.1, bf16 compute,
 make_train_step on batches of 8 with a few ground-truth boxes each;
 --t-dropout trains it at another dropout rate, e.g. 0 for the kernels'
-keep-1 forms).  Then it reports, as JSON lines on
-stdout (and in --out):
+keep-1 forms).  --long-seq and --save-qkv turn on the port's two opt-in
+kernel policies by setting their module switches
+(ait_tpu_torch.models.attention._LONG_SEQ_FUSION: the co-attention's two
+attentions on the fused long-sequence kernels;
+ait_tpu_torch.ops.fused_attention._SAVE_QKV: the train forward saves q/k/v),
+so the stage table shows the co-attention's time both ways.  Then it
+reports, as JSON lines on stdout (and in --out):
 
 * `stages` (eval only): device time per stage of the forward (CUDA events
   around the detector's submodules and its proposal layer and ROI Align
@@ -45,6 +51,12 @@ def main() -> int:
     ap.add_argument("--t-dropout", type=float, default=None,
                     help="train at this model.t_dropout (default: the "
                     "config's, 0.1)")
+    ap.add_argument("--long-seq", action="store_true",
+                    help="fuse the co-attention's long-sequence attentions "
+                    "(sets models.attention._LONG_SEQ_FUSION)")
+    ap.add_argument("--save-qkv", action="store_true",
+                    help="save q/k/v in the train forward for the backward "
+                    "(sets ops.fused_attention._SAVE_QKV)")
     ap.add_argument("--out", help="also write the full result here")
     args = ap.parse_args()
     bs, batches = 8, 5
@@ -58,13 +70,17 @@ def main() -> int:
     from ait_tpu_torch import bridge
     from ait_tpu_torch.config import Config
     from ait_tpu_torch.models import AITDetector
+    from ait_tpu_torch.models import attention as attention_mod
     from ait_tpu_torch.models import detector as det_mod
+    from ait_tpu_torch.ops import fused_attention
     from ait_tpu_torch import predict as predict_mod
     from ait_tpu_torch.predict import OneShotPredictor
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
+    attention_mod._LONG_SEQ_FUSION = args.long_seq
+    fused_attention._SAVE_QKV = args.save_qkv
     cfg = Config()
     model = AITDetector(cfg)
     state = bridge.to_state_dict(model, bridge.random_tree(
@@ -152,6 +168,7 @@ def main() -> int:
     mean_ms = sum(batch_ms) / len(batch_ms)
     result = {
         "card": card, "path": "train" if args.train else "eval", "bs": bs,
+        "long_seq": args.long_seq, "save_qkv": args.save_qkv,
         "t_dropout": (cfg.model.t_dropout if args.t_dropout is None
                       else args.t_dropout) if args.train else None,
         "batches": batches,
