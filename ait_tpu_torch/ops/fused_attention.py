@@ -511,9 +511,12 @@ def fused_sh_attention_bwd(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
     dxq = gemm(NT, dz, wq, cadd=dy).to(dt).view(p, tq, d)
     dxkv = gemm(NT, dk, wk)
     dxkv = gemm(NT, dv, wv, cadd=dxkv, out=dxkv).to(dt).view(p, tk, d)
-    grads = (dxq, dxkv, gemm(TN, xq2, dz).to(dt), gemm(TN, xkv2, dk).to(dt),
-             gemm(TN, xkv2, dv).to(dt), gemm(TN, s, dgl).to(dt),
-             _gemm.colsum(dgl).to(dt), gemm(TN, o, dy0).to(dt),
+    # o is rounded to x's dtype where the kernels write it: as bf16 (an
+    # exact cast) its product with dy0 takes the tensor cores
+    grads = (dxq, dxkv, gemm(TN, xq2, dz, out_dtype=dt),
+             gemm(TN, xkv2, dk, out_dtype=dt),
+             gemm(TN, xkv2, dv, out_dtype=dt), gemm(TN, s, dgl, out_dtype=dt),
+             _gemm.colsum(dgl).to(dt), gemm(TN, o.to(dt), dy0, out_dtype=dt),
              _gemm.colsum(lnp[0]), _gemm.colsum(lnp[1]))
     _count(fused_sh_attention_bwd, keep_prob, regime, qkv is not None)
     return grads

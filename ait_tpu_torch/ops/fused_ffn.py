@@ -58,17 +58,21 @@ def _plain_keep(keep, keep_prob, seed, tag, x):
 
 
 def ffn_reference(x, w1, b1, w2, b2, ln_s, ln_b, keep=None, keep_prob=1.0,
-                  seed=None):
+                  seed=None, relu_mask=None):
     """x [N, D] in the compute dtype; w1 [D, H], w2 [H, D] in the JAX layout;
     biases and LayerNorm params f32; the output dropout's mask `keep` [N, D]
-    or `seed` at keep_prob < 1."""
+    or `seed` at keep_prob < 1.  relu_mask [N, H] bool: where the relu
+    passes (default: pre-activation > 0); a caller holding another
+    evaluation against this one passes that evaluation's mask, so that a
+    pre-activation whose sign the f32 summation order decides falls alike."""
     dt = x.dtype
     keep = _plain_keep(keep, keep_prob, seed, philox.TAG_FFN, x)
     # jnp.dot(..., preferred_element_type=f32): exact products, f32 sums;
     # relu's derivative is 0 at a pre-activation of exactly 0, as the Pallas
     # backward's `y1 > 0` mask has it (pallas_ffn.py:128)
     y1 = x.float() @ w1.to(dt).float() + b1
-    y1 = torch.relu(y1).to(dt)
+    y1 = (torch.relu(y1) if relu_mask is None
+          else torch.where(relu_mask, y1, 0.0)).to(dt)
     y2 = y1.float() @ w2.to(dt).float() + b2
     if keep is not None:
         y2 = y2 * keep.float() * (1.0 / keep_prob)
@@ -185,11 +189,12 @@ fused_posln.launches = fused_posln.dropout_launches = 0
 
 
 def ffn_bwd_reference(x, w1, b1, w2, b2, ln_s, ln_b, g, keep=None,
-                      keep_prob=1.0, seed=None):
+                      keep_prob=1.0, seed=None, relu_mask=None):
     """Plain backward: torch autograd through `ffn_reference`.  Returns the
     cotangents of (x, w1, b1, w2, b2, ln_s, ln_b)."""
     keep = _plain_keep(keep, keep_prob, seed, philox.TAG_FFN, x)
-    return vjp_of(lambda *a: ffn_reference(*a, keep, keep_prob),
+    return vjp_of(lambda *a: ffn_reference(*a, keep, keep_prob,
+                                           relu_mask=relu_mask),
                   (x, w1, b1, w2, b2, ln_s, ln_b), g)
 
 
@@ -278,8 +283,8 @@ def fused_ffn_bwd(x, w1, b1, w2, b2, ln_s, ln_b, g, keep=None, keep_prob=1.0,
         dy2 = dy
     dy1 = gemm(NT, dy2.to(dt), w2, mask=y1)
     dx = gemm(NT, dy1.to(dt), w1, cadd=dy).to(dt)
-    dw1 = gemm(TN, x, dy1).to(dt)
-    dw2 = gemm(TN, y1, dy2).to(dt)
+    dw1 = gemm(TN, x, dy1, out_dtype=dt)
+    dw2 = gemm(TN, y1, dy2, out_dtype=dt)
     db1, db2 = _gemm.colsum(dy1), _gemm.colsum(dy2)
     count_launch(fused_ffn_bwd, keep_prob)
     return dx, dw1, db1, dw2, db2, dln_s, dln_b

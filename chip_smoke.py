@@ -19,6 +19,12 @@
      |plain| (the backward gate of tools/tpu_kernel_check.py), the saved
      outputs within 2e-3 absolute; bfloat16 at the stated tolerance; NMS
      at the train tops (12032 candidates, cap 2000) bit-equal.
+   * check_gemm: the backward's product kernel (csrc/gemm.cu) at every
+     shape of the default train step against `gemm_reference` (f32 outputs
+     within 1e-4 of max |plain|, bf16 within 8e-3), split K bit-equal across
+     two runs, HGMMA in the built library's SASS, per shape its time beside
+     the plain version's, one PyTorch call's and the bound, summed per step;
+     the FMA-tile products (f32 x f32) under 1 ms a step.
 3. Serves the full-width ResNet-50 flagship (random weights from a numpy
    seed, carried in through the weight bridge) with OneShotPredictor:
    batches of 8 uint8 608x800 canvases and 128x128 queries.  Every kernel's
@@ -38,7 +44,8 @@
    bfloat16 compute, float32 parameters), with make_train_step: one warm-up
    and 3 timed steps on batches of 8 with a few ground-truth boxes each.
    The launch counts are set to 0 before and read after; each kernel must
-   show its launches per step.  The five losses must be finite, every
+   show its launches per step (csrc/gemm.cu's products: 33 on the tensor
+   cores and 3 on the FMA tiles).  The five losses must be finite, every
    trainable leaf must move and every frozen leaf and buffer must stay
    bitwise unchanged; and one float32 train step at batch 2 must agree with
    the plain path on the same weights and draws, dropout masks included
@@ -444,6 +451,31 @@ def check_attention_train(torch, dev):
             for k, v in res.items()}
 
 
+def ffn_relu_ties(torch, args):
+    """The FFN backward's relu mask on the kernel path (its recompute of
+    y1 on csrc/gemm.cu's tensor cores) and the number of ties: elements
+    where it differs from the plain version's (f32 sums in cuBLAS's order).
+    Each tie must be a pre-activation inside both sums' f32 error bound,
+    2 gamma_K sum_k |x_k w_k| + 2 u (|v| + |b|) (gamma_K = K u / (1 - K u),
+    u = 2^-24): there either sign is right, and the relu's derivative jumps,
+    so a bf16 backward is held to its plain version fed this mask."""
+    from ait_tpu_torch.ops import _gemm
+
+    x, w1, b1 = args[0], args[1], args[2]
+    mask = _gemm.gemm(_gemm.NN, x, w1, bias=b1, relu=True,
+                      out_dtype=x.dtype) > 0
+    xf, wf = x.float(), w1.float()
+    pre = xf @ wf + b1
+    ties = mask != (pre > 0)
+    u, k = 2.0 ** -24, x.shape[1]
+    gamma = k * u / (1 - k * u)
+    bound = 2 * gamma * (xf.abs() @ wf.abs()) + 2 * u * (pre.abs() + b1.abs())
+    if (ties & (pre.abs() > bound)).any():
+        fail("ffn_bwd: the kernel's relu mask differs from the plain "
+             "version's beyond f32 rounding")
+    return mask, int(ties.sum())
+
+
 def check_ffn_train(torch, dev):
     """Kernel B: the FFN backward, recomputed from x."""
     from ait_tpu_torch.ops.fused_ffn import ffn_bwd_reference, fused_ffn_bwd
@@ -466,13 +498,18 @@ def check_ffn_train(torch, dev):
             args = [base[0].to(dtype), base[1].to(dtype), base[2],
                     base[3].to(dtype), base[4], base[5], base[6],
                     base[7].to(dtype)]
+            # f32: the FMA tiles sum in the plain version's order; bf16:
+            # the tensor cores' order, ties fed to the plain version
+            mask, ties = (ffn_relu_ties(torch, args)
+                          if dtype == torch.bfloat16 else (None, 0))
             err, abs_err = check_grads(f"ffn_bwd {name} {dtype}",
                                        fused_ffn_bwd(*args),
-                                       ffn_bwd_reference(*args), tol)
+                                       ffn_bwd_reference(*args,
+                                                         relu_mask=mask), tol)
             if dtype == torch.float32:
                 errs.append(abs_err)
             log(f"ffn_bwd {name} N={n} {dtype}: rel err {err:.3e} "
-                f"(tol {tol}), abs err {abs_err:.3e}")
+                f"(tol {tol}), abs err {abs_err:.3e}, relu ties {ties}")
         ms = cuda_ms(lambda: fused_ffn_bwd(*args), iters=3, warmup=1)
         plain_ms = cuda_ms(lambda: ffn_bwd_reference(*args), iters=3,
                            warmup=1)
@@ -766,9 +803,14 @@ def check_rows_dropout(torch, dev):
             err = err_of(fwd(*args, **drop), pfwd(*args, **fed))
             if not math.isfinite(err) or err > tol:
                 fail(f"{kind} dropout {name} {dtype}: err {err} > {tol}")
+            ties = {}
+            if kind == "ffn" and dtype == torch.bfloat16:
+                mask, n_ties = ffn_relu_ties(torch, args)
+                ties = {"relu_mask": mask}
+                log(f"ffn dropout {name} bf16: relu ties {n_ties}")
             e_b, abs_b = check_grads(f"{kind}_bwd dropout {name} {dtype}",
                                      bwd(*args, gd, **drop),
-                                     pbwd(*args, gd, **fed), tol_b)
+                                     pbwd(*args, gd, **fed, **ties), tol_b)
             if dtype == torch.float32:
                 res[f"{kind}_fwd"][0].append(err)
                 res[f"{kind}_bwd"][0].append(abs_b)
@@ -1100,6 +1142,168 @@ def check_save_qkv(torch, dev):
     return {k: _finish(v, "operations") for k, v in res.items()}
 
 
+# ------------------------------------------------------------------- gemm
+
+
+def gemm_shapes():
+    """csrc/gemm.cu's products in one default train step at B = 8, bf16:
+    (name, layout, M, N, K, A dtype, B dtype, epilogue, out dtype, calls per
+    step).  The FFN backward's six per call (ops/fused_ffn.py), the attention
+    backward's eight (ops/fused_attention.py; dxkv and dwk/dwv twice), and
+    the long-sequence regime's projection (opt-in, 0 per default step)."""
+    import torch
+
+    from ait_tpu_torch.ops._gemm import NN, NT, TN
+
+    bf, f32 = torch.bfloat16, torch.float32
+    rows = []
+    for tag, n in (("encoder", B * ROIS * 56), ("decoder", B * ROIS * 64)):
+        rows += [(f"ffn y1 {tag}", NN, n, 2048, 512, bf, bf, "bias_relu", bf, 1),
+                 (f"ffn y2 {tag}", NN, n, 512, 2048, bf, bf, "bias", f32, 1),
+                 (f"ffn dy1 {tag}", NT, n, 2048, 512, bf, bf, "mask", f32, 1),
+                 (f"ffn dx {tag}", NT, n, 512, 2048, bf, bf, "cadd", f32, 1),
+                 (f"ffn dw1 {tag}", TN, 512, 2048, n, bf, f32, None, bf, 1),
+                 (f"ffn dw2 {tag}", TN, 2048, 512, n, bf, f32, None, bf, 1)]
+    for tag, p, tq, tk, _ in ATTN_TRAIN:
+        mq, mk = p * tq, p * tk
+        rows += [(f"attn dxq {tag}", NT, mq, 512, 512, f32, bf, "cadd", f32, 1),
+                 (f"attn dxkv {tag}", NT, mk, 512, 512, f32, bf, "cadd", f32, 2),
+                 (f"attn dwq {tag}", TN, 512, 512, mq, bf, f32, None, bf, 1),
+                 (f"attn dwkv {tag}", TN, 512, 512, mk, bf, f32, None, bf, 2),
+                 (f"attn dfc_w {tag}", TN, 64, 512, mq, bf, f32, None, bf, 1),
+                 (f"attn dsk_w {tag}", TN, 64, 512, p, f32, f32, None, bf, 1)]
+    rows.append(("long-seq projection", NN, B * 1900, 512, 512, bf, bf, None,
+                 f32, 0))
+    return rows
+
+
+def _gemm_library(torch, dev):
+    """The yardstick for a bf16 x bf16 -> f32 product: torch.mm with
+    out_dtype=float32 where this torch has it, else torch.matmul in bf16."""
+    a = torch.ones(16, 16, dtype=torch.bfloat16, device=dev)
+    try:
+        torch.mm(a, a, out_dtype=torch.float32)
+        return "torch.mm(out_dtype=float32)"
+    except (TypeError, RuntimeError):
+        return "torch.matmul in bf16"
+
+
+def hgmma_count():
+    """HGMMA instructions in the built csrc/gemm.cu library."""
+    import shutil
+
+    from ait_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", _build.library_path("gemm")],
+                          capture_output=True, text=True, check=True).stdout
+    return sass.count("HGMMA")
+
+
+def check_gemm(torch, dev):
+    """csrc/gemm.cu at every shape of the default train step: the kernel
+    against `gemm_reference` (f32 outputs within 1e-4 of max |plain|, bf16
+    within 8e-3: f32 summation order; an f32 operand's three bf16 terms are
+    exact), split K bit-equal across two runs, and per shape its time, the
+    plain version's, one PyTorch call's (library_ms: bf16 x bf16 as
+    `_gemm_library` says, bf16 x f32 as torch.matmul in f32 on the operand
+    cast beforehand, TF32 off) and the bound (2 M N K at 989 TFLOP/s, or each
+    operand read and the output written once at 3.35 TB/s: the function's
+    operations, so a product with an f32 operand, three bf16 products on the
+    card, reaches at most a third of it).  Sums per step, FFN and attention
+    apart; the FMA-tile products (f32 x f32, dsk_w) must take < 1 ms a
+    step; the library's SASS must hold HGMMA."""
+    from ait_tpu_torch.ops import _gemm
+
+    hgmma = hgmma_count()
+    if hgmma <= 0:
+        fail("gemm: no HGMMA instruction in the built library")
+    lib_form = _gemm_library(torch, dev)
+    log(f"gemm: {hgmma} HGMMA instructions in the library; library_ms of "
+        f"bf16 x bf16 is {lib_form}")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bf = torch.bfloat16
+    tot = {k: 0.0 for k in ("ms", "plain", "lib", "bound", "bound_ops")}
+    part = {"ffn": 0.0, "attn": 0.0, "fma": 0.0}
+    errs = []
+
+    def rn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    for name, lay, m, n, k, adt, bdt, epi, odt, calls in gemm_shapes():
+        a = rn(*((k, m) if lay == _gemm.TN else (m, k)), dtype=adt)
+        b = rn(*((n, k) if lay == _gemm.NT else (k, n)), dtype=bdt)
+        kw, extra = {"out_dtype": odt}, 0
+        if epi in ("bias", "bias_relu"):
+            kw.update(bias=rn(n), relu=epi == "bias_relu")
+            extra = n * 4
+        elif epi == "mask":
+            kw["mask"] = rn(m, n, dtype=bf)
+            extra = m * n * 2
+        elif epi == "cadd":
+            kw["cadd"] = rn(m, n)
+            extra = m * n * 4
+        got = _gemm.gemm(lay, a, b, **kw)
+        want = _gemm.gemm_reference(lay, a, b, **kw)
+        err = rel_err(got, want)
+        tol = 8e-3 if odt == bf else 1e-4
+        if not (math.isfinite(err) and err <= tol):
+            fail(f"gemm {name}: err {err} of max |plain| (tol {tol})")
+        if odt == torch.float32:
+            errs.append((got.float() - want.float()).abs().max().item())
+        tc = _gemm.tensor_core_path(a, b)
+        splits = (_gemm.tc_splits(m, n, k, sms) if tc
+                  else _gemm._fma_splits(lay, m, n, k))
+        if splits > 1 and not torch.equal(got, _gemm.gemm(lay, a, b, **kw)):
+            fail(f"gemm {name}: two split-K runs differ")
+        at = a.t() if lay == _gemm.TN else a
+        bt = b.t() if lay == _gemm.NT else b
+        if adt == bdt == bf and lib_form.startswith("torch.mm"):
+            lib = lambda: torch.mm(at, bt, out_dtype=torch.float32)  # noqa
+        elif adt == bdt:
+            lib = lambda: torch.matmul(at, bt)  # noqa: E731
+        else:
+            a32, b32 = at.float(), bt.float()
+            lib = lambda: torch.matmul(a32, b32)  # noqa: E731
+        ms = cuda_ms(lambda: _gemm.gemm(lay, a, b, **kw), iters=10)
+        plain_ms = cuda_ms(lambda: _gemm.gemm_reference(lay, a, b, **kw),
+                           iters=3, warmup=1)
+        lib_ms = cuda_ms(lib, iters=10)
+        nbytes = (a.numel() * a.element_size() + b.numel() * b.element_size()
+                  + m * n * got.element_size() + extra)
+        t_ops, t_bytes = 2 * m * n * k / BF16_FLOP_S * 1e3, nbytes / HBM_BYTES_S * 1e3
+        t_bound = max(t_ops, t_bytes)
+        log(f"gemm {name}: {'NN NT TN'.split()[lay]} M={m} N={n} K={k} "
+            f"{str(adt)[6:]} x {str(bdt)[6:]} -> {str(odt)[6:]} "
+            f"({'tensor cores' if tc else 'FMA tiles'}, {splits} split(s)), "
+            f"{calls}/step: err {err:.3e} of max |plain|; kernel_ms {ms:.4f} "
+            f"plain_ms {plain_ms:.4f} library_ms {lib_ms:.4f} bound_ms "
+            f"{t_bound:.4f} ({'operations' if t_ops >= t_bytes else 'bytes'}"
+            f"; {2 * m * n * k / ms / 1e9:.1f} TFLOP/s)")
+        for key, v in (("ms", ms), ("plain", plain_ms), ("lib", lib_ms),
+                       ("bound", t_bound),
+                       ("bound_ops", t_bound if t_ops >= t_bytes else 0.0)):
+            tot[key] += calls * v
+        if calls:
+            part[name.split()[0]] += calls * ms
+            if not tc:
+                part["fma"] += calls * ms
+        del a, b, got, want, kw
+    log(f"gemm per default train step (B = {B}, bf16): kernel {tot['ms']:.3f} "
+        f"ms (FFN backward {part['ffn']:.3f}, attention backward "
+        f"{part['attn']:.3f}, of which FMA tiles {part['fma']:.4f}); plain "
+        f"{tot['plain']:.3f}, library {tot['lib']:.3f}, bound "
+        f"{tot['bound']:.4f} ms")
+    if not part["fma"] < 1.0:
+        fail(f"gemm: the FMA-tile products take {part['fma']:.3f} ms a step "
+             "(limit 1 ms)")
+    by = "operations" if 2 * tot["bound_ops"] >= tot["bound"] else "bytes"
+    return {"max_abs_err": max(errs), "ms": tot["ms"],
+            "plain_ms": tot["plain"], "bound_ms": tot["bound"],
+            "bound_by": by, "library_ms": tot["lib"]}
+
+
 # ------------------------------------------------------------------ slice
 
 
@@ -1107,8 +1311,9 @@ def kernel_wrappers():
     """JSON name -> (the wrapper, its attribute that counts that kernel's
     launches).  A wrapper with a dropout form counts its keep_prob 1
     launches in `launches` and its dropout launches in `dropout_launches`."""
-    from ait_tpu_torch.ops import (dropout_masks as dm, fused_attention as fa,
-                                   fused_ffn as ff, nms)
+    from ait_tpu_torch.ops import (_gemm, dropout_masks as dm,
+                                   fused_attention as fa, fused_ffn as ff,
+                                   nms)
 
     return {"nms_keep_mask": (nms.nms_keep_mask_batched, "launches"),
             "sh_attention_fwd": (fa.fused_sh_attention, "launches"),
@@ -1142,7 +1347,11 @@ def kernel_wrappers():
             "sh_attention_saveqkv_fwd": (fa.fused_sh_attention_saved,
                                          "qkv_launches"),
             "sh_attention_saveqkv_bwd": (fa.fused_sh_attention_bwd,
-                                         "qkv_launches")}
+                                         "qkv_launches"),
+            # the backward's products (csrc/gemm.cu): tensor cores, and the
+            # FMA tiles of f32 x f32
+            "gemm": (_gemm.gemm, "launches"),
+            "gemm_fma": (_gemm.gemm, "fma_launches")}
 
 
 # launches of each kernel per eval forward and per train step (a wrapper
@@ -1158,26 +1367,38 @@ _OPT_IN = ("sh_attention_general_fwd", "sh_attention_general_saved",
            "sh_attention_general_drop_bwd", "sh_attention_saveqkv_fwd",
            "sh_attention_saveqkv_bwd")
 _ZERO = dict.fromkeys(_DROP_KERNELS + _OPT_IN, 0)
+# products of a step: 6 per FFN backward and, per attention backward, 7 on
+# the tensor cores and dsk_w (f32 x f32) on the FMA tiles; the general
+# regime's backward also recomputes its 3 projections, its forward makes them
+GEMM_STEP = {"gemm": 2 * 6 + 3 * 7, "gemm_fma": 3}
 PER_FORWARD = {**_ZERO, "nms_keep_mask": 2, "sh_attention_fwd": 3,
                "ffn_fwd": 2, "posln_fwd": 2, "sh_attention_saved": 0,
-               "sh_attention_bwd": 0, "ffn_bwd": 0, "posln_bwd": 0}
+               "sh_attention_bwd": 0, "ffn_bwd": 0, "posln_bwd": 0,
+               "gemm": 0, "gemm_fma": 0}
 PER_STEP = {**_ZERO, "nms_keep_mask": 1, "sh_attention_fwd": 0, "ffn_fwd": 0,
             "posln_fwd": 0, "sh_attention_saved": 0, "sh_attention_bwd": 0,
             "ffn_bwd": 0, "posln_bwd": 0, "sh_attention_drop_fwd": 3,
             "sh_attention_drop_bwd": 3, "ffn_drop_fwd": 2, "ffn_drop_bwd": 2,
-            "posln_drop_fwd": 2, "posln_drop_bwd": 2, "keep_mask_dump": 4}
+            "posln_drop_fwd": 2, "posln_drop_bwd": 2, "keep_mask_dump": 4,
+            **GEMM_STEP}
 PER_STEP_NO_DROPOUT = {**_ZERO, "nms_keep_mask": 1, "sh_attention_fwd": 0,
                        "ffn_fwd": 2, "posln_fwd": 2, "sh_attention_saved": 3,
-                       "sh_attention_bwd": 3, "ffn_bwd": 2, "posln_bwd": 2}
+                       "sh_attention_bwd": 3, "ffn_bwd": 2, "posln_bwd": 2,
+                       **GEMM_STEP}
 # _LONG_SEQ_FUSION on: the co-attention's two attentions go to the general
-# regime (5 attention launches per forward) and draw seeds, so no mask dump
-PER_FORWARD_LONG = {**PER_FORWARD, "sh_attention_general_fwd": 2}
+# regime (5 attention launches per forward) and draw seeds, so no mask dump;
+# their projections, 3 per forward and per backward, and the backward's
+# products run on csrc/gemm.cu
+GEMM_STEP_LONG = {"gemm": GEMM_STEP["gemm"] + 2 * (3 + 3 + 7),
+                  "gemm_fma": GEMM_STEP["gemm_fma"] + 2}
+PER_FORWARD_LONG = {**PER_FORWARD, "sh_attention_general_fwd": 2,
+                    "gemm": 2 * 3}
 PER_STEP_LONG = {**PER_STEP, "keep_mask_dump": 0,
                  "sh_attention_general_drop_fwd": 2,
-                 "sh_attention_general_drop_bwd": 2}
+                 "sh_attention_general_drop_bwd": 2, **GEMM_STEP_LONG}
 PER_STEP_LONG_NO_DROPOUT = {**PER_STEP_NO_DROPOUT,
                             "sh_attention_general_saved": 2,
-                            "sh_attention_general_bwd": 2}
+                            "sh_attention_general_bwd": 2, **GEMM_STEP_LONG}
 # _SAVE_QKV on: the transformer's three attentions also save and read q/k/v
 PER_STEP_SAVE_QKV = {**PER_STEP, "sh_attention_saveqkv_fwd": 3,
                      "sh_attention_saveqkv_bwd": 3}
@@ -1214,6 +1435,8 @@ def read_counts(expected, runs, what):
         if launches[k] != n * runs:
             fail(f"{k}: {launches[k]} launches over {runs} {what}, "
                  f"expected {n} per {what[:-1]}")
+    log(f"gemm per {what[:-1]}: {launches['gemm'] / runs:g} tensor-core "
+        f"launches, {launches['gemm_fma'] / runs:g} FMA-tile launches")
     return launches
 
 
@@ -1651,6 +1874,7 @@ def main() -> int:
     results.update({f"sh_attention_general_{k}": v for k, v in gen.items()})
     qkv = check_save_qkv(torch, dev)
     results.update({f"sh_attention_saveqkv_{k}": v for k, v in qkv.items()})
+    results["gemm"] = check_gemm(torch, dev)
 
     cfg, params, state = make_weights(torch)
     paths = {"eval": drive_slice(torch, np, dev, cfg, state)}
@@ -1728,13 +1952,20 @@ def main() -> int:
             "sh_attention_saveqkv_fwd": ("ait_tpu_torch/csrc/sh_attention.cu",
                                          "ait_tpu/ops/pallas_attention.py:394"),
             "sh_attention_saveqkv_bwd": ("ait_tpu_torch/csrc/sh_attention.cu",
-                                         "ait_tpu/ops/pallas_attention.py:693")}
+                                         "ait_tpu/ops/pallas_attention.py:693"),
+            # the products inside the FFN backward's body (and the attention
+            # backward's, ait_tpu/ops/pallas_attention.py:412 `_bwd_kernel`)
+            "gemm": ("ait_tpu_torch/csrc/gemm.cu",
+                     "ait_tpu/ops/pallas_ffn.py:104")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(v[name] for v in paths.values()),
          "launches_by_path": {k: v[name] for k, v in paths.items()},
          "library_ms": None, **results[name]}
         for name, (src, rep) in meta.items()]}
+    line["kernels"][-1].update(
+        fma_launches=sum(v["gemm_fma"] for v in paths.values()),
+        fma_launches_by_path={k: v["gemm_fma"] for k, v in paths.items()})
     log(smi)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

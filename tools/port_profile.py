@@ -25,6 +25,8 @@ reports, as JSON lines on stdout (and in --out):
 * `kernels`: the device kernels with the most time per batch or step
   (torch.profiler over two of them), and the device's busy share: their
   summed time over the mean wall clock of an unprofiled batch or step;
+* `gemm_products`: the device time and launches of csrc/gemm.cu's
+  products (tensor-core and FMA tiles and their split-K sums);
 * `batch_ms`: host wall clock per batch or step, ending in a synchronize.
 
 Imports nothing of JAX or ait_tpu.  Needs a CUDA device.
@@ -165,6 +167,9 @@ def main() -> int:
             rows.append((e.key, dev_us / 2e3, e.count // 2))
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
+    # csrc/gemm.cu's products (tensor-core and FMA tiles, split-K sums)
+    products = [r for r in rows
+                if "gemm_kernel" in r[0] or "reduce_splits" in r[0]]
     mean_ms = sum(batch_ms) / len(batch_ms)
     result = {
         "card": card, "path": "train" if args.train else "eval", "bs": bs,
@@ -176,6 +181,8 @@ def main() -> int:
         "stages_ms_per_batch": stages,
         "device_busy_ms_per_batch": busy_ms,
         "device_busy_share": busy_ms / mean_ms,
+        "gemm_products_ms_per_batch": sum(r[1] for r in products),
+        "gemm_products_calls_per_batch": sum(r[2] for r in products),
         "top_kernels_ms_per_batch": [
             {"name": k[:120], "ms": ms, "calls": n} for k, ms, n in rows[:25]],
     }
@@ -187,7 +194,11 @@ def main() -> int:
     print(json.dumps({"path": result["path"], "t_dropout": result["t_dropout"],
                       "batch_ms": batch_ms,
                       "device_busy_ms_per_batch": busy_ms,
-                      "device_busy_share": result["device_busy_share"]}))
+                      "device_busy_share": result["device_busy_share"],
+                      "gemm_products_ms_per_batch":
+                          result["gemm_products_ms_per_batch"],
+                      "gemm_products_calls_per_batch":
+                          result["gemm_products_calls_per_batch"]}))
     if stages:
         print(json.dumps({"stages_ms_per_batch": stages}))
     for r in result["top_kernels_ms_per_batch"]:
