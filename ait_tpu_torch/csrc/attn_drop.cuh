@@ -1,5 +1,6 @@
-// The dropout of one attention launch, shared by the one-block kernels
-// (csrc/sh_attention.cu) and the tiled ones (csrc/sh_attention_general.cu):
+// What the attention kernels (the one-block ones of csrc/sh_attention.cu and
+// the tiled ones of csrc/sh_attention_general.cu) share: where the per-head
+// projections lie (`Proj`), and the dropout of one launch:
 // the Philox stream of `seed` (csrc/philox.cuh: tag 1 per head and pair for
 // the probabilities, tag 2 per pair for fc's output), or the operand masks
 // akeep [H, P*Tq, Tk] and okeep [P*Tq, D] (f32 0/1); neither: none.  The
@@ -17,6 +18,30 @@
 namespace ait {
 
 constexpr int kAttnD = 512;   // the model width the attention kernels are built for
+
+// Where the per-head projections lie: element c of head h of flat row `row`
+// (pair * T + t) of q at q[row * rs + h * q_hs + c].  The projections' own
+// layout is [P*T, 512] (rs 512, head stride 64, q unscaled: qscale 1/8); the
+// save-qkv layout is [H, P*T, 64] (rs 64, head strides P*T*64, q already
+// scaled: qscale 1).
+struct Proj {
+  const float* q;
+  const float* k;
+  const float* v;
+  int rs;
+  size_t q_hs, kv_hs;
+  float qscale;
+};
+
+// heads_major: the save-qkv layout, else the projections' own
+inline Proj make_proj(const void* q, const void* k, const void* v,
+                      int heads_major, int pairs, int tq, int tk) {
+  if (heads_major)
+    return Proj{(const float*)q, (const float*)k, (const float*)v, 64,
+                (size_t)pairs * tq * 64, (size_t)pairs * tk * 64, 1.f};
+  return Proj{(const float*)q, (const float*)k, (const float*)v, kAttnD, 64,
+              64, 0.125f};
+}
 
 struct AttnDrop {
   const int* seed;

@@ -1,5 +1,5 @@
-// Fused selective-head multi-head attention forward of the AIT head, one
-// block per pair-sequence:
+// Selective-head multi-head attention of the AIT head for pair-sequences of
+// at most 64 tokens: the forward, and the per-pair part of the backward.
 //   q/k/v = x @ w (8 heads, d_k = d_v = 64), softmax(q k^T / 8, masked -1e9),
 //   o_h = P v, gate = softmax_h(Linear(mean_t sum_h o_h)), o = sum_h gate o_h,
 //   out = LayerNorm(o @ fc + x_q), eps 1e-6, f32 statistics.
@@ -19,29 +19,41 @@
 // from operand masks [H, P*Tq, Tk] and [P*Tq, D] (fused_sh_attention_dropout,
 // :817).  With neither (the eval launch, keep_prob 1) no factor is applied.
 //
-// What bounds it on the H100: operations.  A pair costs ~100 MFLOP, nearly
-// all in the three 512 x 512 projections and fc, against 64-128 KB of
-// activations.  On the TPU the 512 x 512 weights sat whole in VMEM; here they
-// do not fit in a block's 227 KB of shared memory next to what must stay on
-// chip.  So the block walks the heads: for each head it streams the
-// [512, 64] column slices of wq, wk, wv (and the x rows, from L2) through
-// shared memory in k-slabs, keeps q_h, k_h, v_h and the [Tq, Tk] scores in
-// shared memory, and stores o_h into an 8 x [64, 64] f32 buffer (128 KB) that
-// stays on chip for the gate.  The gate, fc (its [64, 512] weight staged in
-// column chunks), residual and LayerNorm then run from shared memory, so no
-// intermediate reaches device memory.
-//
-// In bf16 the projections and fc run on the tensor cores (WMMA 16x16x16,
-// f32 accumulators; each warp owns a 16-row strip of the 64 x 64 head tile);
-// in f32 they are CUDA-core FMAs with 4 x 4 register tiles.  The scores,
-// softmax, P.V, gate and LayerNorm (~10% of the operations) are FMAs in both.
-// Decoder self-attention has only one pair per image, so few blocks.
+// Forward.  What bounds it on the H100: operations, ~90% of them in the three
+// 512 x 512 projections (~100 MFLOP a pair against ~8 in the scores and
+// P v).  So the projections run first, as products over all pairs on
+// csrc/gemm.cu's tensor cores (wgmma fed by TMA; the wrapper in
+// ops/fused_attention.py runs them): q = x_q wq, k = x_kv wk, v = x_kv wv,
+// f32 [P*T, 512], each weight read once per 128-row tile rather than once
+// per pair.  `sh_attn_core_kernel` is the rest, in persistent blocks (one
+// per SM, each walking the pairs):
+//   * per head: the pair's q, k and v from the products into shared memory
+//     (`cp.async`, the next head's in flight while this one is computed),
+//     the masked scores of q / 8 and the row softmax in registers (a row in
+//     one half-warp), the probability dropout and o_h = P v (f32 CUDA-core
+//     FMAs on 16-byte shared-memory loads, 4 x 4 outputs a thread: f32
+//     products of f32 operands, as the Pallas kernel's); the eight o_h stay
+//     in registers (128 a thread) for the gate;
+//   * the gate: s sums the heads inside and the tokens outside, then divides
+//     by Tq, the order in which the backward rebuilds it from the saved o_h;
+//     o = sum_h gate_h o_h rounded to the storage type;
+//   * fc: in bf16 on wgmma m64n128k16, o a swizzled tile that the threads
+//     write and fc's [64, 512] weight loaded by TMA once per block; in f32
+//     CUDA-core FMAs;
+//   * the output dropout, the residual and the LayerNorm, a warp per row.
+// The f32 q/k/v of a call are transient (0.8 GB at the eval encoder's
+// 134,400 rows); the wrapper drops them after the core kernel.  On the H100
+// most of the core's time goes to the scores, the softmax and P v (clock
+// counts of a debug build): CUDA-core FMAs with 8 warps an SM to hide their
+// latency.
 
-#include <mma.h>
+#include <string.h>
+
 #include <type_traits>
 
 #include "attn_drop.cuh"
 #include "common.cuh"
+#include "hopper.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -53,491 +65,457 @@ constexpr int kHeads = 8;
 constexpr int kDk = 64;
 constexpr int kTm = 64;             // longest sequence
 constexpr int kThreads = 256;       // 8 warps; 16 x 16 threads for FMA tiles
-constexpr int kWld = kHeads * kDk;  // row stride of wq, wk, wv, sk_w
-constexpr int kLdq = kDk + 4;       // rows of q and k (f32; WMMA stores need 4 | ld)
-constexpr int kLds = kTm + 1;       // rows of the scores
-
-// f32 slabs (FMA path): x [64][33], w [2][32][64]
-constexpr int kFmaK = 32;
-constexpr int kFmaXsLd = kFmaK + 1;
-constexpr int kFmaSlab = kTm * kFmaXsLd + 2 * kFmaK * kDk;
-// bf16 slabs (WMMA path): x [64][72], w [2][64][72]
-constexpr int kMmaK = 64;
-constexpr int kMmaLd = kMmaK + 8;
-constexpr int kMmaSlab = 3 * kTm * kMmaLd / 2;   // in floats
-constexpr int kSlab = kMmaSlab > kFmaSlab ? kMmaSlab : kFmaSlab;
-
-// shared memory layout, in floats
-constexpr int kOffQ = 0;                         // q_h [kTm][kLdq]; later o
-constexpr int kOffK = kOffQ + kTm * kLdq;        // k_h [kTm][kLdq]
-constexpr int kOffV = kOffK + kTm * kLdq;        // v_h [kTm][kDk]
-constexpr int kOffSt = kOffV + kTm * kDk;        // slabs, or the scores
-constexpr int kOffO = kOffSt + kSlab;            // o_h [kHeads][kTm][kDk]; later y
-constexpr int kOffS = kOffO + kHeads * kTm * kDk;  // gate input [kDk]
-constexpr int kOffG = kOffS + kDk;               // gate [kHeads][kDk]
-constexpr int kSmemFloats = kOffG + kHeads * kDk;
-
-// fc staging: f32 [64][128] x 4 (FMA) or bf16 [64][264] x 2 (WMMA), in k|v|slab
-constexpr int kFmaFcCols = 128;
-constexpr int kMmaFcCols = 256;
-constexpr int kMmaFcLd = kMmaFcCols + 8;
-
-static_assert(kTm * kD <= kHeads * kTm * kDk, "y must fit in the o_h buffer");
-static_assert(kDk * kFmaFcCols <= kOffO - kOffK, "fc chunk must fit");
-static_assert(kDk * kMmaFcLd / 2 <= kOffO - kOffK, "fc chunk must fit");
-static_assert(kTm * kLds <= kSlab, "scores must fit in the slab area");
-static_assert(kTm * kMmaLd / 2 <= kTm * kLdq, "bf16 o must fit in q's place");
-static_assert(kOffSt % 8 == 0 && kOffK % 8 == 0 && kOffV % 8 == 0 &&
-              kOffO % 8 == 0, "WMMA tiles need 32-byte alignment");
+constexpr int kWld = kHeads * kDk;  // row stride of sk_w
+constexpr int kLdq = kDk + 4;       // rows of q, k and v (f32)
+constexpr int kYLd = kD + 8;        // rows of fc's f32 output
 
 // A launch's dropout (the Philox stream of a seed, or operand masks) and its
-// factors: csrc/attn_drop.cuh.
+// factors, and the layouts of the projections: csrc/attn_drop.cuh.
 using ait::AttnDrop;
+using ait::Proj;
 using ait::attn_factor;
+using ait::make_proj;
 using ait::out_factors;
 
-// d0[r][c] = sum_k x[r][k] w0[k][col0 + c] (and d1 with w1) for r, c < 64;
-// rows r >= rows read as zero.  CUDA-core FMAs, 4 x 4 outputs per thread.
-template <typename T, int NW>
-__device__ __forceinline__ void project_fma(const T* __restrict__ x, int rows,
-                                            const T* __restrict__ w0,
-                                            const T* __restrict__ w1, int col0,
-                                            float* st, float* d0, int ld0,
-                                            float* d1, int ld1) {
-  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
-  float* xs = st;
-  float* ws = st + kTm * kFmaXsLd;
-  float acc[NW][4][4];
-#pragma unroll
-  for (int n = 0; n < NW; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[n][i][j] = 0.f;
+// ---------------------------------------------------------------- forward
 
-  for (int k0 = 0; k0 < kD; k0 += kFmaK) {
-    {
-      const int r = t >> 2, k8 = (t & 3) * 8;  // 64 rows x 4 vectors of 8
-      float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      if (r < rows) ait::load8(x + (size_t)r * kD + k0 + k8, v);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) xs[r * kFmaXsLd + k8 + e] = v[e];
-    }
-    {
-      const int kk = t >> 3, c8 = (t & 7) * 8;  // 32 rows x 8 vectors of 8
-      float v[8];
-      ait::load8(w0 + (size_t)(k0 + kk) * kWld + col0 + c8, v);
-      ait::store8(ws + kk * kDk + c8, v);
-      if (NW == 2) {
-        ait::load8(w1 + (size_t)(k0 + kk) * kWld + col0 + c8, v);
-        ait::store8(ws + kFmaK * kDk + kk * kDk + c8, v);
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < kFmaK; ++kk) {
-      float a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[(ty + 16 * i) * kFmaXsLd + kk];
-#pragma unroll
-      for (int n = 0; n < NW; ++n)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float b = ws[n * kFmaK * kDk + kk * kDk + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[n][i][j] += a[i] * b;
-        }
-    }
-    __syncthreads();
+// shared memory of the core kernel, bytes from a 1024-byte boundary:
+//   fc    bf16: fc's weight, 8 swizzled panels [64 k][64 n]; f32: o [64][kLdq]
+//   o     bf16: o, one swizzled panel
+//   work  per head two buffers of q, k, v [64][kLdq] (the next head's loads
+//         land in the other) and the probabilities [64][kLdq]; after the
+//         heads the head sum in buffer 0's q, then fc's output y [64][kYLd]
+//   the gate [8][64], s [64], the mask [64][64] (bytes), fc's mbarrier
+constexpr uint32_t kPanel = kTm * 128;                // 64 rows of 64 bf16
+constexpr uint32_t kCOffFc = 0;
+constexpr uint32_t kCOffO = kCOffFc + kDk * kD * 2;
+constexpr uint32_t kCOffW = kCOffO + kPanel;
+constexpr uint32_t kTile = kTm * kLdq * 4;
+constexpr uint32_t kHeadBuf = 3 * kTile;
+constexpr uint32_t kCOffS = kCOffW + 2 * kHeadBuf;
+constexpr uint32_t kCHeads = kCOffS + kTile - kCOffW;
+constexpr uint32_t kCY = kTm * kYLd * 4;
+constexpr uint32_t kCOffG = kCOffW + (kCHeads > kCY ? kCHeads : kCY);
+constexpr uint32_t kCOffSv = kCOffG + kHeads * kDk * 4;
+constexpr uint32_t kCOffMask = kCOffSv + kDk * 4;
+constexpr uint32_t kCOffBar = kCOffMask + kTm * kTm;
+constexpr uint32_t kCoreSmem = 1024 + kCOffBar + 8;
+static_assert(kTm * kLdq * 4 <= kDk * kD * 2, "f32 o fits in fc's place");
+static_assert(kCoreSmem <= 232448, "shared memory of one block");
+
+// head h of the pair's q, k and v [64][kLdq] (rows past tq, tk zero) into
+// the buffer at shared address dst: cp.async, one committed group
+__device__ __forceinline__ void load_head(const Proj& pj, size_t qrow0,
+                                          size_t krow0, int h, int tq, int tk,
+                                          uint32_t dst) {
+  for (int e = threadIdx.x; e < kTm * kDk / 4; e += kThreads) {
+    const int r = e >> 4, c = (e & 15) * 4;
+    const uint32_t off = (r * kLdq + c) * 4;
+    const size_t rq = qrow0 + (r < tq ? r : 0), rk = krow0 + (r < tk ? r : 0);
+    const int nq = r < tq ? 16 : 0, nk = r < tk ? 16 : 0;
+    hopper::cp_async16(dst + off, pj.q + rq * pj.rs + h * pj.q_hs + c, nq);
+    hopper::cp_async16(dst + kTile + off,
+                       pj.k + rk * pj.rs + h * pj.kv_hs + c, nk);
+    hopper::cp_async16(dst + 2 * kTile + off,
+                       pj.v + rk * pj.rs + h * pj.kv_hs + c, nk);
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      d0[(ty + 16 * i) * ld0 + tx + 16 * j] = acc[0][i][j];
-      if (NW == 2) d1[(ty + 16 * i) * ld1 + tx + 16 * j] = acc[NW - 1][i][j];
-    }
+  hopper::cp_async_commit();
 }
 
-// The same product on the tensor cores: warp w owns rows 16*(w%4)..+16 and
-// columns 32*(w/4)..+32 of each 64 x 64 output (two 16 x 16 tiles).
-template <int NW>
-__device__ __forceinline__ void project_mma(const bf16* __restrict__ x,
-                                            int rows,
-                                            const bf16* __restrict__ w0,
-                                            const bf16* __restrict__ w1,
-                                            int col0, float* st, float* d0,
-                                            int ld0, float* d1, int ld1) {
-  using namespace nvcuda;
-  bf16* xs = reinterpret_cast<bf16*>(st);   // [64][kMmaLd]
-  bf16* ws = xs + kTm * kMmaLd;             // [NW][64][kMmaLd]
-  const int t = threadIdx.x, warp = t >> 5;
-  const int r0 = (warp & 3) * 16, c0 = (warp >> 2) * 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NW][2];
-#pragma unroll
-  for (int n = 0; n < NW; ++n) {
-    wmma::fill_fragment(acc[n][0], 0.f);
-    wmma::fill_fragment(acc[n][1], 0.f);
-  }
-  for (int k0 = 0; k0 < kD; k0 += kMmaK) {
-#pragma unroll
-    for (int v = t; v < kTm * kMmaK / 8; v += kThreads) {
-      const int r = v >> 3, c8 = (v & 7) * 8;
-      const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-      *reinterpret_cast<uint4*>(xs + r * kMmaLd + c8) =
-          r < rows ? *reinterpret_cast<const uint4*>(x + (size_t)r * kD + k0 + c8)
-                   : zero;
-      *reinterpret_cast<uint4*>(ws + r * kMmaLd + c8) =
-          *reinterpret_cast<const uint4*>(w0 + (size_t)(k0 + r) * kWld + col0 + c8);
-      if (NW == 2)
-        *reinterpret_cast<uint4*>(ws + kTm * kMmaLd + r * kMmaLd + c8) =
-            *reinterpret_cast<const uint4*>(w1 + (size_t)(k0 + r) * kWld + col0 + c8);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kMmaK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, xs + r0 * kMmaLd + kk, kMmaLd);
-#pragma unroll
-      for (int n = 0; n < NW; ++n)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, ws + n * kTm * kMmaLd + kk * kMmaLd + c0 + 16 * j,
-                                 kMmaLd);
-          wmma::mma_sync(acc[n][j], a, b, acc[n][j]);
-        }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    wmma::store_matrix_sync(d0 + r0 * ld0 + c0 + 16 * j, acc[0][j], ld0,
-                            wmma::mem_row_major);
-    if (NW == 2)
-      wmma::store_matrix_sync(d1 + r0 * ld1 + c0 + 16 * j, acc[NW - 1][j], ld1,
-                              wmma::mem_row_major);
-  }
-}
-
-template <typename T, int NW>
-__device__ __forceinline__ void project(const T* x, int rows, const T* w0,
-                                        const T* w1, int col0, float* st,
-                                        float* d0, int ld0, float* d1,
-                                        int ld1) {
-  if constexpr (std::is_same<T, bf16>::value)
-    project_mma<NW>(x, rows, w0, w1, col0, st, d0, ld0, d1, ld1);
-  else
-    project_fma<T, NW>(x, rows, w0, w1, col0, st, d0, ld0, d1, ld1);
-}
-
-// y[64][512] = o @ fc, f32, into the o_h buffer.  o sits in q's place: f32
-// [64][kLdq] (already rounded to T) for FMA, bf16 [64][kMmaLd] for WMMA.
-__device__ __forceinline__ void out_proj(const float* __restrict__ fcw,
-                                         float* qs, float* stage, float* y) {
-  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
-  for (int n0 = 0; n0 < kD; n0 += kFmaFcCols) {
-    for (int v = t; v < kDk * kFmaFcCols / 8; v += kThreads) {
-      const int d = v / (kFmaFcCols / 8), c = (v % (kFmaFcCols / 8)) * 8;
-      float a[8];
-      ait::load8(fcw + (size_t)d * kD + n0 + c, a);
-      ait::store8(stage + d * kFmaFcCols + c, a);
-    }
-    __syncthreads();
-    float acc[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < kDk; ++d) {
-      float a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * kLdq + d];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float b = stage[d * kFmaFcCols + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] += a[i] * b;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) y[(ty + 16 * i) * kD + n0 + tx + 16 * j] = acc[i][j];
-    __syncthreads();
-  }
-}
-
-__device__ __forceinline__ void out_proj(const bf16* __restrict__ fcw,
-                                         float* qs, float* stage, float* y) {
-  using namespace nvcuda;
-  const bf16* ob = reinterpret_cast<const bf16*>(qs);
-  bf16* fs = reinterpret_cast<bf16*>(stage);   // [64][kMmaFcLd]
-  const int t = threadIdx.x, warp = t >> 5;
-  const int r0 = (warp & 3) * 16, cb = (warp >> 2) * 128;
-  for (int n0 = 0; n0 < kD; n0 += kMmaFcCols) {
-    for (int v = t; v < kDk * kMmaFcCols / 8; v += kThreads) {
-      const int d = v / (kMmaFcCols / 8), c = (v % (kMmaFcCols / 8)) * 8;
-      *reinterpret_cast<uint4*>(fs + d * kMmaFcLd + c) =
-          *reinterpret_cast<const uint4*>(fcw + (size_t)d * kD + n0 + c);
-    }
-    __syncthreads();
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) wmma::fill_fragment(acc[j], 0.f);
-#pragma unroll
-    for (int kk = 0; kk < kDk; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, ob + r0 * kMmaLd + kk, kMmaLd);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, fs + kk * kMmaFcLd + cb + 16 * j, kMmaFcLd);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      wmma::store_matrix_sync(y + r0 * kD + n0 + cb + 16 * j, acc[j], kD,
-                              wmma::mem_row_major);
-    __syncthreads();
-  }
-}
-
+// map_fc: bf16 only (fc [64, 512], boxes of 64 columns x 64 rows, 128-byte
+// swizzle).  Grid: persistent blocks, pair = blockIdx.x, + gridDim.x, ...
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-sh_attn_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
-               const T* __restrict__ wq, const T* __restrict__ wk,
-               const T* __restrict__ wv, const T* __restrict__ skw,
-               const T* __restrict__ skb, const T* __restrict__ fcw,
-               const float* __restrict__ lns, const float* __restrict__ lnb,
-               const uint8_t* __restrict__ mask, T* __restrict__ out,
-               float* __restrict__ oh, float* __restrict__ qsv,
-               float* __restrict__ ksv, float* __restrict__ vsv, int tq,
-               int tk, AttnDrop drop) {
-  extern __shared__ __align__(128) float sm[];
-  float* qs = sm + kOffQ;
-  float* ks = sm + kOffK;
-  float* vs = sm + kOffV;
-  float* st = sm + kOffSt;
-  float* oall = sm + kOffO;
-  float* sv = sm + kOffS;
-  float* gt = sm + kOffG;
+sh_attn_core_kernel(const __grid_constant__ CUtensorMap map_fc, Proj pj,
+                    const T* __restrict__ skw, const T* __restrict__ skb,
+                    const T* __restrict__ fcw, const T* __restrict__ xq,
+                    const float* __restrict__ lns,
+                    const float* __restrict__ lnb,
+                    const uint8_t* __restrict__ mask, T* __restrict__ out,
+                    float* __restrict__ oh, float* __restrict__ qsv,
+                    float* __restrict__ ksv, float* __restrict__ vsv,
+                    int pairs, int tq, int tk, AttnDrop drop) {
+  using namespace hopper;
+  constexpr bool kTc = std::is_same<T, bf16>::value;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* sc = reinterpret_cast<float*>(smem + kCOffS);
+  float* us = reinterpret_cast<float*>(smem + kCOffW);   // head sum [64][64]
+  float* y = reinterpret_cast<float*>(smem + kCOffW);
+  float* gt = reinterpret_cast<float*>(smem + kCOffG);
+  float* sv = reinterpret_cast<float*>(smem + kCOffSv);
+  float* o32 = reinterpret_cast<float*>(smem + kCOffFc);   // f32 only
+  uint8_t* ms = smem + kCOffMask;
+  const uint32_t base = smem_u32(smem);
+  const uint32_t fcbar = base + kCOffBar;
 
   const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
   const int warp = t >> 5, lane = t & 31;
-  const int pair = blockIdx.x, pairs = gridDim.x;
   const uint2 key = drop.seed != nullptr ? ait::seed_key(drop.seed)
                                          : make_uint2(0u, 0u);
-  xq += (size_t)blockIdx.x * tq * kD;
-  xkv += (size_t)blockIdx.x * tk * kD;
-  out += (size_t)blockIdx.x * tq * kD;
+  if constexpr (kTc) {
+    if (t == 0) {       // fc's weight, once per block
+      mbar_init(fcbar, 1);
+      mbar_init_fence();
+      mbar_expect_tx(fcbar, kDk * kD * 2);
+      for (int p = 0; p < kD / 64; ++p)
+        tma_load(base + kCOffFc + p * kPanel, &map_fc, fcbar, 64 * p, 0);
+    }
+  }
+  bool fc_ready = false;
+  for (int e = t; e < tq * tk; e += kThreads)
+    ms[(e / tk) * kTm + e % tk] = mask[e];
 
-  for (int h = 0; h < kHeads; ++h) {
-    project<T, 1>(xq, tq, wq, nullptr, h * kDk, st, qs, kLdq, nullptr, 0);
-    project<T, 2>(xkv, tk, wk, wv, h * kDk, st, ks, kLdq, vs, kDk);
-    __syncthreads();
-    if (qsv != nullptr) {
-      // the save-qkv policy: this head's q / 8, k and v [H, P*T, 64], the
-      // values the backward would otherwise recompute
-      for (int e = t; e < kTm * kDk; e += kThreads) {
-        const int r = e / kDk, c = e % kDk;
-        if (r < tq)
-          qsv[((size_t)h * pairs * tq + (size_t)pair * tq + r) * kDk + c] =
-              qs[r * kLdq + c] * 0.125f;
-        if (r < tk) {
-          const size_t i = ((size_t)h * pairs * tk + (size_t)pair * tk + r) * kDk + c;
-          ksv[i] = ks[r * kLdq + c];
-          vsv[i] = vs[r * kDk + c];
+  for (int pair = blockIdx.x; pair < pairs; pair += gridDim.x) {
+    const size_t qrow0 = (size_t)pair * tq, krow0 = (size_t)pair * tk;
+    __syncthreads();   // the last pair's LayerNorm is done with the work area
+    load_head(pj, qrow0, krow0, 0, tq, tk, base + kCOffW);
+    float oreg[kHeads][16];   // o_h: rows ty + 16 i, columns 4 tx + j
+    // the head loop stays rolled (unrolled, its eight copies of the body, a
+    // Philox call for each of 16 probabilities in each, ran markedly slower
+    // on the H100); each head's o_h reaches its registers through a select
+    // on h
+#pragma unroll 1
+    for (int h = 0; h < kHeads; ++h) {
+      const uint32_t buf = kCOffW + (h & 1) * kHeadBuf;
+      if (h + 1 < kHeads) {
+        // the next head into the other buffer, free once every thread is
+        // done with head h - 1
+        __syncthreads();
+        load_head(pj, qrow0, krow0, h + 1, tq, tk,
+                  base + kCOffW + ((h + 1) & 1) * kHeadBuf);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();   // head h's q, k, v have landed
+      const float* qs = reinterpret_cast<const float*>(smem + buf);
+      const float* ks = qs + kTm * kLdq;
+      const float* vs = ks + kTm * kLdq;
+      if (qsv != nullptr) {
+        // the save-qkv policy: q / 8 [H, P*Tq, 64], k and v [H, P*Tk, 64]
+        for (int e = t; e < kTm * kDk / 4; e += kThreads) {
+          const int r = e >> 4, c = (e & 15) * 4;
+          if (r < tq) {
+            float4 a = *reinterpret_cast<const float4*>(qs + r * kLdq + c);
+            a.x *= pj.qscale;   // exact: the Pallas kernel's q * scale
+            a.y *= pj.qscale;
+            a.z *= pj.qscale;
+            a.w *= pj.qscale;
+            *reinterpret_cast<float4*>(
+                qsv + ((size_t)h * pairs * tq + qrow0 + r) * kDk + c) = a;
+          }
+          if (r < tk) {
+            const size_t i = ((size_t)h * pairs * tk + krow0 + r) * kDk + c;
+            *reinterpret_cast<float4*>(ksv + i) =
+                *reinterpret_cast<const float4*>(ks + r * kLdq + c);
+            *reinterpret_cast<float4*>(vsv + i) =
+                *reinterpret_cast<const float4*>(vs + r * kLdq + c);
+          }
         }
       }
-    }
 
-    // masked scores (q k^T / 8) into the slab area
-    float* sc = st;
-    {
-      float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < kDk; ++d) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * kLdq + d];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = ks[(tx + 16 * j) * kLdq + d];
+      {  // masked scores (q k^T) / 8 (the bits of (q / 8) k^T: the scale is
+         // exact) and the row softmax, in registers: thread (ty, tx) holds
+         // rows ty + 16 i, keys tx + 16 j, so a row lies in one half-warp
+        float acc[4][4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
-      }
+          for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 1
+        for (int d = 0; d < kDk; d += 4) {
+          float4 a[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < 4; ++i)
+            a[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * kLdq + d);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = ty + 16 * i, c = tx + 16 * j;
-          if (r < tq && c < tk)
-            sc[r * kLds + c] = mask[r * tk + c] ? acc[i][j] * 0.125f : -1e9f;
+          for (int j = 0; j < 4; ++j) {
+            const float4 b =
+                *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * kLdq + d);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              acc[i][j] += a[i].x * b.x;
+              acc[i][j] += a[i].y * b.y;
+              acc[i][j] += a[i].z * b.z;
+              acc[i][j] += a[i].w * b.w;
+            }
+          }
         }
-    }
-    __syncthreads();
-
-    // row softmax, one warp per row, then the probability dropout
-    for (int r = warp; r < tq; r += kThreads / 32) {
-      const float v0 = lane < tk ? sc[r * kLds + lane] : -CUDART_INF_F;
-      const float v1 = lane + 32 < tk ? sc[r * kLds + lane + 32] : -CUDART_INF_F;
-      const float m = ait::warp_max(fmaxf(v0, v1));
-      const float e0 = lane < tk ? expf(v0 - m) : 0.f;
-      const float e1 = lane + 32 < tk ? expf(v1 - m) : 0.f;
-      const float sum = ait::warp_sum(e0 + e1);
-      float p0 = e0 / sum, p1 = e1 / sum;
-      if (drop.on()) {
-        if (lane < tk) p0 *= attn_factor(drop, key, h, pair, pairs, tq, tk, r, lane);
-        if (lane + 32 < tk)
-          p1 *= attn_factor(drop, key, h, pair, pairs, tq, tk, r, lane + 32);
-      }
-      if (lane < tk) sc[r * kLds + lane] = p0;
-      if (lane + 32 < tk) sc[r * kLds + lane + 32] = p1;
-    }
-    __syncthreads();
-
-    // o_h = P v_h
-    {
-      float acc[4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      for (int c = 0; c < tk; ++c) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = sc[(ty + 16 * i) * kLds + c];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = vs[c * kDk + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int i = 0; i < 4; ++i) {
           const int r = ty + 16 * i;
-          oall[(h * kTm + r) * kDk + tx + 16 * j] = r < tq ? acc[i][j] : 0.f;
+          // keys past tk: -inf (exp 0); rows past tq: finite, never used
+          float m = -CUDART_INF_F;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int c = tx + 16 * j;
+            float v = -CUDART_INF_F;
+            if (c < tk)
+              v = r >= tq ? 0.f
+                          : ms[r * kTm + c] ? acc[i][j] * pj.qscale : -1e9f;
+            acc[i][j] = v;
+            m = fmaxf(m, v);
+          }
+#pragma unroll
+          for (int o = 8; o > 0; o >>= 1)
+            m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            acc[i][j] = tx + 16 * j < tk ? expf(acc[i][j] - m) : 0.f;
+            sum += acc[i][j];
+          }
+#pragma unroll
+          for (int o = 8; o > 0; o >>= 1)
+            sum += __shfl_xor_sync(0xffffffffu, sum, o);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int c = tx + 16 * j;
+            float p = acc[i][j] / sum;
+            // the probability dropout
+            if (drop.on() && r < tq && c < tk)
+              p *= attn_factor(drop, key, h, pair, pairs, tq, tk, r, c);
+            sc[r * kLdq + c] = p;
+          }
+        }
+      }
+      __syncthreads();
+
+      {  // o_h = P v_h: thread (ty, tx) rows ty + 16 i, columns 4 tx ..
+         // 4 tx + 3; P and v are zero past tk
+        float acc[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+        for (int c = 0; c < tk; c += 4) {
+          float4 a[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            a[i] = *reinterpret_cast<const float4*>(sc + (ty + 16 * i) * kLdq + c);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float4 b =
+                *reinterpret_cast<const float4*>(vs + (c + k) * kLdq + 4 * tx);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float p = k == 0 ? a[i].x : k == 1 ? a[i].y
+                            : k == 2 ? a[i].z : a[i].w;
+              acc[i][0] += p * b.x;
+              acc[i][1] += p * b.y;
+              acc[i][2] += p * b.z;
+              acc[i][3] += p * b.w;
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = ty + 16 * i;
+#pragma unroll
+          for (int hh = 0; hh < kHeads; ++hh)
+            if (hh == h)
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                oreg[hh][4 * i + j] = r < tq ? acc[i][j] : 0.f;
           // the train path's saved per-head output [H, P*Tq, 64]: exactly
           // the value the gate below consumes
           if (oh != nullptr && r < tq)
-            oh[((size_t)h * gridDim.x * tq + (size_t)blockIdx.x * tq + r) * kDk +
-               tx + 16 * j] = acc[i][j];
+            *reinterpret_cast<float4*>(
+                oh + ((size_t)h * pairs * tq + qrow0 + r) * kDk + 4 * tx) =
+                make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
         }
-    }
-    __syncthreads();
-  }
-
-  // gate input: mean over tokens of the head sum
-  if (t < kDk) {
-    float acc = 0.f;
-    for (int r = 0; r < tq; ++r) {
-      float u = 0.f;
-#pragma unroll
-      for (int h = 0; h < kHeads; ++h) u += oall[(h * kTm + r) * kDk + t];
-      acc += u;
-    }
-    sv[t] = acc / tq;
-  }
-  __syncthreads();
-  for (int o = t; o < kHeads * kDk; o += kThreads) {
-    float acc = 0.f;
-    for (int d = 0; d < kDk; ++d) acc += sv[d] * ait::to_float(skw[d * kWld + o]);
-    gt[o] = acc + ait::to_float(skb[o]);
-  }
-  __syncthreads();
-  if (t < kDk) {  // softmax over heads, per channel
-    float m = -CUDART_INF_F;
-#pragma unroll
-    for (int h = 0; h < kHeads; ++h) m = fmaxf(m, gt[h * kDk + t]);
-    float e[kHeads], sum = 0.f;
-#pragma unroll
-    for (int h = 0; h < kHeads; ++h) {
-      e[h] = expf(gt[h * kDk + t] - m);
-      sum += e[h];
-    }
-#pragma unroll
-    for (int h = 0; h < kHeads; ++h) gt[h * kDk + t] = e[h] / sum;
-  }
-  __syncthreads();
-
-  // gated head sum, rounded to the storage type (the fc input), in q's place
-  for (int e = t; e < kTm * kDk; e += kThreads) {
-    const int r = e / kDk, c = e % kDk;
-    float acc = 0.f;
-#pragma unroll
-    for (int h = 0; h < kHeads; ++h) acc += oall[(h * kTm + r) * kDk + c] * gt[h * kDk + c];
-    if constexpr (std::is_same<T, bf16>::value)
-      reinterpret_cast<bf16*>(qs)[r * kMmaLd + c] = __float2bfloat16_rn(acc);
-    else
-      qs[r * kLdq + c] = acc;
-  }
-  __syncthreads();
-
-  float* y = oall;
-  out_proj(fcw, qs, ks, y);
-
-  // output dropout, + residual, LayerNorm; one warp per row
-  for (int r = warp; r < tq; r += kThreads / 32) {
-    float v[16];
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int c = j * 256 + lane * 8;
-      float a[8], m[8];
-      ait::load8(xq + (size_t)r * kD + c, a);
-      out_factors(drop, key, pair, tq, r, c, m);
-      const float4 y0 = *reinterpret_cast<const float4*>(y + r * kD + c);
-      const float4 y1 = *reinterpret_cast<const float4*>(y + r * kD + c + 4);
-      const float yy[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        v[j * 8 + e] = yy[e] * m[e] + a[e];
-        s += v[j * 8 + e];
       }
     }
-    const float mu = ait::warp_sum(s) / kD;
-    float q = 0.f;
+
+    // the head sum, in buffer 0's q (the last head's P v reads only the
+    // scores and buffer 1)
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const float d = v[i] - mu;
-      q += d * d;
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float u = 0.f;
+#pragma unroll
+        for (int h = 0; h < kHeads; ++h) u += oreg[h][4 * i + j];
+        us[(ty + 16 * i) * kDk + 4 * tx + j] = u;
+      }
+    __syncthreads();
+    // gate input: mean over tokens of the head sum
+    if (t < kDk) {
+      float acc = 0.f;
+      for (int r = 0; r < tq; ++r) acc += us[r * kDk + t];
+      sv[t] = acc / tq;
     }
-    const float rs = rsqrtf(ait::warp_sum(q) / kD + 1e-6f);
+    __syncthreads();
+    for (int o = t; o < kHeads * kDk; o += kThreads) {
+      float acc = 0.f;
+      for (int d = 0; d < kDk; ++d)
+        acc += sv[d] * ait::to_float(skw[d * kWld + o]);
+      gt[o] = acc + ait::to_float(skb[o]);
+    }
+    __syncthreads();
+    if (t < kDk) {  // softmax over heads, per channel
+      float m = -CUDART_INF_F;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int c = j * 256 + lane * 8;
-      float o[8];
+      for (int h = 0; h < kHeads; ++h) m = fmaxf(m, gt[h * kDk + t]);
+      float e[kHeads], sum = 0.f;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) o[e] = (v[j * 8 + e] - mu) * rs * lns[c + e] + lnb[c + e];
-      ait::store8(out + (size_t)r * kD + c, o);
+      for (int h = 0; h < kHeads; ++h) {
+        e[h] = expf(gt[h * kDk + t] - m);
+        sum += e[h];
+      }
+#pragma unroll
+      for (int h = 0; h < kHeads; ++h) gt[h * kDk + t] = e[h] / sum;
+    }
+    __syncthreads();
+
+    // gated head sum, rounded to the storage type: fc's input
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = ty + 16 * i, c = 4 * tx + j;
+        float acc = 0.f;
+#pragma unroll
+        for (int h = 0; h < kHeads; ++h)
+          acc += oreg[h][4 * i + j] * gt[h * kDk + c];
+        if constexpr (kTc)
+          *reinterpret_cast<bf16*>(smem + kCOffO + swizzle128(r, c, kPanel)) =
+              __float2bfloat16_rn(acc);
+        else
+          o32[r * kLdq + c] = acc;
+      }
+    if constexpr (kTc) fence_proxy_async();
+    __syncthreads();
+
+    // y = o @ fc [64][512] f32 into the work area
+    if constexpr (kTc) {
+      if (!fc_ready) {
+        mbar_wait(fcbar, 0);
+        fc_ready = true;
+      }
+      const int wg = warp / 4, r = 16 * (warp % 4) + lane / 4;
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn) {   // columns 256 wg + 128 nn ..
+        float acc[64];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kDk / 16; ++kk)
+          wgmma_128<0, 1>(
+              acc, make_desc(base + kCOffO + kk * 32, 16, 1024),
+              make_desc(base + kCOffFc + (4 * wg + 2 * nn) * kPanel +
+                            kk * 2048,
+                        kPanel, 1024),
+              1);
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int col = 256 * wg + 128 * nn + 8 * j + 2 * (lane % 4);
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            *reinterpret_cast<float2*>(y + (r + 8 * hh) * kYLd + col) =
+                make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+        }
+      }
+    } else {
+      for (int n0 = 0; n0 < kD; n0 += 128) {
+        float acc[4][8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+        for (int d = 0; d < kDk; ++d) {
+          float a[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) a[i] = o32[(ty + 16 * i) * kLdq + d];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float b = ait::to_float(fcw[d * kD + n0 + tx + 16 * j]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[i][j] += a[i] * b;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            y[(ty + 16 * i) * kYLd + n0 + tx + 16 * j] = acc[i][j];
+      }
+    }
+    __syncthreads();
+
+    // output dropout, + residual, LayerNorm; one warp per row
+    for (int r = warp; r < tq; r += kThreads / 32) {
+      float v[16];
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = j * 256 + lane * 8;
+        float a[8], m[8];
+        ait::load8(xq + (qrow0 + r) * kD + c, a);
+        out_factors(drop, key, pair, tq, r, c, m);
+        const float4 y0 = *reinterpret_cast<const float4*>(y + r * kYLd + c);
+        const float4 y1 =
+            *reinterpret_cast<const float4*>(y + r * kYLd + c + 4);
+        const float yy[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          v[j * 8 + e] = yy[e] * m[e] + a[e];
+          s += v[j * 8 + e];
+        }
+      }
+      const float mu = ait::warp_sum(s) / kD;
+      float q = 0.f;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const float d = v[i] - mu;
+        q += d * d;
+      }
+      const float rs = rsqrtf(ait::warp_sum(q) / kD + 1e-6f);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = j * 256 + lane * 8;
+        float o[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          o[e] = (v[j * 8 + e] - mu) * rs * lns[c + e] + lnb[c + e];
+        ait::store8(out + (qrow0 + r) * kD + c, o);
+      }
     }
   }
 }
 
 template <typename T>
-int launch(const void* const* p, void* out, void* oh, void* const* qkv,
-           int pairs, int tq, int tk, const AttnDrop& drop,
-           cudaStream_t stream) {
-  const int smem = kSmemFloats * (int)sizeof(float);
-  cudaFuncSetAttribute(sh_attn_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  sh_attn_kernel<T><<<pairs, kThreads, smem, stream>>>(
-      (const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
-      (const T*)p[4], (const T*)p[5], (const T*)p[6], (const T*)p[7],
-      (const float*)p[8], (const float*)p[9], (const uint8_t*)p[10], (T*)out,
-      (float*)oh, (float*)qkv[0], (float*)qkv[1], (float*)qkv[2], tq, tk,
-      drop);
+int launch_core(const Proj& pj, const void* const* p, void* out, void* oh,
+                void* const* qkv, int pairs, int tq, int tk,
+                const AttnDrop& drop, cudaStream_t stream) {
+  CUtensorMap map_fc;
+  memset(&map_fc, 0, sizeof(map_fc));
+  if (std::is_same<T, bf16>::value &&
+      !hopper::make_map(&map_fc, p[2], false, kDk, kD, 64, 64, true))
+    return (int)cudaErrorInvalidValue;
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        sh_attn_core_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kCoreSmem);
+    if (err != cudaSuccess) return (int)err;
+    attr = true;
+  }
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int blocks = pairs < sms ? pairs : sms;
+  sh_attn_core_kernel<T><<<blocks, kThreads, kCoreSmem, stream>>>(
+      map_fc, pj, (const T*)p[0], (const T*)p[1], (const T*)p[2],
+      (const T*)p[3], (const float*)p[4], (const float*)p[5],
+      (const uint8_t*)p[6], (T*)out, (float*)oh, (float*)qkv[0],
+      (float*)qkv[1], (float*)qkv[2], pairs, tq, tk, drop);
   return (int)cudaGetLastError();
 }
 
@@ -545,19 +523,20 @@ int launch(const void* const* p, void* out, void* oh, void* const* qkv,
 //
 // Replaces the per-pair body of ait_tpu/ops/pallas_attention.py:630
 // _fused_bwd_call (kernel `_bwd_kernel`, :412), with or without dropout
-// (`_bwd_rng` :937 and `_bwd_drop` :866 reach it with masks), and with the
-// forward's saved q/k/v in place of the recompute of step 4 under the
-// save-qkv policy (`qkv=`, :559-566).  One block per pair, from the
-// forward's saved per-head outputs oh:
+// (`_bwd_rng` :937 and `_bwd_drop` :866 reach it with masks).  One block per
+// pair, from the forward's saved per-head outputs oh and the projections
+// q/k/v: the forward's saved ones under the save-qkv policy (`qkv=`,
+// :559-566), else csrc/gemm.cu's products, which the wrapper runs again as
+// the forward ran them (the same f32 values either way):
 //   1. rebuild the gate exactly as the forward computed it (same loops), and
 //      o = sum_h gate_h o_h rounded to the storage type (the fc input);
 //   2. in 16-row tiles: y0 = o @ fc, the LayerNorm of y0 + x_q and its
 //      backward (dy), and do = dy @ fc^T; fc sits in shared memory as f32;
 //   3. the gate backward: dgate_h = sum_t do * o_h, the softmax-over-heads
 //      backward (dlogit), ds = dlogit @ sk_w^T and du = ds / Tq;
-//   4. per head: q/k/v recomputed (as in the forward: WMMA for bf16), the
-//      probabilities, dP = do_h v^T with do_h = do * gate_h + du, dv = P^T
-//      do_h, dS = P (dP - rowsum(P dP)), dz = dS k / 8, dk = dS^T q / 8.
+//   4. per head: q / 8, k and v from the projections, the probabilities,
+//      dP = do_h v^T with do_h = do * gate_h + du, dv = P^T do_h,
+//      dS = P (dP - rowsum(P dP)), dz = dS k / 8, dk = dS^T q / 8.
 // Everything between products is f32, as in the Pallas kernel.  With
 // dropout (the forward's `AttnDrop`, masks regenerated from the seed or read
 // from the operands) the LayerNorm input is y0 * ok / kp + x_q, the fc
@@ -571,9 +550,9 @@ int launch(const void* const* p, void* out, void* oh, void* const* qkv,
 // pairs, do not fit beside this block's state in shared memory, so the
 // products over the pair batch run afterwards on csrc/gemm.cu.
 //
-// What bounds it on the H100: operations (the three per-head projections,
-// ~50 MFLOP per pair, as in the forward); the writes of dz/dk/dv (~400 KB per
-// pair in f32) come next.
+// What bounds it on the H100: operations (~30 MFLOP a pair in the scores,
+// P, dP, dS and their products, on CUDA-core FMAs) and the writes of
+// dz/dk/dv (~400 KB a pair in f32).
 
 constexpr int kBLdp = kTm + 1;                     // probabilities, dP, dS
 constexpr int kBOffGm = 0;                         // gate [8][64]
@@ -591,30 +570,23 @@ constexpr int kBEnd2 = kBOffYt + 16 * kD;
 constexpr int kBOffQ = kBOffPh;                    // q_h / 8 [64][kLdq]
 constexpr int kBOffK = kBOffQ + kTm * kLdq;        // k_h
 constexpr int kBOffV = kBOffK + kTm * kLdq;        // v_h
-constexpr int kBOffSt = kBOffV + kTm * kLdq;       // projection slabs
-constexpr int kBOffDoh = kBOffSt + kSlab;          // do_h [64][kLdq]
+constexpr int kBOffDoh = kBOffV + kTm * kLdq;      // do_h [64][kLdq]
 constexpr int kBOffP = kBOffDoh + kTm * kLdq;      // P [64][kBLdp]
 constexpr int kBOffDp = kBOffP + kTm * kBLdp;      // dP, then dS
 constexpr int kBOffMk = kBOffDp + kTm * kBLdp;     // dropout factors
 constexpr int kBEnd4 = kBOffMk + kTm * kBLdp;
 constexpr int kBSmemFloats = kBEnd2 > kBEnd4 ? kBEnd2 : kBEnd4;
-static_assert(kBOffPh % 8 == 0 && kBOffK % 8 == 0 && kBOffV % 8 == 0 &&
-              kBOffSt % 8 == 0, "WMMA tiles need 32-byte alignment");
 static_assert(2 * (kThreads / 32) * kD <= kDk * kD, "LN partials fit in fc's place");
 static_assert(kBSmemFloats * 4 <= 232448, "shared memory of one block");
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-sh_attn_bwd_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
-                   const T* __restrict__ wq, const T* __restrict__ wk,
-                   const T* __restrict__ wv, const T* __restrict__ skw,
+sh_attn_bwd_kernel(Proj pj, const T* __restrict__ xq,
+                   const T* __restrict__ skw,
                    const T* __restrict__ skb, const T* __restrict__ fcw,
                    const float* __restrict__ lns,
                    const uint8_t* __restrict__ mask,
                    const float* __restrict__ oh, const T* __restrict__ g,
-                   const float* __restrict__ qsv,
-                   const float* __restrict__ ksv,
-                   const float* __restrict__ vsv,
                    float* __restrict__ dy_out, float* __restrict__ o_out,
                    float* __restrict__ s_out, float* __restrict__ dgl_out,
                    float* __restrict__ lnp_s, float* __restrict__ lnp_b,
@@ -640,7 +612,6 @@ sh_attn_bwd_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
     return oh[((size_t)h * pairs * tq + qrow0 + r) * kDk + c];
   };
   xq += qrow0 * kD;
-  xkv += krow0 * kD;
   g += qrow0 * kD;
 
   // ---- 1. the gate, as the forward built it
@@ -841,32 +812,21 @@ sh_attn_bwd_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
   float* qs = sm + kBOffQ;
   float* ks = sm + kBOffK;
   float* vs = sm + kBOffV;
-  float* st = sm + kBOffSt;
   float* doh = sm + kBOffDoh;
   float* pp = sm + kBOffP;
   float* dp = sm + kBOffDp;
   float* mk = sm + kBOffMk;
   for (int h = 0; h < kHeads; ++h) {
-    if (qsv != nullptr) {
-      // the save-qkv policy: the forward's q / 8, k and v instead of the
-      // recompute (the same f32 values, so the same gradients bit for bit)
-      for (int e = t; e < kTm * kDk; e += kThreads) {
-        const int r = e / kDk, c = e % kDk;
-        const size_t iq = ((size_t)h * pairs * tq + qrow0 + r) * kDk + c;
-        const size_t ik = ((size_t)h * pairs * tk + krow0 + r) * kDk + c;
-        qs[r * kLdq + c] = r < tq ? qsv[iq] : 0.f;
-        ks[r * kLdq + c] = r < tk ? ksv[ik] : 0.f;
-        vs[r * kLdq + c] = r < tk ? vsv[ik] : 0.f;
-      }
-    } else {
-      project<T, 1>(xq, tq, wq, nullptr, h * kDk, st, qs, kLdq, nullptr, 0);
-      project<T, 2>(xkv, tk, wk, wv, h * kDk, st, ks, kLdq, vs, kLdq);
-    }
-    __syncthreads();
     for (int e = t; e < kTm * kDk; e += kThreads) {
       const int r = e / kDk, c = e % kDk;
-      // exact: the Pallas kernel's q * scale
-      if (qsv == nullptr) qs[r * kLdq + c] *= 0.125f;
+      // q scaled exactly (the Pallas kernel's q * scale) unless saved so
+      qs[r * kLdq + c] =
+          r < tq ? pj.q[(qrow0 + r) * pj.rs + h * pj.q_hs + c] * pj.qscale
+                 : 0.f;
+      ks[r * kLdq + c] =
+          r < tk ? pj.k[(krow0 + r) * pj.rs + h * pj.kv_hs + c] : 0.f;
+      vs[r * kLdq + c] =
+          r < tk ? pj.v[(krow0 + r) * pj.rs + h * pj.kv_hs + c] : 0.f;
       doh[r * kLdq + c] = r < tq ? dos[e] * gm[h * kDk + c] + du[c] : 0.f;
     }
     __syncthreads();
@@ -1012,17 +972,16 @@ sh_attn_bwd_kernel(const T* __restrict__ xq, const T* __restrict__ xkv,
 }
 
 template <typename T>
-int launch_bwd(const void* const* p, void* const* out, int pairs, int tq,
-               int tk, const AttnDrop& drop, cudaStream_t stream) {
+int launch_bwd(const Proj& pj, const void* const* p, void* const* out,
+               int pairs, int tq, int tk, const AttnDrop& drop,
+               cudaStream_t stream) {
   const int smem = kBSmemFloats * (int)sizeof(float);
   cudaFuncSetAttribute(sh_attn_bwd_kernel<T>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   sh_attn_bwd_kernel<T><<<pairs, kThreads, smem, stream>>>(
-      (const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
-      (const T*)p[4], (const T*)p[5], (const T*)p[6], (const T*)p[7],
-      (const float*)p[8], (const uint8_t*)p[9], (const float*)p[10],
-      (const T*)p[11], (const float*)p[12], (const float*)p[13],
-      (const float*)p[14], (float*)out[0], (float*)out[1], (float*)out[2],
+      pj, (const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
+      (const float*)p[4], (const uint8_t*)p[5], (const float*)p[6],
+      (const T*)p[7], (float*)out[0], (float*)out[1], (float*)out[2],
       (float*)out[3], (float*)out[4], (float*)out[5], (float*)out[6],
       (float*)out[7], (float*)out[8], tq, tk, drop, (float*)out[9]);
   return (int)cudaGetLastError();
@@ -1030,57 +989,59 @@ int launch_bwd(const void* const* p, void* const* out, int pairs, int tq,
 
 }  // namespace
 
-// oh: null at eval; on the train path the per-head outputs [8, P*Tq, 64]
-// f32.  qsv, ksv, vsv: all null, or (the save-qkv policy) the per-head q / 8
-// [8, P*Tq, 64], k and v [8, P*Tk, 64] f32 to write.  Dropout: the Philox stream of `seed`, or the f32 operand masks akeep
-// [8, P*Tq, tk] and okeep [P*Tq, 512]; all three null at eval
-extern "C" int sh_attention_fwd(int bf16_io, const void* xq, const void* xkv,
-                                const void* wq, const void* wk, const void* wv,
-                                const void* skw, const void* skb,
-                                const void* fcw, const void* lns,
+// The core of the forward, after the projections: q [P*Tq, 512], k and v
+// [P*Tk, 512] f32 (csrc/gemm.cu's products x @ w, q unscaled).  oh: null at
+// eval; on the train path the per-head outputs [8, P*Tq, 64] f32.  qsv,
+// ksv, vsv: all null, or (the save-qkv policy) the per-head q / 8 [8, P*Tq,
+// 64], k and v [8, P*Tk, 64] f32 to write.  Dropout: the Philox stream of
+// `seed`, or the f32 operand masks akeep [8, P*Tq, tk] and okeep [P*Tq,
+// 512]; all three null at eval
+extern "C" int sh_attention_fwd(int bf16_io, const void* q, const void* k,
+                                const void* v, const void* skw,
+                                const void* skb, const void* fcw,
+                                const void* xq, const void* lns,
                                 const void* lnb, const void* mask, void* out,
                                 void* oh, void* qsv, void* ksv, void* vsv,
-                                int pairs, int tq, int tk,
-                                const void* seed, const void* akeep,
-                                const void* okeep, unsigned thresh,
-                                float inv_keep, void* stream) {
-  const void* p[11] = {xq, xkv, wq, wk, wv, skw, skb, fcw, lns, lnb, mask};
+                                int pairs, int tq, int tk, const void* seed,
+                                const void* akeep, const void* okeep,
+                                unsigned thresh, float inv_keep,
+                                void* stream) {
+  const void* p[7] = {skw, skb, fcw, xq, lns, lnb, mask};
   void* const qkv[3] = {qsv, ksv, vsv};
   if ((akeep == nullptr) != (okeep == nullptr) || (seed && akeep) ||
       (qsv == nullptr) != (ksv == nullptr) || (qsv == nullptr) != (vsv == nullptr))
     return (int)cudaErrorInvalidValue;
   const AttnDrop d{(const int*)seed, (const float*)akeep, (const float*)okeep,
                    thresh, inv_keep};
+  const Proj pj = make_proj(q, k, v, 0, pairs, tq, tk);
   cudaStream_t s = (cudaStream_t)stream;
-  return bf16_io ? launch<bf16>(p, out, oh, qkv, pairs, tq, tk, d, s)
-                 : launch<float>(p, out, oh, qkv, pairs, tq, tk, d, s);
+  return bf16_io ? launch_core<bf16>(pj, p, out, oh, qkv, pairs, tq, tk, d, s)
+                 : launch_core<float>(pj, p, out, oh, qkv, pairs, tq, tk, d, s);
 }
 
 // the per-pair part of the backward; every output is f32: dy [P*Tq, 512],
 // o [P*Tq, 64], s [P, 64], dlogit [P, 512], LayerNorm partials [P, 512] x 2,
 // dz [P*Tq, 512], dk and dv [P*Tk, 512] (head h in columns 64h..64h+63), and
 // with dropout (the forward's) dy0 [P*Tq, 512], fc's output cotangent.
-// qsv, ksv, vsv: all null (q/k/v recomputed per head), or the forward's saved
-// q / 8, k, v [8, P*T, 64] f32 (the save-qkv policy)
+// q, k, v: the projections [P*T, 512] f32 (q unscaled), or with qkv_saved
+// the forward's saved q / 8, k, v [8, P*T, 64] f32 (the save-qkv policy)
 extern "C" int sh_attention_bwd_pairs(
-    int bf16_io, const void* xq, const void* xkv, const void* wq,
-    const void* wk, const void* wv, const void* skw, const void* skb,
+    int bf16_io, const void* xq, const void* skw, const void* skb,
     const void* fcw, const void* lns, const void* mask, const void* oh,
-    const void* g, const void* qsv, const void* ksv, const void* vsv,
-    void* dy, void* o, void* s, void* dgl, void* lnp_s,
+    const void* g, const void* q, const void* k, const void* v,
+    int qkv_saved, void* dy, void* o, void* s, void* dgl, void* lnp_s,
     void* lnp_b, void* dz, void* dk, void* dv, int pairs, int tq, int tk,
     const void* seed, const void* akeep, const void* okeep, unsigned thresh,
     float inv_keep, void* dy0, void* stream) {
-  const void* p[15] = {xq,  xkv,  wq, wk, wv,  skw, skb, fcw,
-                       lns, mask, oh, g,  qsv, ksv, vsv};
+  const void* p[8] = {xq, skw, skb, fcw, lns, mask, oh, g};
   void* out[10] = {dy, o, s, dgl, lnp_s, lnp_b, dz, dk, dv, dy0};
   if ((akeep == nullptr) != (okeep == nullptr) || (seed && akeep) ||
-      ((seed || akeep) && dy0 == nullptr) ||
-      (qsv == nullptr) != (ksv == nullptr) || (qsv == nullptr) != (vsv == nullptr))
+      ((seed || akeep) && dy0 == nullptr) || !q || !k || !v)
     return (int)cudaErrorInvalidValue;
   const AttnDrop d{(const int*)seed, (const float*)akeep, (const float*)okeep,
                    thresh, inv_keep};
+  const Proj pj = make_proj(q, k, v, qkv_saved, pairs, tq, tk);
   cudaStream_t st = (cudaStream_t)stream;
-  return bf16_io ? launch_bwd<bf16>(p, out, pairs, tq, tk, d, st)
-                 : launch_bwd<float>(p, out, pairs, tq, tk, d, st);
+  return bf16_io ? launch_bwd<bf16>(pj, p, out, pairs, tq, tk, d, st)
+                 : launch_bwd<float>(pj, p, out, pairs, tq, tk, d, st);
 }

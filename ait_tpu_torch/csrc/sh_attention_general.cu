@@ -61,6 +61,8 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 using ait::AttnDrop;
+using ait::Proj;
+using ait::make_proj;
 using ait::attn_factor;
 using ait::out_factors;
 
@@ -74,20 +76,6 @@ constexpr int kLd = kDk + 4;      // rows of the q, k, v and do_h tiles
 constexpr int kLds = kT + 1;      // rows of the score tiles
 constexpr int kTile = kT * kLd;
 constexpr int kGateThreads = 1024;
-
-// Where the per-head projections lie: element c of head h of flat row `row`
-// (pair * T + t) of q at q[row * rs + h * q_hs + c].  The projections' own
-// layout is [P*T, 512] (rs 512, head stride 64, q unscaled: qscale 1/8); the
-// save-qkv layout is [H, P*T, 64] (rs 64, head strides P*T*64, q already
-// scaled: qscale 1).
-struct Proj {
-  const float* q;
-  const float* k;
-  const float* v;
-  int rs;
-  size_t q_hs, kv_hs;
-  float qscale;
-};
 
 // dst[r][0..63] = scale * src[(row0 + r) * rs + 0..63] for row0 + r < rows,
 // else 0
@@ -857,15 +845,6 @@ int opt_in(K kernel, int floats) {
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       floats * (int)sizeof(float));
-}
-
-Proj make_proj(const void* q, const void* k, const void* v, int heads_major,
-               int pairs, int tq, int tk) {
-  if (heads_major)
-    return Proj{(const float*)q, (const float*)k, (const float*)v, kDk,
-                (size_t)pairs * tq * kDk, (size_t)pairs * tk * kDk, 1.f};
-  return Proj{(const float*)q, (const float*)k, (const float*)v, kHD, kDk, kDk,
-              0.125f};
 }
 
 template <typename T>

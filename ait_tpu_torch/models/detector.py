@@ -46,6 +46,11 @@ from ait_tpu_torch.ops.roi_align import roi_align
 # device to uint8 inputs
 _NORM_MEAN = (0.485, 0.456, 0.406)
 _NORM_STD = (0.229, 0.224, 0.225)
+# the padding of a uint8 canvas: the mean pixel, round(mean * 255) = (124,
+# 116, 104), which the normalize above maps to ~0, as the reference pads its
+# batches with zeros in normalized space (ait_tpu/data/transforms.py
+# `place_on_canvas`); zero would normalize to (-2.12, -2.04, -1.80)
+CANVAS_FILL = tuple(int(round(m * 255.0)) for m in _NORM_MEAN)
 
 
 def _to_model_input(x, dtype):

@@ -14,17 +14,21 @@ CUDA kernels (which replace ait_tpu/ops/pallas_attention.py:746
 fused_sh_attention): a CUDA tensor goes to a kernel, a CPU tensor to the
 plain version.
 
-Two kernel regimes (`kernel_regime`), one result:
-* "short", both sides <= 64 tokens: csrc/sh_attention.cu, one thread block
-  per pair, everything of the pair on chip;
+Both kernel regimes (`kernel_regime`) start from the projections over all
+pairs, q = x_q wq, k = x_kv wk, v = x_kv wv, f32 [P*T, D] (`project`, three
+products on csrc/gemm.cu's tensor cores in bf16), and give one result:
+* "short", both sides <= 64 tokens: the core kernel of csrc/sh_attention.cu
+  (`short_core`), persistent blocks that take one pair at a time with the
+  rest of the block on chip (scores, softmax, P v, the gate, fc on wgmma,
+  LayerNorm);
 * "general", everything else the JAX package fuses (both sides <= 128 tokens,
   or, its long-sequence regime, one side <= 128 and Tq * Tk <= 192 K: the
   co-attention's 1900 x 64 and 64 x 1900): csrc/sh_attention_general.cu, 64-row
-  tiles across blocks with the per-head projections (csrc/gemm.cu) and outputs
-  in device memory between its launches.
+  tiles across blocks with the per-head outputs in device memory between its
+  launches.
 Every wrapper counts a launch of the general regime in `general_launches` /
 `general_dropout_launches`, of the short one in `launches` /
-`dropout_launches`.
+`dropout_launches` (one per call; the products count in `_gemm.gemm`).
 
 Training:
 * `fused_sh_attention_saved` is the same kernel that also writes each
@@ -32,9 +36,10 @@ Training:
   consumed (replaces the `save_oh` forward, pallas_attention.py:760 `_fwd`);
 * `fused_sh_attention_bwd` is the backward from those saved outputs
   (replaces pallas_attention.py:630 `_fused_bwd_call`): the per-pair part in
-  csrc/sh_attention.cu, the projections' input and weight gradients on
-  csrc/gemm.cu.  Its plain version, `sh_attention_bwd_reference`, is torch
-  autograd through `sh_attention_reference`;
+  csrc/sh_attention.cu from the projections (`project` again, or the saved
+  ones), the projections' input and weight gradients on csrc/gemm.cu.  Its
+  plain version, `sh_attention_bwd_reference`, is torch autograd through
+  `sh_attention_reference`;
 * dropout (keep_prob < 1): both take the mask source of the JAX package's
   two dropout forms.  With `seed` ([2] int32 on the operands' device) the
   kernels draw the masks from the port's Philox stream (csrc/philox.cuh:
@@ -208,9 +213,9 @@ def sh_attention_saved_reference(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w,
 
 _I, _P = ctypes.c_int, ctypes.c_void_p
 _DROP = [_P, _P, _P, ctypes.c_uint, ctypes.c_float]  # seed, masks, thresh, 1/kp
-_FUNCS = {"sh_attention_fwd": [_I] + [_P] * 16 + [_I] * 3 + _DROP + [_P],
-          "sh_attention_bwd_pairs": [_I] + [_P] * 24 + [_I] * 3 + _DROP +
-          [_P, _P]}
+_FUNCS = {"sh_attention_fwd": [_I] + [_P] * 15 + [_I] * 3 + _DROP + [_P],
+          "sh_attention_bwd_pairs": [_I] + [_P] * 11 + [_I] + [_P] * 9 +
+          [_I] * 3 + _DROP + [_P, _P]}
 _GENERAL_FUNCS = {
     "sh_attention_general_fwd": [_I] + [_P] * 17 + [_I] * 3 + _DROP + [_P],
     "sh_attention_general_bwd": [_I, _I] + [_P] * 26 + [_I] * 3 + _DROP + [_P]}
@@ -297,47 +302,111 @@ _TRAIN_COUNTS = ("launches", "dropout_launches", "general_launches",
                  "general_dropout_launches", "qkv_launches")
 
 
+def project(x_q, x_kv, wq, wk, wv):
+    """The projections over all pairs on csrc/gemm.cu (its plain version for
+    CPU tensors): q = x_q wq [P*Tq, D], k = x_kv wk and v = x_kv wv [P*Tk, D],
+    f32 (head h in columns h*d_k.., q unscaled)."""
+    d = x_q.shape[-1]
+    xq2, xkv2 = x_q.reshape(-1, d), x_kv.reshape(-1, d)
+    nn = _gemm.NN
+    return (_gemm.gemm(nn, xq2, wq), _gemm.gemm(nn, xkv2, wk),
+            _gemm.gemm(nn, xkv2, wv))
+
+
+def sh_attention_core_reference(q, k, v, sk_w, sk_b, fc_w, x_q, ln_s, ln_b,
+                                mask, n_head=8, d_k=64, d_v=64, *,
+                                attn_keep=None, out_keep=None, keep_prob=1.0,
+                                seed=None, return_oh=False, return_qkv=False):
+    """Plain version of `short_core`: the block after the projections
+    (`project`'s f32 q, k, v), with the Pallas kernel's cast points: f32
+    between the products (the scores of q / sqrt(d_k), the probabilities,
+    P v, the gate), the gated head sum rounded to x_q's dtype before fc, the
+    LayerNorm in f32.  Same results as `sh_attention_reference`."""
+    p, tq, d = x_q.shape
+    tk = k.shape[0] // p
+    dt = x_q.dtype
+    attn_keep, out_keep = _plain_masks(attn_keep, out_keep, keep_prob, seed,
+                                       p, tq, tk, d, n_head)
+    qh = (q.float() / (d_k ** 0.5)).reshape(p, tq, n_head, d_k).transpose(1, 2)
+    kh = k.float().reshape(p, tk, n_head, d_k).transpose(1, 2)
+    vh = v.float().reshape(p, tk, n_head, d_v).transpose(1, 2)
+    attn = torch.where(mask[None, None], qh @ kh.transpose(-1, -2), -1e9)
+    attn = torch.softmax(attn, dim=-1)
+    if attn_keep is not None:
+        ak = attn_keep.reshape(n_head, p, tq, tk).transpose(0, 1)
+        attn = attn * ak.float() * (1.0 / keep_prob)
+    oh = attn @ vh                                    # [P, H, Tq, d_v] f32
+    s = oh.sum(dim=1).mean(dim=1)
+    gate = s @ sk_w.float() + sk_b.float()
+    gate = torch.softmax(gate.reshape(p, n_head, d_v), dim=1)
+    o = (oh * gate[:, :, None, :]).sum(dim=1).to(dt)
+    y = o.reshape(p * tq, d_v).float() @ fc_w.float()
+    if out_keep is not None:
+        y = y * out_keep.float() * (1.0 / keep_prob)
+    y = y.reshape(p, tq, d) + x_q.float()
+    out = layer_norm_f32(y, ln_s, ln_b).to(dt)
+    if not return_oh:
+        return out
+    res = (out, oh.transpose(0, 1).reshape(n_head, p * tq, d_v))
+    if return_qkv:
+        def heads(x, t, dh):
+            return x.transpose(0, 1).reshape(n_head, p * t, dh)
+
+        res += ((heads(qh, tq, d_k), heads(kh, tk, d_k),
+                 heads(vh, tk, d_v)),)
+    return res
+
+
+def short_core(x_q, proj, sk_w, sk_b, fc_w, ln_s, ln_b, mask, tk, oh=None,
+               qkv=None, drop=_NO_DROP):
+    """The core kernel of csrc/sh_attention.cu on `project`'s f32 q, k, v:
+    out [P, Tq, D] in x_q's dtype; writes the per-head outputs into `oh` and
+    the save-qkv outputs into `qkv` where given.  Operands as `_check`
+    leaves them; counts nothing (its callers do)."""
+    p, tq, _ = x_q.shape
+    out = torch.empty_like(x_q)
+    lib = _build.load("sh_attention", _FUNCS)
+    qkv_ptrs = [t.data_ptr() for t in qkv] if qkv is not None else [None] * 3
+    _build.check(lib.sh_attention_fwd(
+        int(x_q.dtype == torch.bfloat16), *(t.data_ptr() for t in proj),
+        sk_w.data_ptr(), sk_b.data_ptr(), fc_w.data_ptr(), x_q.data_ptr(),
+        ln_s.data_ptr(), ln_b.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        oh.data_ptr() if oh is not None else None, *qkv_ptrs, p, tq, tk,
+        *drop, _build.stream_ptr(x_q.device)), "sh_attention_fwd")
+    return out
+
+
 def _forward(x_q, args, p, tq, tk, regime, oh=None, drop=_NO_DROP,
              save_qkv=False):
     """Launch the regime's forward; returns (out, saved q/k/v or None).
     oh: the [H, P*Tq, d_v] f32 output (the general regime needs one as
-    scratch at eval too and makes it)."""
+    scratch at eval too and makes it).  The projections are dropped when it
+    returns (at eval they are the call's largest transient)."""
     dev, dt = x_q.device, x_q.dtype
-    out = torch.empty_like(x_q)
     qkv = None
     if save_qkv:
         qkv = (_f32(dev, KERNEL_HEADS, p * tq, KERNEL_DK),
                _f32(dev, KERNEL_HEADS, p * tk, KERNEL_DK),
                _f32(dev, KERNEL_HEADS, p * tk, KERNEL_DK))
     if not p:
-        return out, qkv
-    qkv_ptrs = [t.data_ptr() for t in qkv] if save_qkv else [None] * 3
-    bf16 = int(dt == torch.bfloat16)
-    if regime == "short":
-        lib = _build.load("sh_attention", _FUNCS)
-        _build.check(lib.sh_attention_fwd(
-            bf16, *(t.data_ptr() for t in args), out.data_ptr(),
-            oh.data_ptr() if oh is not None else None, *qkv_ptrs, p, tq, tk,
-            *drop, _build.stream_ptr(dev)), "sh_attention_fwd")
-        return out, qkv
+        return torch.empty_like(x_q), qkv
     x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s, ln_b, mask = args[1:]
-    d = x_q.shape[-1]
+    proj = project(x_q, x_kv, wq, wk, wv)
+    if regime == "short":
+        return short_core(x_q, proj, sk_w, sk_b, fc_w, ln_s, ln_b, mask, tk,
+                          oh, qkv, drop), qkv
+    out = torch.empty_like(x_q)
+    qkv_ptrs = [t.data_ptr() for t in qkv] if save_qkv else [None] * 3
     if oh is None:
         oh = _f32(dev, KERNEL_HEADS, p * tq, KERNEL_DK)
-    # the projections over all pairs, f32 [P*T, 512] (head h in columns
-    # 64h..64h+63), on the hand-written tiled product
-    xkv2 = x_kv.view(p * tk, d)
-    qf = _gemm.gemm(_gemm.NN, x_q.view(p * tq, d), wq)
-    kf = _gemm.gemm(_gemm.NN, xkv2, wk)
-    vf = _gemm.gemm(_gemm.NN, xkv2, wv)
     s, gate = _f32(dev, p, KERNEL_DK), _f32(dev, p, KERNEL_HEADS * KERNEL_DK)
     lib = _build.load("sh_attention_general", _GENERAL_FUNCS)
     _build.check(lib.sh_attention_general_fwd(
-        bf16, qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), sk_w.data_ptr(),
-        sk_b.data_ptr(), fc_w.data_ptr(), x_q.data_ptr(), ln_s.data_ptr(),
-        ln_b.data_ptr(), mask.data_ptr(), oh.data_ptr(), *qkv_ptrs,
-        s.data_ptr(), gate.data_ptr(), out.data_ptr(), p, tq, tk, *drop,
-        _build.stream_ptr(dev)), "sh_attention_general_fwd")
+        int(dt == torch.bfloat16), *(t.data_ptr() for t in proj),
+        sk_w.data_ptr(), sk_b.data_ptr(), fc_w.data_ptr(), x_q.data_ptr(),
+        ln_s.data_ptr(), ln_b.data_ptr(), mask.data_ptr(), oh.data_ptr(),
+        *qkv_ptrs, s.data_ptr(), gate.data_ptr(), out.data_ptr(), p, tq, tk,
+        *drop, _build.stream_ptr(dev)), "sh_attention_general_fwd")
     return out, qkv
 
 
@@ -423,14 +492,15 @@ def fused_sh_attention_bwd(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
     None: the projections are recomputed).
 
     Kernel path, with the Pallas kernel's f32-between-products numerics
-    (pallas_attention.py:474-627).  The per-pair part rebuilds the gate and
-    fc/LayerNorm from oh, runs the LayerNorm, fc and gate backward and, per
-    head, the probabilities (from recomputed or saved q/k/v) for dz, dk, dv;
+    (pallas_attention.py:474-627).  The projections are `project`'s again
+    (the forward's values), or the saved q/k/v.  The per-pair part rebuilds
+    the gate and fc/LayerNorm from oh, runs the LayerNorm, fc and gate
+    backward and, per head, the probabilities for dz, dk, dv;
     it writes dy (the LayerNorm input's cotangent), the gated output o, the
     gate's s and logit cotangent, and the per-head dz/dk/dv in f32: one
     block per pair in the short regime (csrc/sh_attention.cu), the tiled
-    launches of csrc/sh_attention_general.cu in the general one (which
-    recomputes the projections on csrc/gemm.cu first).  The products over
+    launches of csrc/sh_attention_general.cu in the general one.  The
+    products over
     the pair batch then run on csrc/gemm.cu: dxq = dy + dz wq^T, dxkv = dk
     wk^T + dv wv^T, dwq = xq^T dz, dwk = xkv^T dk, dwv = xkv^T dv, dfc_w =
     o^T dy0, dsk_w = s^T dlogit; column sums give dsk_b, dln_s and dln_b.
@@ -481,19 +551,17 @@ def fused_sh_attention_bwd(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
     bf16 = int(dt == torch.bfloat16)
     gemm, NN, NT, TN = _gemm.gemm, _gemm.NN, _gemm.NT, _gemm.TN
     xq2, xkv2 = x_q.view(p * tq, d), x_kv.view(p * tk, d)
+    proj = qkv if qkv is not None else project(x_q, x_kv, wq, wk, wv)
     if regime == "short":
         lib = _build.load("sh_attention", _FUNCS)
         _build.check(lib.sh_attention_bwd_pairs(
-            bf16, *(t.data_ptr() for t in args[:9] + (mask, oh, g)),
-            *([t.data_ptr() for t in qkv] if qkv is not None else [None] * 3),
-            *(t.data_ptr() for t in (dy, o, s, dgl)),
+            bf16, *(t.data_ptr() for t in (x_q, sk_w, sk_b, fc_w, ln_s, mask,
+                                          oh, g) + tuple(proj)),
+            int(qkv is not None), *(t.data_ptr() for t in (dy, o, s, dgl)),
             lnp[0].data_ptr(), lnp[1].data_ptr(), dz.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), p, tq, tk, *kdrop, dy0_ptr,
             _build.stream_ptr(dev)), "sh_attention_bwd_pairs")
     else:
-        proj = qkv if qkv is not None else (gemm(NN, xq2, wq),
-                                            gemm(NN, xkv2, wk),
-                                            gemm(NN, xkv2, wv))
         gate, dos, dgp, du, stats = (f32(p, n_head * d_v), f32(p * tq, d_v),
                                      f32(p * tiles, n_head * d_v),
                                      f32(p, d_v), f32(3, n_head * p * tq))
@@ -508,6 +576,7 @@ def fused_sh_attention_bwd(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
             stats.data_ptr(), dz.data_ptr(), dk.data_ptr(), dv.data_ptr(), p,
             tq, tk, *kdrop, _build.stream_ptr(dev)),
             "sh_attention_general_bwd")
+    del proj
     dxq = gemm(NT, dz, wq, cadd=dy).to(dt).view(p, tq, d)
     dxkv = gemm(NT, dk, wk)
     dxkv = gemm(NT, dv, wv, cadd=dxkv, out=dxkv).to(dt).view(p, tk, d)

@@ -5,10 +5,12 @@
 
 `predict_prepared` takes canvases already placed as the data loader ships
 them: canvas [B, 608, 800, 3] uint8 RGB (the image resized to the 600
-scale, zero-padded), query crops [B, 128, 128, 3] uint8 and im_info [B, 3]
-= (h, w, scale).  It returns one [N, 5] (x1, y1, x2, y2, score) float32
-array per pair, in original image coordinates.  The resize from a raw
-image is the loader's work and is not part of the port yet.
+scale, placed top-left, the rest filled with the mean pixel `CANVAS_FILL` =
+(124, 116, 104), which normalizes to ~0), query crops [B, 128, 128, 3]
+uint8 and im_info [B, 3] = (h, w, scale).  It returns one [N, 5] (x1, y1,
+x2, y2, score) float32 array per pair, in original image coordinates.  The
+resize from a raw image is the loader's work and is not part of the port
+yet.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from ait_tpu_torch.config import Config
 from ait_tpu_torch.device import resolve_device
 from ait_tpu_torch.evaluation import postprocess_detections
 from ait_tpu_torch.models import AITDetector
+from ait_tpu_torch.models.detector import CANVAS_FILL  # noqa: F401
 from ait_tpu_torch.train import make_eval_step
 
 

@@ -19,12 +19,20 @@
      |plain| (the backward gate of tools/tpu_kernel_check.py), the saved
      outputs within 2e-3 absolute; bfloat16 at the stated tolerance; NMS
      at the train tops (12032 candidates, cap 2000) bit-equal.
-   * check_gemm: the backward's product kernel (csrc/gemm.cu) at every
-     shape of the default train step against `gemm_reference` (f32 outputs
-     within 1e-4 of max |plain|, bf16 within 8e-3), split K bit-equal across
-     two runs, HGMMA in the built library's SASS, per shape its time beside
-     the plain version's, one PyTorch call's and the bound, summed per step;
-     the FMA-tile products (f32 x f32) under 1 ms a step.
+   * check_gemm: the product kernel (csrc/gemm.cu: the attention
+     projections, the backward's products) at every shape of the default
+     train step against `gemm_reference` (f32 outputs within 1e-4 of max
+     |plain|, bf16 within 8e-3), split K bit-equal across two runs, HGMMA in
+     the built library's SASS, per shape its time beside the plain
+     version's, one PyTorch call's and the bound, summed per step; the
+     FMA-tile products (f32 x f32) under 1 ms a step.
+   * the two forwards on the tensor cores (csrc/ffn.cu, csrc/sh_attention.cu's
+     core after the projections): HGMMA in their libraries, their kernels'
+     registers and spills logged (cuobjdump's resource usage; the FFN's
+     tensor-core kernel must not spill), and every mode
+     (eval, saved outputs, dropout from a seed and from operand masks,
+     save-qkv) at the eval and the train shapes against the plain versions;
+     the attention's eval time also split into its projections and core.
 3. Serves the full-width ResNet-50 flagship (random weights from a numpy
    seed, carried in through the weight bridge) with OneShotPredictor:
    batches of 8 uint8 608x800 canvases and 128x128 queries.  Every kernel's
@@ -229,6 +237,7 @@ def _attn_args(torch, dev, p, tq, tk, dtype, seed):
 
 
 def check_attention(torch, dev):
+    from ait_tpu_torch.ops import fused_attention as fa
     from ait_tpu_torch.ops.fused_attention import (fused_sh_attention,
                                                    sh_attention_reference)
 
@@ -241,6 +250,7 @@ def check_attention(torch, dev):
              ("decoder self", B, 64, 64, causal, True),
              ("decoder cross", 300 * B, 64, 56, cross, False)]
     errs, ms_sum, plain_sum, bound_sum = [], 0.0, 0.0, 0.0
+    parts = [0.0, 0.0]                   # projections, core
     for name, p, tq, tk, mask, self_attn in calls:
         for dtype, tol in ((torch.float32, F32_TOL),
                            # bf16: the plain version rounds q/k/v, P, o_h and
@@ -259,6 +269,13 @@ def check_attention(torch, dev):
                 f"err {err:.3e} (tol {tol})")
         ms = cuda_ms(lambda: fused_sh_attention(*args, mask))
         plain_ms = cuda_ms(lambda: sh_attention_reference(*args, mask))
+        # the route's two parts: the projections on csrc/gemm.cu, then the
+        # per-pair core of csrc/sh_attention.cu
+        proj_ms = cuda_ms(lambda: fa.project(*args[:5]))
+        proj = fa.project(*args[:5])
+        core_ms = cuda_ms(lambda: fa.short_core(args[0], proj, *args[5:10],
+                                                mask, tk))
+        del proj
         d, dk, h = 512, 64, 8
         flops = p * (2 * tq * d * h * dk + 2 * 2 * tk * d * h * dk +
                      h * 2 * 2 * tq * tk * dk + 2 * dk * h * dk +
@@ -267,12 +284,16 @@ def check_attention(torch, dev):
         nbytes = (act + (3 * d * d + dk * h * dk + h * dk + dk * d) * 2 +
                   2 * d * 4 + tq * tk + p * tq * d * 2)
         t_bound, by = bound(nbytes, flops, BF16_FLOP_S)
-        log(f"sh_attention {name}: kernel_ms {ms:.3f} plain_ms "
-            f"{plain_ms:.3f} bound_ms {t_bound:.4f} ({by})")
+        log(f"sh_attention {name}: kernel_ms {ms:.3f} (projections "
+            f"{proj_ms:.3f}, core {core_ms:.3f}) plain_ms {plain_ms:.3f} "
+            f"bound_ms {t_bound:.4f} ({by})")
         ms_sum, plain_sum, bound_sum = (ms_sum + ms, plain_sum + plain_ms,
                                         bound_sum + t_bound)
+        parts[0] += proj_ms
+        parts[1] += core_ms
     return {"max_abs_err": max(errs), "ms": ms_sum, "plain_ms": plain_sum,
-            "bound_ms": bound_sum, "bound_by": "operations"}
+            "bound_ms": bound_sum, "bound_by": "operations",
+            "projection_ms": parts[0], "core_ms": parts[1]}
 
 
 def check_ffn(torch, dev):
@@ -353,6 +374,119 @@ def check_posln(torch, dev):
                                         bound_sum + t_bound)
     return {"max_abs_err": max(errs), "ms": ms_sum, "plain_ms": plain_sum,
             "bound_ms": bound_sum, "bound_by": "bytes"}
+
+
+# the eval path's attention calls at a batch of 8 requests, 300 rois each
+ATTN_EVAL = (("encoder self", 300 * B, 56, 56, True),
+             ("decoder self", B, 64, 64, True),
+             ("decoder cross", 300 * B, 64, 56, False))
+
+
+def check_forward_modes(torch, dev):
+    """The redesigned forwards (csrc/sh_attention.cu's core after the
+    projections, csrc/ffn.cu's tensor-core kernel) in the modes and at the
+    shapes the other checks leave out, at their tolerances: the eval
+    attention at the train shapes; its saved-outputs, dropout (from a seed,
+    and from operand masks) and save-qkv forms at the eval shapes; the FFN
+    at the train row counts, its dropout form at the eval ones.  Returns the
+    float32 errors, by the JSON line's entry."""
+    from ait_tpu_torch.ops import dropout_masks as dm
+    from ait_tpu_torch.ops import fused_attention as fa, fused_ffn as ff
+
+    errs = {k: [] for k in ("sh_attention_fwd", "sh_attention_saved",
+                            "sh_attention_drop_fwd",
+                            "sh_attention_saveqkv_fwd", "ffn_fwd",
+                            "ffn_drop_fwd")}
+
+    def held(key, what, dtype, err, tol):
+        if not (math.isfinite(err) and err <= tol):
+            fail(f"{what} {dtype}: err {err} > {tol}")
+        if dtype == torch.float32:
+            errs[key].append(err)
+        return f"{err:.3e}"
+
+    for name, p, tq, tk, self_attn in ATTN_TRAIN:
+        mask = _attn_mask(torch, dev, tq, tk, self_attn)
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, 2.0 ** -5)):
+            args = _attn_args(torch, dev, p, tq, tk, dtype, seed=tq + tk)
+            e = held("sh_attention_fwd", f"sh_attention {name} (train shape)",
+                     dtype, err_of(fa.fused_sh_attention(*args, mask),
+                                   fa.sh_attention_reference(*args, mask)),
+                     tol)
+            log(f"sh_attention {name} P={p} {tq}x{tk} {dtype}: err {e} "
+                f"(tol {tol})")
+    for i, (name, p, tq, tk, self_attn) in enumerate(ATTN_EVAL):
+        mask = _attn_mask(torch, dev, tq, tk, self_attn)
+        seed = _seed(torch, dev, 70 + i)
+        ak, ok = dm.dropout_keep_masks(seed, p, tq, tk, 512, keep_prob=KEEP)
+        fed = dict(attn_keep=ak, out_keep=ok, keep_prob=KEEP)
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = F32_TOL if dtype == torch.float32 else 2.0 ** -5
+            args = _attn_args(torch, dev, p, tq, tk, dtype, seed=tq + tk)
+            line = []
+            for key, mode, drop, plain in (
+                    ("sh_attention_saved", "saved", {}, {}),
+                    ("sh_attention_drop_fwd", "seed",
+                     dict(seed=seed, keep_prob=KEEP), fed),
+                    ("sh_attention_drop_fwd", "operand masks", fed, fed)):
+                out, oh = fa.fused_sh_attention_saved(*args, mask, **drop)
+                rout, roh = fa.sh_attention_saved_reference(*args, mask,
+                                                            **plain)
+                what = f"sh_attention {mode} {name} (eval shape)"
+                e_out = held(key, what, dtype, err_of(out, rout), tol)
+                e_oh = held(key, what, dtype,
+                            _saved_err(torch, oh, roh, dtype), tol)
+                line.append(f"{mode}: out {e_out} saved {e_oh}")
+                del out, oh, rout, roh
+            out, oh, qkv = fa.fused_sh_attention_saved(*args, mask,
+                                                       save_qkv=True)
+            rout, roh, want = fa.sh_attention_saved_reference(
+                *args, mask, save_qkv=True)
+            what = f"save-qkv {name} (eval shape)"
+            key = "sh_attention_saveqkv_fwd"
+            qtol = F32_TOL if dtype == torch.float32 else 2.0 ** -6
+            e_out = held(key, what, dtype, err_of(out, rout), tol)
+            e_oh = held(key, what, dtype, _saved_err(torch, oh, roh, dtype),
+                        tol)
+            e_qkv = [held(key, what, dtype, _saved_err(torch, a, b, dtype),
+                          qtol) for a, b in zip(qkv, want)]
+            line.append(f"save-qkv: out {e_out} saved {e_oh} q/k/v {e_qkv}")
+            del out, oh, qkv, rout, roh, want
+            log(f"sh_attention {name} P={p} {tq}x{tk} {dtype} (eval shape): "
+                + "; ".join(line))
+        del ak, ok, fed
+
+    g = torch.Generator(device="cpu").manual_seed(8)
+    d, hid = 512, 2048
+    for name, n, drop in (("encoder (train)", B * ROIS * 56, False),
+                          ("decoder (train)", B * ROIS * 64, False),
+                          ("encoder (eval)", 300 * B * 56, True),
+                          ("decoder (eval)", 300 * B * 64, True)):
+        base = [torch.randn(n, d, generator=g),
+                torch.randn(d, hid, generator=g) * d ** -0.5,
+                0.05 * torch.randn(hid, generator=g),
+                torch.randn(hid, d, generator=g) * hid ** -0.5,
+                0.05 * torch.randn(d, generator=g),
+                1 + 0.1 * torch.randn(d, generator=g),
+                0.1 * torch.randn(d, generator=g)]
+        base = [t.to(dev) for t in base]
+        kw, plain, key = {}, {}, "ffn_fwd"
+        if drop:
+            seed = _seed(torch, dev, 80 + n % 7)
+            kw = dict(seed=seed, keep_prob=KEEP)
+            plain = dict(keep=dm.ffn_keep_mask(seed, n, d, keep_prob=KEEP),
+                         keep_prob=KEEP)
+            key = "ffn_drop_fwd"
+        for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, 2.0 ** -6)):
+            args = [base[0].to(dtype), base[1].to(dtype), base[2],
+                    base[3].to(dtype), base[4], base[5], base[6]]
+            e = held(key, f"ffn {name}{' dropout' if drop else ''}", dtype,
+                     err_of(ff.fused_ffn(*args, **kw),
+                            ff.ffn_reference(*args, **plain)), tol)
+            log(f"ffn{' dropout' if drop else ''} {name} N={n} {dtype}: err "
+                f"{e} (tol {tol})")
+        del base, args, plain
+    return {k: max(v) for k, v in errs.items()}
 
 
 # ---------------------------------------------------------- train kernels
@@ -1149,6 +1283,7 @@ def gemm_shapes():
     """csrc/gemm.cu's products in one default train step at B = 8, bf16:
     (name, layout, M, N, K, A dtype, B dtype, epilogue, out dtype, calls per
     step).  The FFN backward's six per call (ops/fused_ffn.py), the attention
+    projections (three in each forward and each backward) and the attention
     backward's eight (ops/fused_attention.py; dxkv and dwk/dwv twice), and
     the long-sequence regime's projection (opt-in, 0 per default step)."""
     import torch
@@ -1166,6 +1301,10 @@ def gemm_shapes():
                  (f"ffn dw2 {tag}", TN, 2048, 512, n, bf, f32, None, bf, 1)]
     for tag, p, tq, tk, _ in ATTN_TRAIN:
         mq, mk = p * tq, p * tk
+        # the projections: q, k, v in the forward and again in the backward
+        rows += [(f"attn proj q {tag}", NN, mq, 512, 512, bf, bf, None, f32, 2),
+                 (f"attn proj kv {tag}", NN, mk, 512, 512, bf, bf, None, f32,
+                  4)]
         rows += [(f"attn dxq {tag}", NT, mq, 512, 512, f32, bf, "cadd", f32, 1),
                  (f"attn dxkv {tag}", NT, mk, 512, 512, f32, bf, "cadd", f32, 2),
                  (f"attn dwq {tag}", TN, 512, 512, mq, bf, f32, None, bf, 1),
@@ -1188,16 +1327,53 @@ def _gemm_library(torch, dev):
         return "torch.matmul in bf16"
 
 
-def hgmma_count():
-    """HGMMA instructions in the built csrc/gemm.cu library."""
+def _cuobjdump(stem, *flags):
     import shutil
 
     from ait_tpu_torch.ops import _build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", _build.library_path("gemm")],
+    return subprocess.run([tool, *flags, _build.library_path(stem)],
                           capture_output=True, text=True, check=True).stdout
-    return sass.count("HGMMA")
+
+
+def hgmma_count(stem="gemm"):
+    """HGMMA instructions in the built library of csrc/<stem>.cu."""
+    return _cuobjdump(stem, "-sass").count("HGMMA")
+
+
+def kernel_resources(stem):
+    """{kernel: "REG:.. STACK:.. SHARED:.. LOCAL:.."} of the built library
+    (cuobjdump's resource usage: registers a thread, the stack frame, where
+    spills go, and static shared memory; the dynamic shared memory is the
+    launcher's)."""
+    res, name = {}, None
+    for line in _cuobjdump(stem, "-res-usage").splitlines():
+        line = line.strip()
+        if line.startswith("Function "):
+            name = line[len("Function "):].rstrip(":")
+        elif name and line.startswith("REG:"):
+            res[name] = " ".join(line.split()[:4])
+    return res
+
+
+def check_tensor_core_libraries():
+    """The redesigned forwards' libraries issue wgmma (HGMMA in the SASS);
+    logs every kernel's registers, stack (spills) and static shared memory,
+    and fails where the FFN's tensor-core kernel spills: its accumulators
+    take 160 registers, and spilling them serializes its wgmmas."""
+    out = {}
+    for stem in ("ffn", "sh_attention"):
+        n = hgmma_count(stem)
+        if n <= 0:
+            fail(f"{stem}: no HGMMA instruction in the built library")
+        for name, use in sorted(kernel_resources(stem).items()):
+            log(f"{stem}: {name[:100]}: {use}")
+            if "ffn_tc_kernel" in name and "STACK:0" not in use:
+                fail(f"{stem}: {name} spills ({use})")
+        log(f"{stem}: {n} HGMMA instructions in the library")
+        out[stem] = n
+    return out
 
 
 def check_gemm(torch, dev):
@@ -1215,7 +1391,7 @@ def check_gemm(torch, dev):
     step; the library's SASS must hold HGMMA."""
     from ait_tpu_torch.ops import _gemm
 
-    hgmma = hgmma_count()
+    hgmma = hgmma_count("gemm")
     if hgmma <= 0:
         fail("gemm: no HGMMA instruction in the built library")
     lib_form = _gemm_library(torch, dev)
@@ -1367,14 +1543,17 @@ _OPT_IN = ("sh_attention_general_fwd", "sh_attention_general_saved",
            "sh_attention_general_drop_bwd", "sh_attention_saveqkv_fwd",
            "sh_attention_saveqkv_bwd")
 _ZERO = dict.fromkeys(_DROP_KERNELS + _OPT_IN, 0)
-# products of a step: 6 per FFN backward and, per attention backward, 7 on
-# the tensor cores and dsk_w (f32 x f32) on the FMA tiles; the general
-# regime's backward also recomputes its 3 projections, its forward makes them
-GEMM_STEP = {"gemm": 2 * 6 + 3 * 7, "gemm_fma": 3}
+# products: every attention forward makes its 3 projections on the tensor
+# cores (both regimes), and every attention backward makes them again unless
+# the forward saved q/k/v, then runs 7 more on the tensor cores and dsk_w
+# (f32 x f32) on the FMA tiles; an FFN backward runs 6
+ATTN_FWD_GEMM, ATTN_BWD_GEMM = 3, 3 + 7
+GEMM_STEP = {"gemm": 2 * 6 + 3 * (ATTN_FWD_GEMM + ATTN_BWD_GEMM),
+             "gemm_fma": 3}
 PER_FORWARD = {**_ZERO, "nms_keep_mask": 2, "sh_attention_fwd": 3,
                "ffn_fwd": 2, "posln_fwd": 2, "sh_attention_saved": 0,
                "sh_attention_bwd": 0, "ffn_bwd": 0, "posln_bwd": 0,
-               "gemm": 0, "gemm_fma": 0}
+               "gemm": 3 * ATTN_FWD_GEMM, "gemm_fma": 0}
 PER_STEP = {**_ZERO, "nms_keep_mask": 1, "sh_attention_fwd": 0, "ffn_fwd": 0,
             "posln_fwd": 0, "sh_attention_saved": 0, "sh_attention_bwd": 0,
             "ffn_bwd": 0, "posln_bwd": 0, "sh_attention_drop_fwd": 3,
@@ -1387,21 +1566,23 @@ PER_STEP_NO_DROPOUT = {**_ZERO, "nms_keep_mask": 1, "sh_attention_fwd": 0,
                        **GEMM_STEP}
 # _LONG_SEQ_FUSION on: the co-attention's two attentions go to the general
 # regime (5 attention launches per forward) and draw seeds, so no mask dump;
-# their projections, 3 per forward and per backward, and the backward's
-# products run on csrc/gemm.cu
-GEMM_STEP_LONG = {"gemm": GEMM_STEP["gemm"] + 2 * (3 + 3 + 7),
+# their products run on csrc/gemm.cu as the transformer's do
+GEMM_STEP_LONG = {"gemm": GEMM_STEP["gemm"] +
+                  2 * (ATTN_FWD_GEMM + ATTN_BWD_GEMM),
                   "gemm_fma": GEMM_STEP["gemm_fma"] + 2}
 PER_FORWARD_LONG = {**PER_FORWARD, "sh_attention_general_fwd": 2,
-                    "gemm": 2 * 3}
+                    "gemm": 5 * ATTN_FWD_GEMM}
 PER_STEP_LONG = {**PER_STEP, "keep_mask_dump": 0,
                  "sh_attention_general_drop_fwd": 2,
                  "sh_attention_general_drop_bwd": 2, **GEMM_STEP_LONG}
 PER_STEP_LONG_NO_DROPOUT = {**PER_STEP_NO_DROPOUT,
                             "sh_attention_general_saved": 2,
                             "sh_attention_general_bwd": 2, **GEMM_STEP_LONG}
-# _SAVE_QKV on: the transformer's three attentions also save and read q/k/v
+# _SAVE_QKV on: the transformer's three attentions also save and read q/k/v,
+# so their backward makes no projections
 PER_STEP_SAVE_QKV = {**PER_STEP, "sh_attention_saveqkv_fwd": 3,
-                     "sh_attention_saveqkv_bwd": 3}
+                     "sh_attention_saveqkv_bwd": 3,
+                     "gemm": GEMM_STEP["gemm"] - 3 * ATTN_FWD_GEMM}
 # accum_steps = 2: every kernel twice per optimizer step
 PER_STEP_ACCUM_2 = {k: 2 * v for k, v in PER_STEP.items()}
 
@@ -1468,9 +1649,14 @@ def plain_path():
 
 
 def make_requests(np, cfg, rng, b):
+    """b requests as a user sends them: canvases padded with the mean
+    pixel (predict.CANVAS_FILL), query crops, im_info."""
+    from ait_tpu_torch.predict import CANVAS_FILL
+
     h, w = cfg.tpu.image_size
     q = cfg.TRAIN.query_size
-    canvas = np.zeros((b, h, w, 3), np.uint8)
+    canvas = np.empty((b, h, w, 3), np.uint8)
+    canvas[:] = CANVAS_FILL
     im_info = np.zeros((b, 3), np.float32)
     for i in range(b):
         # an image resized to the 600 scale, placed top-left on the canvas
@@ -1508,6 +1694,8 @@ def drive_slice(torch, np, dev, cfg, state, batches=BATCHES,
     rng = np.random.RandomState(0)
     requests = [make_requests(np, cfg, rng, B) for _ in range(batches + 1)]
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()
     times = []
     for i, req in enumerate(requests):
@@ -1523,7 +1711,9 @@ def drive_slice(torch, np, dev, cfg, state, batches=BATCHES,
         f"{cfg.tpu.image_size[0]}x{cfg.tpu.image_size[1]}; launches "
         f"{launches}")
     log(f"slice ({what}): ms per batch of {B} (after one warm-up): "
-        f"{[round(t, 3) for t in times]}, mean {sum(times) / len(times):.3f}")
+        f"{[round(t, 3) for t in times]}, mean {sum(times) / len(times):.3f}, "
+        f"peak memory {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} "
+        "GiB")
     compare_paths(torch, np, cfg, state, dev, requests[0])
     return launches
 
@@ -1875,6 +2065,11 @@ def main() -> int:
     qkv = check_save_qkv(torch, dev)
     results.update({f"sh_attention_saveqkv_{k}": v for k, v in qkv.items()})
     results["gemm"] = check_gemm(torch, dev)
+    hgmma = check_tensor_core_libraries()
+    for key, err in check_forward_modes(torch, dev).items():
+        results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
+    results["sh_attention_fwd"]["hgmma"] = hgmma["sh_attention"]
+    results["ffn_fwd"]["hgmma"] = hgmma["ffn"]
 
     cfg, params, state = make_weights(torch)
     paths = {"eval": drive_slice(torch, np, dev, cfg, state)}

@@ -3,7 +3,8 @@
 GPU.
 
     python3 tools/port_profile.py [--train [--t-dropout P]] [--long-seq]
-                                  [--save-qkv] [--out FILE.json]
+                                  [--save-qkv] [--fwd-kernels]
+                                  [--repo DIR] [--out FILE.json]
 
 Builds the full-width ResNet-50 flagship (random weights from a numpy seed
 through ait_tpu_torch.bridge).  By default it serves it with
@@ -27,7 +28,18 @@ reports, as JSON lines on stdout (and in --out):
   summed time over the mean wall clock of an unprofiled batch or step;
 * `gemm_products`: the device time and launches of csrc/gemm.cu's
   products (tensor-core and FMA tiles and their split-K sums);
-* `batch_ms`: host wall clock per batch or step, ending in a synchronize.
+* `batch_ms`: host wall clock per batch or step, ending in a synchronize;
+* `peak_memory_gib`: the most device memory allocated during the timed
+  batches or steps;
+* with --fwd-kernels, first `fwd_kernels`: ms per call (CUDA events, after
+  warm-up, bf16) of the attention and FFN forward wrappers at the eval
+  shapes (300 rois per image) and the train shapes (128 rois per image,
+  dropout from a seed, the attention's saved-outputs form), summed per eval
+  forward or train step.
+
+--repo DIR profiles the ait_tpu_torch of another checkout (e.g. a `git
+archive` of an earlier commit) with this script's measurements, so that two
+versions can be compared in one call on one card.
 
 Imports nothing of JAX or ait_tpu.  Needs a CUDA device.
 """
@@ -43,7 +55,6 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, REPO)
 
 
 def main() -> int:
@@ -59,8 +70,14 @@ def main() -> int:
     ap.add_argument("--save-qkv", action="store_true",
                     help="save q/k/v in the train forward for the backward "
                     "(sets ops.fused_attention._SAVE_QKV)")
+    ap.add_argument("--fwd-kernels", action="store_true",
+                    help="also time the attention and FFN forward kernels "
+                    "at the eval and train shapes")
+    ap.add_argument("--repo", default=REPO,
+                    help="the checkout whose ait_tpu_torch to profile")
     ap.add_argument("--out", help="also write the full result here")
     args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.repo))
     bs, batches = 8, 5
 
     import numpy as np
@@ -81,6 +98,10 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    fwd = _time_fwd_kernels(bs) if args.fwd_kernels else None
+    if fwd is not None:
+        print(json.dumps({"fwd_kernels": fwd}), flush=True)
     attention_mod._LONG_SEQ_FUSION = args.long_seq
     fused_attention._SAVE_QKV = args.save_qkv
     cfg = Config()
@@ -92,8 +113,13 @@ def main() -> int:
     h, w = cfg.tpu.image_size
     q = cfg.TRAIN.query_size
 
+    # the padding users send, predict.CANVAS_FILL, from the normalize's mean
+    # (which a checkout from before that constant has too)
+    fill = [round(m * 255.0) for m in det_mod._NORM_MEAN]
+
     def request():
-        canvas = np.zeros((bs, h, w, 3), np.uint8)
+        canvas = np.empty((bs, h, w, 3), np.uint8)
+        canvas[:] = fill
         canvas[:, :600, :760] = rng.randint(0, 256, (bs, 600, 760, 3))
         query = rng.randint(0, 256, (bs, q, q, 3)).astype(np.uint8)
         info = np.tile(np.asarray([[600, 760, 1.6]], np.float32),
@@ -137,6 +163,7 @@ def main() -> int:
         run(r)
     torch.cuda.synchronize()
     events.clear()
+    torch.cuda.reset_peak_memory_stats()
     batch_ms = []
     for r in reqs[2:]:
         torch.cuda.synchronize()
@@ -146,6 +173,7 @@ def main() -> int:
         batch_ms.append((time.perf_counter() - t0) * 1e3)
     stages = {k: sum(s.elapsed_time(e) for s, e in v) / batches
               for k, v in events.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
     # ---- kernels and busy share: torch.profiler over two batches ---------
     from torch.autograd import DeviceType
@@ -172,12 +200,15 @@ def main() -> int:
                 if "gemm_kernel" in r[0] or "reduce_splits" in r[0]]
     mean_ms = sum(batch_ms) / len(batch_ms)
     result = {
-        "card": card, "path": "train" if args.train else "eval", "bs": bs,
+        "card": card, "repo": os.path.abspath(args.repo),
+        "path": "train" if args.train else "eval", "bs": bs,
         "long_seq": args.long_seq, "save_qkv": args.save_qkv,
         "t_dropout": (cfg.model.t_dropout if args.t_dropout is None
                       else args.t_dropout) if args.train else None,
         "batches": batches,
         "batch_ms": batch_ms,
+        "peak_memory_gib": peak_gib,
+        "fwd_kernels": fwd,
         "stages_ms_per_batch": stages,
         "device_busy_ms_per_batch": busy_ms,
         "device_busy_share": busy_ms / mean_ms,
@@ -190,9 +221,9 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)
-    print(card)
     print(json.dumps({"path": result["path"], "t_dropout": result["t_dropout"],
-                      "batch_ms": batch_ms,
+                      "repo": result["repo"], "batch_ms": batch_ms,
+                      "peak_memory_gib": peak_gib,
                       "device_busy_ms_per_batch": busy_ms,
                       "device_busy_share": result["device_busy_share"],
                       "gemm_products_ms_per_batch":
@@ -204,6 +235,76 @@ def main() -> int:
     for r in result["top_kernels_ms_per_batch"]:
         print(json.dumps(r))
     return 0
+
+
+def _time_fwd_kernels(bs):
+    """{name: ms per call per shape, and their sum} of the attention and
+    FFN forward wrappers, bf16, random operands from a seed: the eval
+    forward's calls (300 rois per image: the encoder's and the decoder's
+    attentions, 56 x 56, 64 x 64 causal, 64 x 56; their FFNs) and the train
+    step's (128 rois per image, dropout 0.1 from a seed)."""
+    import torch
+
+    from ait_tpu_torch.ops import fused_attention as fa, fused_ffn as ff
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(0)
+    bf = torch.bfloat16
+    seed = torch.tensor([1, 2], dtype=torch.int32, device=dev)
+
+    def rn(*shape, scale=1.0, dtype=bf):
+        return (torch.randn(*shape, generator=g) * scale).to(dev, dtype)
+
+    def ms(fn, iters=10):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    def attn_args(p, tq, tk):
+        xq = rn(p, tq, 512)
+        xkv = xq if tq == tk else rn(p, tk, 512)
+        tok = torch.arange(tk, device=dev)
+        mask = (torch.tril(torch.ones(tq, tk, dtype=torch.bool, device=dev))
+                if tq == tk == 64 else (tok < 49)[None].expand(tq, tk))
+        return ([xq, xkv] + [rn(512, 512, scale=512 ** -0.5)
+                             for _ in range(3)] +
+                [rn(64, 512, scale=0.125), rn(512, scale=0.05),
+                 rn(64, 512, scale=0.125), 1 + rn(512, scale=0.1,
+                                                  dtype=torch.float32),
+                 rn(512, scale=0.1, dtype=torch.float32),
+                 mask.contiguous()])
+
+    def ffn_args(n):
+        return [rn(n, 512), rn(512, 2048, scale=512 ** -0.5),
+                rn(2048, scale=0.05, dtype=torch.float32),
+                rn(2048, 512, scale=2048 ** -0.5),
+                rn(512, scale=0.05, dtype=torch.float32),
+                1 + rn(512, scale=0.1, dtype=torch.float32),
+                rn(512, scale=0.1, dtype=torch.float32)]
+
+    res = {}
+    shapes = ((300 * bs, 56, 56), (bs, 64, 64), (300 * bs, 64, 56))
+    res["attention_eval"] = [ms(lambda a=attn_args(*s): fa.fused_sh_attention(
+        *a)) for s in shapes]
+    shapes = ((128 * bs, 56, 56), (bs, 64, 64), (128 * bs, 64, 56))
+    res["attention_train"] = [ms(lambda a=attn_args(*s): (
+        fa.fused_sh_attention_saved(*a, seed=seed, keep_prob=0.9)))
+        for s in shapes]
+    res["ffn_eval"] = [ms(lambda a=ffn_args(n): ff.fused_ffn(*a), 5)
+                       for n in (300 * bs * 56, 300 * bs * 64)]
+    res["ffn_train"] = [ms(lambda a=ffn_args(n): ff.fused_ffn(
+        *a, seed=seed, keep_prob=0.9), 5) for n in (128 * bs * 56,
+                                                   128 * bs * 64)]
+    for k in list(res):
+        res[k + "_sum"] = sum(res[k])
+    return res
 
 
 def _train_runner(cfg, state, request, rng, t_dropout=None):
