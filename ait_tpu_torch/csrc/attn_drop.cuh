@@ -66,6 +66,30 @@ __device__ __forceinline__ float attn_factor(const AttnDrop& d, uint2 key,
          d.inv_keep;
 }
 
+// the group form: the factors of elements (r, c .. c + 3) of head h's [tq,
+// tk] block (c % 4 == 0), 0 past tq and tk.  Where tk % 4 == 0 the four
+// elements are word 0..3 of group (r tk + c) / 4, one Philox call; else each
+// element's word is drawn on its own.  The same bits as attn_factor
+__device__ __forceinline__ float4 attn_factors4(const AttnDrop& d, uint2 key,
+                                               int h, int pair, int pairs,
+                                               int tq, int tk, int r, int c) {
+  float f[4] = {0.f, 0.f, 0.f, 0.f};
+  if (r < tq && c < tk) {
+    if (d.seed != nullptr && (tk & 3) == 0) {
+      const uint4 w = keep_group(key, kTagAttn, h, pair, (r * tk + c) >> 2);
+      f[0] = drop_scale(w.x, d.thresh, d.inv_keep);
+      f[1] = drop_scale(w.y, d.thresh, d.inv_keep);
+      f[2] = drop_scale(w.z, d.thresh, d.inv_keep);
+      f[3] = drop_scale(w.w, d.thresh, d.inv_keep);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (c + j < tk) f[j] = attn_factor(d, key, h, pair, pairs, tq, tk, r, c + j);
+    }
+  }
+  return make_float4(f[0], f[1], f[2], f[3]);
+}
+
 // the output dropout's factors of columns c..c+7 (c % 8 == 0) of row r of
 // pair `pair`; 1 without dropout
 __device__ __forceinline__ void out_factors(const AttnDrop& d, uint2 key,

@@ -77,6 +77,7 @@ using hopper::mbar_expect_tx;
 using hopper::mbar_init;
 using hopper::mbar_wait;
 using hopper::smem_u32;
+using hopper::split_pair;
 using hopper::tma_load;
 using hopper::wgmma_128;
 using hopper::wgmma_commit;
@@ -176,20 +177,6 @@ struct Geo {
   static constexpr uint32_t sbo = 1024;
   static constexpr uint32_t kstep = KMajor ? 32 : 16 * 128;
 };
-
-// hi, mid, lo of a pair of floats, packed as bf16x2
-__device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi,
-                                           uint32_t& mid, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  const float ra = a - hf.x, rb = b - hf.y;
-  const __nv_bfloat162 m = __floats2bfloat162_rn(ra, rb);
-  const float2 mf = __bfloat1622float2(m);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(ra - mf.x, rb - mf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  mid = *reinterpret_cast<const uint32_t*>(&m);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
 
 // the f32 stage `src` ([R][C] row-major) -> three swizzled bf16 tiles at
 // dst, dst + 16 KB, dst + 32 KB; by the 256 consumer threads, 8 columns each

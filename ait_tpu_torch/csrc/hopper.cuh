@@ -1,8 +1,10 @@
 // Hopper building blocks shared by the port's tensor-core kernels
 // (csrc/gemm.cu, csrc/ffn.cu, csrc/sh_attention.cu): shared-memory matrix
-// descriptors for `wgmma`, the asynchronous warpgroup products themselves,
-// `mbarrier` waits and arrivals, 2-D TMA loads, `cp.async`, and the
-// host-side encoder of the TMA tensor maps.
+// descriptors for `wgmma`, the asynchronous warpgroup products themselves
+// (A from shared memory or from registers), the warp-wide `mma.sync`, the
+// exact three-term bf16 split of f32 values, `mbarrier` waits and arrivals,
+// 2-D TMA loads, `cp.async`, and the host-side encoder of the TMA tensor
+// maps.
 //
 // Operand tiles in shared memory are bf16 in the 128-byte swizzle: a tile is
 // kept as panels of 64 columns (128 bytes a row), and 16-byte chunk j of row
@@ -187,6 +189,62 @@ __device__ __forceinline__ void wgmma_64(float (&d)[32], uint64_t da,
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(add), "n"(TA), "n"(TB));
+}
+
+// the same with A (64 x 16 bf16) from registers: warp w of the warpgroup
+// holds rows 16 w + lane / 4 (+ 8), columns 2 (lane % 4) (+ 1) (+ 8) as
+// a[0] (row, col), a[1] (row + 8, col), a[2] (row, col + 8), a[3] (row + 8,
+// col + 8), each a bf16x2 pair: the accumulator fragment's layout.  The
+// registers must stay unchanged until the wgmma has completed (wgmma_wait)
+template <int TB>
+__device__ __forceinline__ void wgmma_64_rs(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int add) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(add),
+        "n"(TB));
+}
+
+// hi, mid, lo of a pair of floats, packed as bf16x2: hi = bf16(v), mid =
+// bf16(v - hi), lo = bf16(v - hi - mid), exact (hi + mid + lo == v) for
+// finite |v| >= 2^-110 (ops/_gemm.py::split3 is the plain version)
+__device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi,
+                                           uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const float ra = a - hf.x, rb = b - hf.y;
+  const __nv_bfloat162 m = __floats2bfloat162_rn(ra, rb);
+  const float2 mf = __bfloat1622float2(m);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(ra - mf.x, rb - mf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  mid = *reinterpret_cast<const uint32_t*>(&m);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// d[4] += A (16 x 16 bf16) B (16 x 8 bf16), one warp (mma.sync m16n8k16):
+// a[0] (row lane / 4, cols 2 (lane % 4) + {0, 1}), a[1] (row + 8), a[2]
+// (cols + 8), a[3] (row + 8, cols + 8); b[0] (k 2 (lane % 4) + {0, 1}, n
+// lane / 4), b[1] (k + 8); d[0..1] (row lane / 4, cols 2 (lane % 4) + {0,
+// 1}), d[2..3] (row + 8)
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ------------------------------------------------------------------ host

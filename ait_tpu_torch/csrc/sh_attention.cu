@@ -523,66 +523,267 @@ int launch_core(const Proj& pj, const void* const* p, void* out, void* oh,
 //
 // Replaces the per-pair body of ait_tpu/ops/pallas_attention.py:630
 // _fused_bwd_call (kernel `_bwd_kernel`, :412), with or without dropout
-// (`_bwd_rng` :937 and `_bwd_drop` :866 reach it with masks).  One block per
-// pair, from the forward's saved per-head outputs oh and the projections
-// q/k/v: the forward's saved ones under the save-qkv policy (`qkv=`,
-// :559-566), else csrc/gemm.cu's products, which the wrapper runs again as
-// the forward ran them (the same f32 values either way):
-//   1. rebuild the gate exactly as the forward computed it (same loops), and
-//      o = sum_h gate_h o_h rounded to the storage type (the fc input);
-//   2. in 16-row tiles: y0 = o @ fc, the LayerNorm of y0 + x_q and its
-//      backward (dy), and do = dy @ fc^T; fc sits in shared memory as f32;
+// (`_bwd_rng` :937 and `_bwd_drop` :866 reach it with masks), from the
+// forward's saved per-head outputs oh and the projections q/k/v: the
+// forward's saved ones under the save-qkv policy (`qkv=`, :559-566), else
+// csrc/gemm.cu's products, which the wrapper runs again as the forward ran
+// them (the same f32 values either way).  Per pair:
+//   1. the gate, rebuilt exactly as the forward computed it (same order of
+//      sums), and o = sum_h gate_h o_h rounded to the storage type;
+//   2. y0 = o @ fc, the LayerNorm of y0 (* the output dropout) + x_q and its
+//      backward (dy, and dy0 = dy * ok / kp, fc's output cotangent), and
+//      do = dy0 @ fc^T;
 //   3. the gate backward: dgate_h = sum_t do * o_h, the softmax-over-heads
 //      backward (dlogit), ds = dlogit @ sk_w^T and du = ds / Tq;
-//   4. per head: q / 8, k and v from the projections, the probabilities,
-//      dP = do_h v^T with do_h = do * gate_h + du, dv = P^T do_h,
+//   4. per head, with do_h = do * gate_h + du: the scores S = (q / 8) k^T,
+//      the probabilities P, dP = (do_h v^T) ak / kp, dv = (P ak / kp)^T do_h,
 //      dS = P (dP - rowsum(P dP)), dz = dS k / 8, dk = dS^T q / 8.
-// Everything between products is f32, as in the Pallas kernel.  With
-// dropout (the forward's `AttnDrop`, masks regenerated from the seed or read
-// from the operands) the LayerNorm input is y0 * ok / kp + x_q, the fc
-// backward takes dy0 = dy * ok / kp while the residual takes dy, and per head
-// dv = (P * ak / kp)^T do_h and dP = (do_h v^T) * ak / kp before the softmax
-// backward (pallas_attention.py:509-599); the head's factors ak / kp sit in
-// shared memory for the two uses.  It writes
-// dy, o, s (the gate input), dlogit, the LayerNorm partials and the per-head
-// dz/dk/dv [rows, 8 x 64] to device memory (and dy0, with dropout): the input gradients (dxq
-// [64, 512] and dxkv, f32) and the weight gradients, which reduce over all
-// pairs, do not fit beside this block's state in shared memory, so the
-// products over the pair batch run afterwards on csrc/gemm.cu.
+// Everything between the products is f32, as in the Pallas kernel.  It
+// writes dy, o, s (the gate input), dlogit, the LayerNorm partials, the
+// per-head dz/dk/dv [rows, 8 x 64] (and dy0, with dropout) to device memory:
+// the input gradients and the weight gradients, which reduce over all pairs,
+// run afterwards as products on csrc/gemm.cu.
 //
-// What bounds it on the H100: operations (~30 MFLOP a pair in the scores,
-// P, dP, dS and their products, on CUDA-core FMAs) and the writes of
-// dz/dk/dv (~400 KB a pair in f32).
+// What bounds it on the H100: bytes.  It reads the f32 q/k/v and oh and the
+// bf16 g and x_q, and writes f32 dy, dy0, o, dz, dk and dv: ~1.16 MB a pair
+// at 56 x 56 tokens, 1.19 GB for the encoder's 1024 pairs, 0.36 ms at
+// 3.35 TB/s.  Its arithmetic, ~29 MFLOP a pair (fc's two products 8.4, the
+// five per-head products 21), would take 0.44 ms on the CUDA cores' FMAs,
+// so the design moves the products to the tensor cores and keeps the card
+// streaming:
+//   * persistent blocks, one per SM, each walking the pairs; fc [64, 512]
+//     loaded once per block by TMA (bf16, 128-byte swizzle: the forward
+//     core's map);
+//   * y0 = o @ fc on wgmma (o is rounded to bf16, so the product is exact in
+//     f32); do = dy0 @ fc^T on wgmma with dy0 in three exact bf16 terms held
+//     in registers (A from registers), each warpgroup half of K = 512, each
+//     64-deep stage added into a second f32 accumulator rounded to nearest
+//     (the tensor cores' additions truncate);
+//   * the five per-head products (f32 x f32 at depth <= 64, as JAX's
+//     preferred_element_type=f32 products) on mma.sync m16n8k16, both
+//     operands split into three exact bf16 terms and the six term products
+//     with i + j <= 2 summed (the three dropped are below 2^-23 of |a| |b|):
+//     near-f32 products, held on the card to 2^-17 sum_k |a_k| |b_k|
+//     (`sh_attention_split_check`; ops/fused_attention.py::split6_matmul is
+//     its plain emulation), a bound that the three-term split (i + j <= 1)
+//     exceeds.  Operands sit in shared memory as f32 tiles in
+//     an XOR swizzle that serves both a tile's rows and its columns (the
+//     transposed operands of dv and dk) without bank conflicts;
+//   * the next head's q and k load (cp.async) while this head is computed,
+//     its v once this head's dP is done;
+//   * the dropout factors from one Philox call per 4 probabilities
+//     (attn_factors4: a lane pair shares a group of 4 columns, each lane
+//     draws one of its two rows' groups and they swap halves);
+//   * the gate phases spread over the block (the head sums and o by 16-byte
+//     loads of 64 threads a row, du a warp per channel), and dz/dk/dv staged
+//     in shared memory for coalesced 16-byte stores.
+// The f32 instantiation (the parity path) keeps CUDA-core FMAs for fc's two
+// products, with fc read from L2, as the forward core does.
 
-constexpr int kBLdp = kTm + 1;                     // probabilities, dP, dS
-constexpr int kBOffGm = 0;                         // gate [8][64]
-constexpr int kBOffDg = kBOffGm + kHeads * kDk;    // dgate, then dlogit
-constexpr int kBOffSv = kBOffDg + kHeads * kDk;    // s [64]
-constexpr int kBOffDu = kBOffSv + kDk;             // du [64]
-constexpr int kBOffDo = kBOffDu + kDk;             // do [64][64]
-constexpr int kBOffOs = kBOffDo + kTm * kDk;       // o, rounded [64][64]
-constexpr int kBOffPh = kBOffOs + kTm * kDk;       // phase-local area
-// phase 2
-constexpr int kBOffFc = kBOffPh;                   // fc as f32 [64][512]
-constexpr int kBOffYt = kBOffFc + kDk * kD;        // y0, then dy [16][512]
-constexpr int kBEnd2 = kBOffYt + 16 * kD;
-// phase 4
-constexpr int kBOffQ = kBOffPh;                    // q_h / 8 [64][kLdq]
-constexpr int kBOffK = kBOffQ + kTm * kLdq;        // k_h
-constexpr int kBOffV = kBOffK + kTm * kLdq;        // v_h
-constexpr int kBOffDoh = kBOffV + kTm * kLdq;      // do_h [64][kLdq]
-constexpr int kBOffP = kBOffDoh + kTm * kLdq;      // P [64][kBLdp]
-constexpr int kBOffDp = kBOffP + kTm * kBLdp;      // dP, then dS
-constexpr int kBOffMk = kBOffDp + kTm * kBLdp;     // dropout factors
-constexpr int kBEnd4 = kBOffMk + kTm * kBLdp;
-constexpr int kBSmemFloats = kBEnd2 > kBEnd4 ? kBEnd2 : kBEnd4;
-static_assert(2 * (kThreads / 32) * kD <= kDk * kD, "LN partials fit in fc's place");
-static_assert(kBSmemFloats * 4 <= 232448, "shared memory of one block");
+// a [64][64] f32 tile in shared memory: element (r, c) at word r * 64 +
+// (c ^ 8 g(r)), g(r) = (r ^ (r >> 1)) & 3.  A warp's fragment reads, pairs
+// (r, c), (r, c + 1) for r = r0 + lane / 4, c = c0 + 2 (lane % 4), and the
+// same pairs of the transposed tile, meet no bank conflict; 16-byte chunks
+// (c % 4 == 0) stay contiguous
+__device__ __forceinline__ int swz(int r, int c) {
+  return r * 64 + (c ^ ((((r >> 1) ^ r) & 3) << 3));
+}
+
+// logical (r, c), (r, c + 1) of the tile X, or of X^T where T
+template <bool T>
+__device__ __forceinline__ float2 pair_at(const float* X, int r, int c) {
+  if (T) return make_float2(X[swz(c, r)], X[swz(c + 1, r)]);
+  return *reinterpret_cast<const float2*>(X + swz(r, c));
+}
+
+// term product e of the six with i + j <= 2, smallest first: (2, 0), (1,
+// 1), (0, 2), (1, 0), (0, 1), (0, 0)
+__device__ constexpr int term_a(int e) { return e < 3 ? 2 - e : e == 3; }
+__device__ constexpr int term_b(int e) { return e < 3 ? e : e == 4; }
+
+// one 16-deep step of a split product: the warp's fragments of A (16 x
+// 16) and B (16 x 32) in three terms each, and their six term products
+template <bool TA, bool TB>
+struct SplitStep {
+  uint32_t at[3][4], bt[4][3][2];
+
+  __device__ __forceinline__ void load(const float* a, const float* b,
+                                       int m0, int n0, int k0, int lane) {
+    const int g = lane >> 2, t2 = 2 * (lane & 3);
+    const float2 v[4] = {pair_at<TA>(a, m0 + g, k0 + t2),
+                         pair_at<TA>(a, m0 + g + 8, k0 + t2),
+                         pair_at<TA>(a, m0 + g, k0 + t2 + 8),
+                         pair_at<TA>(a, m0 + g + 8, k0 + t2 + 8)};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      hopper::split_pair(v[i].x, v[i].y, at[0][i], at[1][i], at[2][i]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 w0 = pair_at<TB>(b, n0 + 8 * j + g, k0 + t2);
+      const float2 w1 = pair_at<TB>(b, n0 + 8 * j + g, k0 + t2 + 8);
+      hopper::split_pair(w0.x, w0.y, bt[j][0][0], bt[j][1][0], bt[j][2][0]);
+      hopper::split_pair(w1.x, w1.y, bt[j][0][1], bt[j][1][1], bt[j][2][1]);
+    }
+  }
+
+  // term by term, the four column tiles' accumulators interleaved
+  __device__ __forceinline__ void mma(float (&acc)[4][4]) const {
+#pragma unroll
+    for (int e = 0; e < 6; ++e)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        hopper::mma_16816(acc[j], at[term_a(e)], bt[j][term_b(e)][0],
+                          bt[j][term_b(e)][1]);
+  }
+};
+
+// acc += A B for a warp's 16 x 32 block (rows m0.., columns n0..) of a 64 x
+// 64 x 64 product of swizzled f32 tiles: A[m][k] is tile `a` (TA: a^T),
+// B[k][n] is tile `b`^T (TB: b itself).  Each operand in three bf16 terms,
+// the six products with i + j <= 2.  acc[j]: rows m0 + lane / 4 (+ 8 in
+// [2], [3]), columns n0 + 8 j + 2 (lane % 4) (+ 1).  The k loop stays
+// rolled: unrolled, the kernel's code grew by 40%, it spilled, and it ran
+// slower on the H100
+template <bool TA, bool TB>
+__device__ __forceinline__ void split_mma(float (&acc)[4][4], const float* a,
+                                          const float* b, int m0, int n0,
+                                          int lane) {
+#pragma unroll 1
+  for (int k0 = 0; k0 < kDk; k0 += 16) {
+    SplitStep<TA, TB> st;
+    st.load(a, b, m0, n0, k0, lane);
+    st.mma(acc);
+  }
+}
+
+// two or three such products in one k loop: more independent loads and
+// mma chains in flight (8 warps an SM leave little else to hide latency)
+template <bool TA1, bool TB1, bool TA2, bool TB2>
+__device__ __forceinline__ void split_mma2(float (&acc1)[4][4],
+                                           const float* a1, const float* b1,
+                                           float (&acc2)[4][4],
+                                           const float* a2, const float* b2,
+                                           int m0, int n0, int lane) {
+#pragma unroll 1
+  for (int k0 = 0; k0 < kDk; k0 += 16) {
+    SplitStep<TA1, TB1> s1;
+    SplitStep<TA2, TB2> s2;
+    s1.load(a1, b1, m0, n0, k0, lane);
+    s2.load(a2, b2, m0, n0, k0, lane);
+    s1.mma(acc1);
+    s2.mma(acc2);
+  }
+}
+
+template <bool TA1, bool TB1, bool TA2, bool TB2, bool TA3, bool TB3>
+__device__ __forceinline__ void split_mma3(
+    float (&acc1)[4][4], const float* a1, const float* b1,
+    float (&acc2)[4][4], const float* a2, const float* b2,
+    float (&acc3)[4][4], const float* a3, const float* b3, int m0, int n0,
+    int lane) {
+#pragma unroll 1
+  for (int k0 = 0; k0 < kDk; k0 += 16) {
+    SplitStep<TA1, TB1> s1;
+    SplitStep<TA2, TB2> s2;
+    SplitStep<TA3, TB3> s3;
+    s1.load(a1, b1, m0, n0, k0, lane);
+    s2.load(a2, b2, m0, n0, k0, lane);
+    s3.load(a3, b3, m0, n0, k0, lane);
+    s1.mma(acc1);
+    s2.mma(acc2);
+    s3.mma(acc3);
+  }
+}
+
+__device__ __forceinline__ void zero44(float (&a)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[j][e] = 0.f;
+}
+
+// a warp's 16 x 32 block (split_mma's fragment) * scale into the swizzled
+// tile X
+__device__ __forceinline__ void store_frag(float* X, const float (&acc)[4][4],
+                                           int m0, int n0, int lane,
+                                           float scale) {
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<float2*>(X + swz(m0 + g + 8 * hh, n0 + 8 * j + t2)) =
+          make_float2(acc[j][2 * hh] * scale, acc[j][2 * hh + 1] * scale);
+}
+
+// rows 0..n-1 of the swizzled tile X into columns col.. of the [rows, 512]
+// matrix at out (row stride 512): 16-byte stores, 16 threads a row
+__device__ __forceinline__ void store_tile(float* __restrict__ out,
+                                           const float* X, int n, int col) {
+  for (int e = threadIdx.x; e < n * 16; e += kThreads) {
+    const int r = e >> 4, c = (e & 15) * 4;
+    *reinterpret_cast<float4*>(out + (size_t)r * kD + col + c) =
+        *reinterpret_cast<const float4*>(X + swz(r, c));
+  }
+}
+
+// head h of the pair's q or k/v rows (row0.., n of them; zero past n) into
+// the swizzled tile at shared address dst: cp.async, uncommitted
+__device__ __forceinline__ void load_rows(const float* src, int rs, size_t hs,
+                                          size_t row0, int n, int h,
+                                          uint32_t dst) {
+  for (int e = threadIdx.x; e < kTm * kDk / 4; e += kThreads) {
+    const int r = e >> 4, c = (e & 15) * 4;
+    hopper::cp_async16(dst + 4 * swz(r, c),
+                       src + (row0 + (r < n ? r : 0)) * rs + h * hs + c,
+                       r < n ? 16 : 0);
+  }
+}
+
+// elements p[0], p[1] as floats (8-byte aligned for float, 4 for bf16)
+__device__ __forceinline__ float2 load2f(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2f(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// shared memory of the backward kernel, bytes from a 1024-byte boundary:
+//   fc    bf16: fc's weight, 8 swizzled panels [64 n][64 k] (TMA, once per
+//         block); f32: o [64][kLdq]
+//   work  phase 1: the head sum u [64][64]; phase 2: y0, then dy0 in place
+//         [64][kYLd] f32, and o as one swizzled bf16 panel; phase 4: eight
+//         swizzled f32 tiles: q and k for two heads, v, do_h, P ak / kp and
+//         dS (the last three then stage dz, dk, dv); the LayerNorm partials
+//         [2][8][512] between phases 2 and 3 (in tiles 2 and 3)
+//   do [64][64] f32, the gate [8][64], dgate then dlogit [8][64], s [64],
+//   du [64], the row reductions of the softmax [3][2][64], the mask (a
+//   64-bit row each), fc's mbarrier
+constexpr uint32_t kBTile = kTm * kDk * 4;
+constexpr uint32_t kBOffFc = 0;
+constexpr uint32_t kBOffW = kDk * kD * 2;
+constexpr uint32_t kBOffOp = kBOffW + kTm * kYLd * 4;      // o panel (bf16)
+constexpr uint32_t kBWork = kBOffOp + kPanel - kBOffW;
+constexpr uint32_t kBOffDo = kBOffW + kBWork;
+constexpr uint32_t kBOffGm = kBOffDo + kTm * kDk * 4;
+constexpr uint32_t kBOffDg = kBOffGm + kHeads * kDk * 4;
+constexpr uint32_t kBOffSv = kBOffDg + kHeads * kDk * 4;
+constexpr uint32_t kBOffDu = kBOffSv + kDk * 4;
+constexpr uint32_t kBOffRed = kBOffDu + kDk * 4;
+constexpr uint32_t kBOffMask = kBOffRed + 3 * 2 * kTm * 4;
+constexpr uint32_t kBOffBar = kBOffMask + kTm * 8;
+constexpr uint32_t kBSmem = 1024 + kBOffBar + 8;
+static_assert(kBOffOp % 1024 == 0, "the o panel on a swizzle boundary");
+static_assert(8 * kBTile <= kBWork, "phase 4's tiles fit the work area");
+static_assert(kTm * kLdq * 4 <= kBOffW, "f32 o fits in fc's place");
+static_assert(kBSmem <= 232448, "shared memory of one block");
+// phase 4's tiles
+enum { kQ0 = 0, kK0 = 1, kQ1 = 2, kK1 = 3, kV = 4, kDoh = 5, kPd = 6, kDs = 7 };
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-sh_attn_bwd_kernel(Proj pj, const T* __restrict__ xq,
-                   const T* __restrict__ skw,
+sh_attn_bwd_kernel(const __grid_constant__ CUtensorMap map_fc, Proj pj,
+                   const T* __restrict__ xq, const T* __restrict__ skw,
                    const T* __restrict__ skb, const T* __restrict__ fcw,
                    const float* __restrict__ lns,
                    const uint8_t* __restrict__ mask,
@@ -591,126 +792,242 @@ sh_attn_bwd_kernel(Proj pj, const T* __restrict__ xq,
                    float* __restrict__ s_out, float* __restrict__ dgl_out,
                    float* __restrict__ lnp_s, float* __restrict__ lnp_b,
                    float* __restrict__ dz_out, float* __restrict__ dk_out,
-                   float* __restrict__ dv_out, int tq, int tk, AttnDrop drop,
-                   float* __restrict__ dy0_out) {
-  extern __shared__ __align__(128) float sm[];
-  float* gm = sm + kBOffGm;
-  float* dg = sm + kBOffDg;
-  float* sv = sm + kBOffSv;
-  float* du = sm + kBOffDu;
-  float* dos = sm + kBOffDo;
-  float* os = sm + kBOffOs;
+                   float* __restrict__ dv_out, int pairs, int tq, int tk,
+                   AttnDrop drop, float* __restrict__ dy0_out) {
+  using namespace hopper;
+  constexpr bool kTc = std::is_same<T, bf16>::value;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t base = smem_u32(smem);
+  const uint32_t fcbar = base + kBOffBar;
+  float* work = reinterpret_cast<float*>(smem + kBOffW);
+  float* y = work;                                   // [64][kYLd]
+  float* o32 = reinterpret_cast<float*>(smem + kBOffFc);   // f32 only
+  float* dos = reinterpret_cast<float*>(smem + kBOffDo);
+  float* gm = reinterpret_cast<float*>(smem + kBOffGm);
+  float* dg = reinterpret_cast<float*>(smem + kBOffDg);
+  float* sv = reinterpret_cast<float*>(smem + kBOffSv);
+  float* du = reinterpret_cast<float*>(smem + kBOffDu);
+  float* red = reinterpret_cast<float*>(smem + kBOffRed);  // [3][2][64]
+  uint64_t* mbits = reinterpret_cast<uint64_t*>(smem + kBOffMask);
+  auto tile = [&](int i) { return work + i * (kBTile / 4); };
+  auto tile_u32 = [&](int i) { return base + kBOffW + i * kBTile; };
 
   const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
   const int warp = t >> 5, lane = t & 31;
-  const int pair = blockIdx.x, pairs = gridDim.x;
   const uint2 key = drop.seed != nullptr ? ait::seed_key(drop.seed)
                                          : make_uint2(0u, 0u);
-  const size_t qrow0 = (size_t)pair * tq;          // first flat row of x_q
-  const size_t krow0 = (size_t)pair * tk;
-  auto ohp = [&](int h, int r, int c) {
-    return oh[((size_t)h * pairs * tq + qrow0 + r) * kDk + c];
-  };
-  xq += qrow0 * kD;
-  g += qrow0 * kD;
-
-  // ---- 1. the gate, as the forward built it
-  if (t < kDk) {
-    float acc = 0.f;
-    for (int r = 0; r < tq; ++r) {
-      float u = 0.f;
-#pragma unroll
-      for (int h = 0; h < kHeads; ++h) u += ohp(h, r, t);
-      acc += u;
+  if constexpr (kTc) {
+    if (t == 0) {       // fc's weight, once per block
+      mbar_init(fcbar, 1);
+      mbar_init_fence();
+      mbar_expect_tx(fcbar, kDk * kD * 2);
+      for (int p = 0; p < kD / 64; ++p)
+        tma_load(base + kBOffFc + p * kPanel, &map_fc, fcbar, 64 * p, 0);
     }
-    sv[t] = acc / tq;
-    s_out[(size_t)pair * kDk + t] = sv[t];
   }
-  __syncthreads();
-  for (int o = t; o < kHeads * kDk; o += kThreads) {
-    float acc = 0.f;
-    for (int d = 0; d < kDk; ++d) acc += sv[d] * ait::to_float(skw[d * kWld + o]);
-    gm[o] = acc + ait::to_float(skb[o]);
-  }
-  __syncthreads();
-  if (t < kDk) {
-    float m = -CUDART_INF_F;
-#pragma unroll
-    for (int h = 0; h < kHeads; ++h) m = fmaxf(m, gm[h * kDk + t]);
-    float e[kHeads], sum = 0.f;
-#pragma unroll
-    for (int h = 0; h < kHeads; ++h) {
-      e[h] = expf(gm[h * kDk + t] - m);
-      sum += e[h];
-    }
-#pragma unroll
-    for (int h = 0; h < kHeads; ++h) gm[h * kDk + t] = e[h] / sum;
-  }
-  __syncthreads();
-  for (int e = t; e < kTm * kDk; e += kThreads) {
-    const int r = e / kDk, c = e % kDk;
-    float v = 0.f;
-    if (r < tq) {
-      float acc = 0.f;
-#pragma unroll
-      for (int h = 0; h < kHeads; ++h) acc += ohp(h, r, c) * gm[h * kDk + c];
-      v = ait::round_to(acc, xq);
-      o_out[(qrow0 + r) * kDk + c] = v;
-    }
-    os[e] = v;
+  bool fc_ready = false;
+  if (t < kTm) {        // the mask, a 64-bit row each
+    uint64_t bits = 0;
+    if (t < tq)
+      for (int c = 0; c < tk; ++c)
+        if (mask[t * tk + c]) bits |= 1ull << c;
+    mbits[t] = bits;
   }
 
-  // ---- 2. fc, LayerNorm and their backward, 16 rows at a time
-  float* fcs = sm + kBOffFc;
-  float* yt = sm + kBOffYt;
-  for (int v = t; v < kDk * kD / 8; v += kThreads) {
-    float a[8];
-    ait::load8(fcw + (size_t)v * 8, a);
-    ait::store8(fcs + v * 8, a);
-  }
-  __syncthreads();
-  float ps[16], pb[16];
+  for (int pair = blockIdx.x; pair < pairs; pair += gridDim.x) {
+    const size_t qrow0 = (size_t)pair * tq, krow0 = (size_t)pair * tk;
+    const float* ohp = oh + qrow0 * kDk;               // head h at h * hstride
+    const size_t hstride = (size_t)pairs * tq * kDk;
+    const T* xqp = xq + qrow0 * kD;
+    const T* gp = g + qrow0 * kD;
+    __syncthreads();   // the last pair is done with every buffer
+
+    // ---- 1. the gate, in the forward's order: u = sum_h o_h, s = (sum_t
+    // u) / Tq, logits s @ sk_w + sk_b, softmax over heads
+    float* us = work;
+    for (int e = t; e < tq * 16; e += kThreads) {
+      const int r = e >> 4, c = (e & 15) * 4;
+      float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-  for (int i = 0; i < 16; ++i) ps[i] = pb[i] = 0.f;
-  for (int r0 = 0; r0 < tq; r0 += 16) {
-    {  // y0 = o @ fc: thread (row t / 16, columns t % 16 + 16 j)
-      const int i = t >> 4;
-      float acc[32];
-#pragma unroll
-      for (int j = 0; j < 32; ++j) acc[j] = 0.f;
-      for (int d = 0; d < kDk; ++d) {
-        const float a = os[(r0 + i) * kDk + d];
-#pragma unroll
-        for (int j = 0; j < 32; ++j) acc[j] += a * fcs[d * kD + tx + 16 * j];
+      for (int h = 0; h < kHeads; ++h) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            ohp + h * hstride + r * kDk + c);
+        u.x += v.x;
+        u.y += v.y;
+        u.z += v.z;
+        u.w += v.w;
       }
-#pragma unroll
-      for (int j = 0; j < 32; ++j) yt[i * kD + tx + 16 * j] = acc[j];
+      *reinterpret_cast<float4*>(us + r * kDk + c) = u;
     }
     __syncthreads();
-    for (int i = warp; i < 16; i += kThreads / 32) {   // one warp per row
-      const int r = r0 + i;
-      if (r >= tq) continue;
-      float y[16], gv[16], m[16];
+    if (t < kDk) {
+      float acc = 0.f;
+      for (int r = 0; r < tq; ++r) acc += us[r * kDk + t];
+      sv[t] = acc / tq;
+      s_out[(size_t)pair * kDk + t] = sv[t];
+    }
+    __syncthreads();
+    {  // logits o = 2 t, 2 t + 1, each summed over d in order
+      const int o = 2 * t;
+      float a0 = 0.f, a1 = 0.f;
+#pragma unroll 32
+      for (int d = 0; d < kDk; ++d) {
+        const float2 w = load2f(skw + d * kWld + o);
+        a0 += sv[d] * w.x;
+        a1 += sv[d] * w.y;
+      }
+      gm[o] = a0 + ait::to_float(skb[o]);
+      gm[o + 1] = a1 + ait::to_float(skb[o + 1]);
+    }
+    __syncthreads();
+    if (t < kDk) {
+      float m = -CUDART_INF_F;
+#pragma unroll
+      for (int h = 0; h < kHeads; ++h) m = fmaxf(m, gm[h * kDk + t]);
+      float e[kHeads], sum = 0.f;
+#pragma unroll
+      for (int h = 0; h < kHeads; ++h) {
+        e[h] = expf(gm[h * kDk + t] - m);
+        sum += e[h];
+      }
+#pragma unroll
+      for (int h = 0; h < kHeads; ++h) gm[h * kDk + t] = e[h] / sum;
+    }
+    __syncthreads();
+    // o = sum_h gate_h o_h rounded to the storage type: fc's input (rows
+    // past tq zero) and an output
+    for (int e = t; e < kTm * 16; e += kThreads) {
+      const int r = e >> 4, c = (e & 15) * 4;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      if (r < tq) {
+#pragma unroll
+        for (int h = 0; h < kHeads; ++h) {
+          const float4 a = *reinterpret_cast<const float4*>(
+              ohp + h * hstride + r * kDk + c);
+          v[0] += a.x * gm[h * kDk + c];
+          v[1] += a.y * gm[h * kDk + c + 1];
+          v[2] += a.z * gm[h * kDk + c + 2];
+          v[3] += a.w * gm[h * kDk + c + 3];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = ait::round_to(v[j], xq);
+        ait::store4(o_out + (qrow0 + r) * kDk + c, v[0], v[1], v[2], v[3]);
+      }
+      if constexpr (kTc) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          *reinterpret_cast<bf16*>(smem + kBOffOp +
+                                   swizzle128(r, c + j, kPanel)) =
+              __float2bfloat16_rn(v[j]);
+      } else {
+        ait::store4(o32 + r * kLdq + c, v[0], v[1], v[2], v[3]);
+      }
+    }
+    if constexpr (kTc) fence_proxy_async();
+    __syncthreads();
+
+    // ---- 2. y0 = o @ fc [64][512] into y
+    if constexpr (kTc) {
+      if (!fc_ready) {
+        mbar_wait(fcbar, 0);
+        fc_ready = true;
+      }
+      const int wg = warp / 4, r = 16 * (warp % 4) + lane / 4;
+#pragma unroll 1
+      for (int nn = 0; nn < 2; ++nn) {   // columns 256 wg + 128 nn ..
+        float acc[64];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kDk / 16; ++kk)
+          wgmma_128<0, 1>(
+              acc, make_desc(base + kBOffOp + kk * 32, 16, 1024),
+              make_desc(base + kBOffFc + (4 * wg + 2 * nn) * kPanel +
+                            kk * 2048,
+                        kPanel, 1024),
+              1);
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int col = 256 * wg + 128 * nn + 8 * j + 2 * (lane % 4);
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            *reinterpret_cast<float2*>(y + (r + 8 * hh) * kYLd + col) =
+                make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+        }
+      }
+    } else {
+      for (int n0 = 0; n0 < kD; n0 += 128) {
+        float acc[4][8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+        for (int d = 0; d < kDk; ++d) {
+          float a[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) a[i] = o32[(ty + 16 * i) * kLdq + d];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float b = ait::to_float(fcw[d * kD + n0 + tx + 16 * j]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) acc[i][j] += a[i] * b;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            y[(ty + 16 * i) * kYLd + n0 + tx + 16 * j] = acc[i][j];
+      }
+    }
+    __syncthreads();
+
+    // LayerNorm of y0 * ok / kp + x_q and its backward, a warp per row:
+    // dy to device memory, dy0 = dy * ok / kp (fc's output cotangent) there
+    // with dropout and into y in place of y0
+    float ps[16], pb[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) ps[i] = pb[i] = 0.f;
+    float xn[16], gn[16];   // the next row's x_q and g
+    auto load_row = [&](int r) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        ait::load8(xqp + (size_t)r * kD + j * 256 + lane * 8, xn + j * 8);
+        ait::load8(gp + (size_t)r * kD + j * 256 + lane * 8, gn + j * 8);
+      }
+    };
+    if (warp < tq) load_row(warp);
+    for (int r = warp; r < tq; r += kThreads / 32) {
+      float v[16], gv[16], m[16], a[16];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        a[e] = xn[e];
+        gv[e] = gn[e];
+      }
+      if (r + kThreads / 32 < tq) load_row(r + kThreads / 32);
       float s = 0.f;
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int c = j * 256 + lane * 8;
-        float a[8], q[8];
-        ait::load8(xq + (size_t)r * kD + c, a);
-        ait::load8(g + (size_t)r * kD + c, q);
+        ait::load8(y + r * kYLd + c, v + j * 8);
         out_factors(drop, key, pair, tq, r, c, m + j * 8);
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          y[j * 8 + e] = yt[i * kD + c + e] * m[j * 8 + e] + a[e];
-          gv[j * 8 + e] = q[e];
-          s += y[j * 8 + e];
+          v[j * 8 + e] = v[j * 8 + e] * m[j * 8 + e] + a[j * 8 + e];
+          s += v[j * 8 + e];
         }
       }
       const float mu = ait::warp_sum(s) / kD;
       float q = 0.f;
 #pragma unroll
       for (int e = 0; e < 16; ++e) {
-        const float d = y[e] - mu;
+        const float d = v[e] - mu;
         q += d * d;
       }
       const float rs = rsqrtf(ait::warp_sum(q) / kD + 1e-6f);
@@ -720,12 +1037,12 @@ sh_attn_bwd_kernel(Proj pj, const T* __restrict__ xq,
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
           const int k = j * 8 + e, c = j * 256 + lane * 8 + e;
-          y[k] = (y[k] - mu) * rs;
-          ps[k] += gv[k] * y[k];
+          v[k] = (v[k] - mu) * rs;
+          ps[k] += gv[k] * v[k];
           pb[k] += gv[k];
           gv[k] *= lns[c];
           m1 += gv[k];
-          m2 += gv[k] * y[k];
+          m2 += gv[k] * v[k];
         }
       m1 = ait::warp_sum(m1) / kD;
       m2 = ait::warp_sum(m2) / kD;
@@ -735,239 +1052,372 @@ sh_attn_bwd_kernel(Proj pj, const T* __restrict__ xq,
         float o[8], o0[8];
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          o[e] = rs * (gv[j * 8 + e] - m1 - y[j * 8 + e] * m2);
-          o0[e] = o[e] * m[j * 8 + e];       // fc's cotangent: dy * ok / kp
-          yt[i * kD + c + e] = o0[e];
+          o[e] = rs * (gv[j * 8 + e] - m1 - v[j * 8 + e] * m2);
+          o0[e] = o[e] * m[j * 8 + e];
         }
+        ait::store8(y + r * kYLd + c, o0);
         ait::store8(dy_out + (qrow0 + r) * kD + c, o);
         if (drop.on()) ait::store8(dy0_out + (qrow0 + r) * kD + c, o0);
       }
     }
     __syncthreads();
-    // do = dy0 @ fc^T: warp w takes 128 of the 16 x 64 outputs, lanes split n
-    for (int k = 0; k < 128; ++k) {
-      const int idx = warp * 128 + k, i = idx / kDk, c = idx % kDk;
-      if (r0 + i >= tq) continue;
-      float acc = 0.f;
-#pragma unroll
-      for (int n = 0; n < kD / 32; ++n)
-        acc += yt[i * kD + lane + 32 * n] * fcs[c * kD + lane + 32 * n];
-      acc = ait::warp_sum(acc);
-      if (lane == 0) dos[(r0 + i) * kDk + c] = acc;
-    }
-    __syncthreads();
-  }
-  for (int e = tq * kDk + t; e < kTm * kDk; e += kThreads) dos[e] = 0.f;
-  {  // LayerNorm partials: the 8 warps in order
-    float* red = fcs;   // [2][8][512]
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        red[warp * kD + j * 256 + lane * 8 + e] = ps[j * 8 + e];
-        red[(8 + warp) * kD + j * 256 + lane * 8 + e] = pb[j * 8 + e];
-      }
-    __syncthreads();
-    for (int c = t; c < kD; c += kThreads) {
-      float a = 0.f, b = 0.f;
-      for (int w = 0; w < kThreads / 32; ++w) {
-        a += red[w * kD + c];
-        b += red[(8 + w) * kD + c];
-      }
-      lnp_s[(size_t)pair * kD + c] = a;
-      lnp_b[(size_t)pair * kD + c] = b;
-    }
-  }
-  __syncthreads();
 
-  // ---- 3. the gate backward
-  for (int o = t; o < kHeads * kDk; o += kThreads) {
-    const int h = o / kDk, c = o % kDk;
-    float acc = 0.f;
-    for (int r = 0; r < tq; ++r) acc += dos[r * kDk + c] * ohp(h, r, c);
-    dg[o] = acc;
-  }
-  __syncthreads();
-  if (t < kDk) {
-    float gdot = 0.f;
+    // do = dy0 @ fc^T [64][64] (rows past tq are zero: so are o's, y0's)
+    if constexpr (kTc) {
+      // warpgroup wg sums k = 256 wg .. 256 wg + 255 in four 64-deep
+      // stages; dy0 in three bf16 terms as A from registers, fc's panel as
+      // a K-major B; each stage's sum is added to `acc` in f32
+      const int wg = warp / 4, t2 = 2 * (lane & 3);
+      const int r = 16 * (warp % 4) + lane / 4;
+      float acc[32];
 #pragma unroll
-    for (int h = 0; h < kHeads; ++h) gdot += gm[h * kDk + t] * dg[h * kDk + t];
+      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+#pragma unroll 1
+      for (int st = 0; st < 4; ++st) {
+        const int k0 = 256 * wg + 64 * st;
+        uint32_t a[4][3][4];
 #pragma unroll
-    for (int h = 0; h < kHeads; ++h) {
-      const float v = gm[h * kDk + t] * (dg[h * kDk + t] - gdot);
-      dg[h * kDk + t] = v;
-      dgl_out[(size_t)pair * kHeads * kDk + h * kDk + t] = v;
-    }
-  }
-  __syncthreads();
-  if (t < kDk) {
-    float acc = 0.f;
-    for (int o = 0; o < kHeads * kDk; ++o)
-      acc += dg[o] * ait::to_float(skw[t * kWld + o]);
-    du[t] = acc / tq;
-  }
-  __syncthreads();
-
-  // ---- 4. per head
-  float* qs = sm + kBOffQ;
-  float* ks = sm + kBOffK;
-  float* vs = sm + kBOffV;
-  float* doh = sm + kBOffDoh;
-  float* pp = sm + kBOffP;
-  float* dp = sm + kBOffDp;
-  float* mk = sm + kBOffMk;
-  for (int h = 0; h < kHeads; ++h) {
-    for (int e = t; e < kTm * kDk; e += kThreads) {
-      const int r = e / kDk, c = e % kDk;
-      // q scaled exactly (the Pallas kernel's q * scale) unless saved so
-      qs[r * kLdq + c] =
-          r < tq ? pj.q[(qrow0 + r) * pj.rs + h * pj.q_hs + c] * pj.qscale
-                 : 0.f;
-      ks[r * kLdq + c] =
-          r < tk ? pj.k[(krow0 + r) * pj.rs + h * pj.kv_hs + c] : 0.f;
-      vs[r * kLdq + c] =
-          r < tk ? pj.v[(krow0 + r) * pj.rs + h * pj.kv_hs + c] : 0.f;
-      doh[r * kLdq + c] = r < tq ? dos[e] * gm[h * kDk + c] + du[c] : 0.f;
-    }
-    __syncthreads();
-    {  // masked scores; zero outside [tq, tk]
+        for (int kk = 0; kk < 4; ++kk) {
+          const float* y0 = y + r * kYLd + k0 + 16 * kk + t2;
+          const float2 v[4] = {*reinterpret_cast<const float2*>(y0),
+                               *reinterpret_cast<const float2*>(y0 + 8 * kYLd),
+                               *reinterpret_cast<const float2*>(y0 + 8),
+                               *reinterpret_cast<const float2*>(y0 + 8 * kYLd + 8)};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            split_pair(v[i].x, v[i].y, a[kk][0][i], a[kk][1][i], a[kk][2][i]);
+        }
+        float sum[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sum[i] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t db = make_desc(
+              base + kBOffFc + (k0 / 64) * kPanel + kk * 32, 16, 1024);
+          wgmma_64_rs<0>(sum, a[kk][2], db, 1);
+          wgmma_64_rs<0>(sum, a[kk][1], db, 1);
+          wgmma_64_rs<0>(sum, a[kk][0], db, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] += sum[i];
+      }
+      // do = warpgroup 0's half + warpgroup 1's
+      if (wg == 1)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            *reinterpret_cast<float2*>(dos + (r + 8 * hh) * kDk + 8 * j + t2) =
+                make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+      __syncthreads();
+      if (wg == 0)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            float2* d =
+                reinterpret_cast<float2*>(dos + (r + 8 * hh) * kDk + 8 * j + t2);
+            const float2 b = *d;
+            *d = make_float2(acc[4 * j + 2 * hh] + b.x,
+                             acc[4 * j + 2 * hh + 1] + b.y);
+          }
+    } else {
       float acc[4][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < kDk; ++d) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * kLdq + d];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = ks[(tx + 16 * j) * kLdq + d];
+#pragma unroll 2
+      for (int k = 0; k < kD; k += 4) {
+        float4 a[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
+          a[i] = *reinterpret_cast<const float4*>(y + (ty + 16 * i) * kYLd + k);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const int r = ty + 16 * i, c = tx + 16 * j;
-          float v = 0.f;
-          if (r < tq && c < tk) v = mask[r * tk + c] ? acc[i][j] : -1e9f;
-          pp[r * kBLdp + c] = v;
+          const float4 b = *reinterpret_cast<const float4*>(
+              fcw + (tx + 16 * j) * kD + k);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[i][j] += a[i].x * b.x;
+            acc[i][j] += a[i].y * b.y;
+            acc[i][j] += a[i].z * b.z;
+            acc[i][j] += a[i].w * b.w;
+          }
         }
-    }
-    __syncthreads();
-    for (int r = warp; r < tq; r += kThreads / 32) {
-      const float v0 = lane < tk ? pp[r * kBLdp + lane] : -CUDART_INF_F;
-      const float v1 = lane + 32 < tk ? pp[r * kBLdp + lane + 32] : -CUDART_INF_F;
-      const float m = ait::warp_max(fmaxf(v0, v1));
-      const float e0 = lane < tk ? expf(v0 - m) : 0.f;
-      const float e1 = lane + 32 < tk ? expf(v1 - m) : 0.f;
-      const float sum = ait::warp_sum(e0 + e1);
-      if (lane < tk) pp[r * kBLdp + lane] = e0 / sum;
-      if (lane + 32 < tk) pp[r * kBLdp + lane + 32] = e1 / sum;
-    }
-    if (drop.on()) {   // this head's factors ak / kp, 0 outside [tq, tk]
-      for (int e = t; e < kTm * kTm; e += kThreads) {
-        const int r = e / kTm, c = e % kTm;
-        mk[r * kBLdp + c] = r < tq && c < tk
-            ? attn_factor(drop, key, h, pair, pairs, tq, tk, r, c) : 0.f;
       }
-    }
-    __syncthreads();
-    {  // dP = (do_h v^T) ak / kp and dv = (P ak / kp)^T do_h
-      float a1[4][4], a2[4][4];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) a1[i][j] = a2[i][j] = 0.f;
-#pragma unroll 4
-      for (int c = 0; c < kDk; ++c) {
-        float a[4], b[4];
+        for (int j = 0; j < 4; ++j)
+          dos[(ty + 16 * i) * kDk + tx + 16 * j] = acc[i][j];
+    }
+    __syncthreads();
+
+    // head 0's q, k and v into the work area (y is spent); the LayerNorm
+    // partials through tiles 2 and 3, the 8 warps in order
+    load_rows(pj.q, pj.rs, pj.q_hs, qrow0, tq, 0, tile_u32(kQ0));
+    load_rows(pj.k, pj.rs, pj.kv_hs, krow0, tk, 0, tile_u32(kK0));
+    cp_async_commit();
+    load_rows(pj.v, pj.rs, pj.kv_hs, krow0, tk, 0, tile_u32(kV));
+    cp_async_commit();
+    {
+      float* part = tile(kQ1);   // [2][8][512]
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = doh[(ty + 16 * i) * kLdq + c];
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = vs[(tx + 16 * j) * kLdq + c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) a1[i][j] += a[i] * b[j];
+        for (int e = 0; e < 8; ++e) {
+          part[warp * kD + j * 256 + lane * 8 + e] = ps[j * 8 + e];
+          part[(8 + warp) * kD + j * 256 + lane * 8 + e] = pb[j * 8 + e];
+        }
+      __syncthreads();
+      for (int c = t; c < kD; c += kThreads) {
+        float a = 0.f, b = 0.f;
+        for (int w = 0; w < kThreads / 32; ++w) {
+          a += part[w * kD + c];
+          b += part[(8 + w) * kD + c];
+        }
+        lnp_s[(size_t)pair * kD + c] = a;
+        lnp_b[(size_t)pair * kD + c] = b;
       }
+    }
+
+    // ---- 3. the gate backward: dgate_h = sum_t do o_h (thread: head t /
+    // 32, channels 2 lane, 2 lane + 1), then dlogit, then du = dlogit sk_w^T
+    // / Tq
+    {
+      const int h = t >> 5, c = 2 * lane;
+      float a0 = 0.f, a1 = 0.f;
+#pragma unroll 8
       for (int r = 0; r < tq; ++r) {
-        float a[4], b[4];
+        const float2 o2 =
+            *reinterpret_cast<const float2*>(ohp + h * hstride + r * kDk + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(dos + r * kDk + c);
+        a0 += d2.x * o2.x;
+        a1 += d2.y * o2.y;
+      }
+      dg[h * kDk + c] = a0;
+      dg[h * kDk + c + 1] = a1;
+    }
+    __syncthreads();
+    if (t < kDk) {
+      float gdot = 0.f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          a[i] = pp[r * kBLdp + ty + 16 * i];
-          if (drop.on()) a[i] *= mk[r * kBLdp + ty + 16 * i];
+      for (int h = 0; h < kHeads; ++h) gdot += gm[h * kDk + t] * dg[h * kDk + t];
+#pragma unroll
+      for (int h = 0; h < kHeads; ++h) {
+        const float v = gm[h * kDk + t] * (dg[h * kDk + t] - gdot);
+        dg[h * kDk + t] = v;
+        dgl_out[(size_t)pair * kHeads * kDk + h * kDk + t] = v;
+      }
+    }
+    __syncthreads();
+    {  // du: 4 threads a channel, 128 columns of sk_w each
+      const int c = t >> 2, q4 = t & 3;
+      float acc = 0.f;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int o = q4 * 128 + i * 8;
+        float w[8];
+        ait::load8(skw + c * kWld + o, w);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc += dg[o + e] * w[e];
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      if (q4 == 0) du[c] = acc / tq;
+    }
+    __syncthreads();
+
+    // ---- 4. per head; warp w computes rows 16 (w % 4) .. of the 64 x 64
+    // products, columns 32 (w / 4) ..; a row of the scores spans warps w
+    // and w + 4, which meet at named barrier 1 + w % 4
+    const int mb = warp & 3, nh = warp >> 2, m0 = 16 * mb, n0 = 32 * nh;
+    const int ra = m0 + (lane >> 2), t2 = 2 * (lane & 3);
+    const bool odd = lane & 1;
+    float* dohs = tile(kDoh);
+#pragma unroll 1
+    for (int h = 0; h < kHeads; ++h) {
+      const float* qs = tile(h & 1 ? kQ1 : kQ0);
+      const float* ks = tile(h & 1 ? kK1 : kK0);
+      for (int e = t; e < kTm * 16; e += kThreads) {   // do_h = do gate_h + du
+        const int r = e >> 4, c = (e & 15) * 4;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (r < tq) {
+          const float4 d = *reinterpret_cast<const float4*>(dos + r * kDk + c);
+          const float* gh = gm + h * kDk + c;
+          v = make_float4(d.x * gh[0] + du[c], d.y * gh[1] + du[c + 1],
+                          d.z * gh[2] + du[c + 2], d.w * gh[3] + du[c + 3]);
         }
+        *reinterpret_cast<float4*>(dohs + swz(r, c)) = v;
+      }
+      if (h + 1 < kHeads) {   // the next head's q and k, into the tiles
+        // that head h - 1 used
+        load_rows(pj.q, pj.rs, pj.q_hs, qrow0, tq, h + 1,
+                  tile_u32(h & 1 ? kQ0 : kQ1));
+        load_rows(pj.k, pj.rs, pj.kv_hs, krow0, tk, h + 1,
+                  tile_u32(h & 1 ? kK0 : kK1));
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();   // head h's q, k, v and do_h are in place
+
+      // S = q k^T and do_h v^T, a warp's 16 x 32 of each
+      float sc[4][4], dp[4][4];
+      zero44(sc);
+      zero44(dp);
+      split_mma2<false, false, false, false>(sc, qs, ks, dp, dohs, tile(kV),
+                                             m0, n0, lane);
+      // element (j, e): row ra + 8 (e / 2), column n0 + 8 j + t2 + e % 2
+      float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = doh[r * kLdq + tx + 16 * j];
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int e = 0; e < 4; ++e) {
+          const int r = ra + 8 * (e >> 1), c = n0 + 8 * j + t2 + (e & 1);
+          // keys past tk: -inf (exp 0); rows past tq: finite, zeroed below
+          float v = -CUDART_INF_F;
+          if (c < tk)
+            v = r >= tq ? 0.f
+                        : (mbits[r] >> c) & 1 ? sc[j][e] * pj.qscale : -1e9f;
+          sc[j][e] = v;
+          mx[e >> 1] = fmaxf(mx[e >> 1], v);
+        }
+      // the two warps of a row meet once for its max and sum: each sums
+      // exp(x - its own max), and the sums are rescaled to the row's max
+      float* rmax = red;
+      float* rsum = red + 2 * kTm;
+      float* rdot = red + 4 * kTm;
+      float sm[2] = {0.f, 0.f};
 #pragma unroll
-          for (int j = 0; j < 4; ++j) a2[i][j] += a[i] * b[j];
+      for (int hh = 0; hh < 2; ++hh) {
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+        mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (n0 + 8 * j + t2 + (e & 1) < tk)
+            sm[e >> 1] += expf(sc[j][e] - mx[e >> 1]);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        sm[hh] += __shfl_xor_sync(0xffffffffu, sm[hh], 1);
+        sm[hh] += __shfl_xor_sync(0xffffffffu, sm[hh], 2);
+        if ((lane & 3) == 0) {
+          rmax[nh * kTm + ra + 8 * hh] = mx[hh];
+          rsum[nh * kTm + ra + 8 * hh] = sm[hh];
+        }
+      }
+      named_sync(1 + mb, 64);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = ra + 8 * hh;
+        const float m0 = rmax[r], m1 = rmax[kTm + r];
+        const float m = fmaxf(m0, m1);
+        // a warp whose columns are all past tk has max -inf and sum 0
+        sm[hh] = (m0 > -CUDART_INF_F ? rsum[r] * expf(m0 - m) : 0.f) +
+                 (m1 > -CUDART_INF_F ? rsum[kTm + r] * expf(m1 - m) : 0.f);
+        mx[hh] = m;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = n0 + 8 * j + t2 + (e & 1);
+          sc[j][e] = c < tk ? expf(sc[j][e] - mx[e >> 1]) : 0.f;
+        }
+
+      // the dropout factors ak / kp (0 outside [tq, tk]): a lane pair
+      // shares a group of 4 columns; the even lane draws row ra's group,
+      // the odd one row ra + 8's, and they swap the halves the other needs
+      float fa[4][4];
+      if (drop.on()) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const int r = ty + 16 * i, c = tx + 16 * j;
-          dp[r * kBLdp + c] = drop.on() ? a1[i][j] * mk[r * kBLdp + c] : a1[i][j];
-          if (r < tk)
-            dv_out[(krow0 + r) * kD + h * kDk + c] = a2[i][j];
+          const int cb = n0 + 8 * j + 4 * ((lane & 3) >> 1);
+          const float4 f = ait::attn_factors4(drop, key, h, pair, pairs, tq,
+                                              tk, odd ? ra + 8 : ra, cb);
+          const float s0 = odd ? f.x : f.z, s1 = odd ? f.y : f.w;
+          const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+          const float r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+          fa[j][0] = odd ? r0 : f.x;
+          fa[j][1] = odd ? r1 : f.y;
+          fa[j][2] = odd ? f.z : r0;
+          fa[j][3] = odd ? f.w : r1;
         }
-    }
-    __syncthreads();
-    for (int r = warp; r < tq; r += kThreads / 32) {   // dS = P (dP - rowdot)
-      const float p0 = lane < tk ? pp[r * kBLdp + lane] : 0.f;
-      const float p1 = lane + 32 < tk ? pp[r * kBLdp + lane + 32] : 0.f;
-      const float d0 = lane < tk ? dp[r * kBLdp + lane] : 0.f;
-      const float d1 = lane + 32 < tk ? dp[r * kBLdp + lane + 32] : 0.f;
-      const float rowdot = ait::warp_sum(p0 * d0 + p1 * d1);
-      if (lane < tk) dp[r * kBLdp + lane] = p0 * (d0 - rowdot);
-      if (lane + 32 < tk) dp[r * kBLdp + lane + 32] = p1 * (d1 - rowdot);
-    }
-    __syncthreads();
-    {  // dz = dS k / 8 and dk = dS^T (q / 8)
-      float a1[4][4], a2[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) a1[i][j] = a2[i][j] = 0.f;
-      for (int s = 0; s < tk; ++s) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = dp[(ty + 16 * i) * kBLdp + s];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = ks[s * kLdq + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) a1[i][j] += a[i] * b[j];
       }
-      for (int r = 0; r < tq; ++r) {
-        float a[4], b[4];
+      // P (times the reciprocal of the row sum), dP ak / kp and
+      // rowsum(P dP)
+      sm[0] = 1.f / sm[0];
+      sm[1] = 1.f / sm[1];
+      float dot[2] = {0.f, 0.f};
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = dp[r * kBLdp + ty + 16 * i];
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = qs[r * kLdq + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) a2[i][j] += a[i] * b[j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = ty + 16 * i, c = tx + 16 * j;
-          if (r < tq) dz_out[(qrow0 + r) * kD + h * kDk + c] = a1[i][j] * 0.125f;
-          if (r < tk) dk_out[(krow0 + r) * kD + h * kDk + c] = a2[i][j];
+        for (int e = 0; e < 4; ++e) {
+          const int r = ra + 8 * (e >> 1);
+          const float p = r < tq ? sc[j][e] * sm[e >> 1] : 0.f;
+          sc[j][e] = p;
+          if (drop.on()) dp[j][e] *= fa[j][e];
+          dot[e >> 1] += p * dp[j][e];
         }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        dot[hh] += __shfl_xor_sync(0xffffffffu, dot[hh], 1);
+        dot[hh] += __shfl_xor_sync(0xffffffffu, dot[hh], 2);
+        if ((lane & 3) == 0) rdot[nh * kTm + ra + 8 * hh] = dot[hh];
+      }
+      named_sync(1 + mb, 64);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        dot[hh] = rdot[ra + 8 * hh] + rdot[kTm + ra + 8 * hh];
+      // P ak / kp (for dv) and dS = P (dP - rowsum) into their tiles
+      float* pds = tile(kPd);
+      float* dss = tile(kDs);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int r = ra + 8 * hh, c = n0 + 8 * j + t2;
+          float2 pd = make_float2(sc[j][2 * hh], sc[j][2 * hh + 1]);
+          if (drop.on()) {
+            pd.x *= fa[j][2 * hh];
+            pd.y *= fa[j][2 * hh + 1];
+          }
+          *reinterpret_cast<float2*>(pds + swz(r, c)) = pd;
+          *reinterpret_cast<float2*>(dss + swz(r, c)) = make_float2(
+              sc[j][2 * hh] * (dp[j][2 * hh] - dot[hh]),
+              sc[j][2 * hh + 1] * (dp[j][2 * hh + 1] - dot[hh]));
+        }
+      __syncthreads();   // P ak / kp and dS complete; v is free
+      if (h + 1 < kHeads) {
+        load_rows(pj.v, pj.rs, pj.kv_hs, krow0, tk, h + 1, tile_u32(kV));
+        cp_async_commit();
+      }
+
+      // dv = (P ak / kp)^T do_h, dk = dS^T q / 8, dz = dS k / 8
+      float dv[4][4], dk[4][4], dz[4][4];
+      zero44(dv);
+      zero44(dk);
+      zero44(dz);
+      split_mma3<true, true, true, true, false, true>(
+          dv, pds, dohs, dk, dss, qs, dz, dss, ks, m0, n0, lane);
+      __syncthreads();   // every warp is done with the operands
+      store_frag(pds, dv, m0, n0, lane, 1.f);
+      store_frag(dss, dk, m0, n0, lane, pj.qscale);
+      store_frag(dohs, dz, m0, n0, lane, 0.125f);
+      __syncthreads();
+      store_tile(dv_out + krow0 * kD, pds, tk, h * kDk);
+      store_tile(dk_out + krow0 * kD, dss, tk, h * kDk);
+      store_tile(dz_out + qrow0 * kD, dohs, tq, h * kDk);
+      __syncthreads();   // the staging tiles are read before the next head
     }
-    __syncthreads();
   }
 }
 
@@ -975,16 +1425,67 @@ template <typename T>
 int launch_bwd(const Proj& pj, const void* const* p, void* const* out,
                int pairs, int tq, int tk, const AttnDrop& drop,
                cudaStream_t stream) {
-  const int smem = kBSmemFloats * (int)sizeof(float);
-  cudaFuncSetAttribute(sh_attn_bwd_kernel<T>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  sh_attn_bwd_kernel<T><<<pairs, kThreads, smem, stream>>>(
-      pj, (const T*)p[0], (const T*)p[1], (const T*)p[2], (const T*)p[3],
-      (const float*)p[4], (const uint8_t*)p[5], (const float*)p[6],
-      (const T*)p[7], (float*)out[0], (float*)out[1], (float*)out[2],
-      (float*)out[3], (float*)out[4], (float*)out[5], (float*)out[6],
-      (float*)out[7], (float*)out[8], tq, tk, drop, (float*)out[9]);
+  CUtensorMap map_fc;
+  memset(&map_fc, 0, sizeof(map_fc));
+  if (std::is_same<T, bf16>::value &&
+      !hopper::make_map(&map_fc, p[3], false, kDk, kD, 64, 64, true))
+    return (int)cudaErrorInvalidValue;
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        sh_attn_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kBSmem);
+    if (err != cudaSuccess) return (int)err;
+    attr = true;
+  }
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int blocks = pairs < sms ? pairs : sms;
+  sh_attn_bwd_kernel<T><<<blocks, kThreads, kBSmem, stream>>>(
+      map_fc, pj, (const T*)p[0], (const T*)p[1], (const T*)p[2],
+      (const T*)p[3], (const float*)p[4], (const uint8_t*)p[5],
+      (const float*)p[6], (const T*)p[7], (float*)out[0], (float*)out[1],
+      (float*)out[2], (float*)out[3], (float*)out[4], (float*)out[5],
+      (float*)out[6], (float*)out[7], (float*)out[8], pairs, tq, tk, drop,
+      (float*)out[9]);
   return (int)cudaGetLastError();
+}
+
+// the per-head products' arithmetic on its own (split_mma, one block per
+// [64, 64] x [64, 64] product): out_i = op(a_i) op(b_i), op a transpose
+// where TA / TB, so that a check on the card holds the three-term split to
+// its stated bound
+template <bool TA, bool TB>
+__global__ void __launch_bounds__(kThreads)
+split_check_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                   float* __restrict__ out) {
+  __shared__ __align__(16) float sa[kTm * kDk];
+  __shared__ __align__(16) float sb[kTm * kDk];
+  const size_t off = (size_t)blockIdx.x * kTm * kDk;
+  for (int e = threadIdx.x; e < kTm * 16; e += kThreads) {
+    const int r = e >> 4, c = (e & 15) * 4;
+    *reinterpret_cast<float4*>(sa + swz(r, c)) =
+        *reinterpret_cast<const float4*>(a + off + r * kDk + c);
+    *reinterpret_cast<float4*>(sb + swz(r, c)) =
+        *reinterpret_cast<const float4*>(b + off + r * kDk + c);
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m0 = 16 * (warp & 3), n0 = 32 * (warp >> 2);
+  float acc[4][4];
+  zero44(acc);
+  // split_mma's B is its tile transposed unless TB: op(b) = b^T means the
+  // tile b is read as given
+  split_mma<TA, !TB>(acc, sa, sb, m0, n0, lane);
+  __syncthreads();
+  store_frag(sa, acc, m0, n0, lane, 1.f);
+  __syncthreads();
+  for (int e = threadIdx.x; e < kTm * 16; e += kThreads) {
+    const int r = e >> 4, c = (e & 15) * 4;
+    *reinterpret_cast<float4*>(out + off + r * kDk + c) =
+        *reinterpret_cast<const float4*>(sa + swz(r, c));
+  }
 }
 
 }  // namespace
@@ -1044,4 +1545,21 @@ extern "C" int sh_attention_bwd_pairs(
   cudaStream_t st = (cudaStream_t)stream;
   return bf16_io ? launch_bwd<bf16>(pj, p, out, pairs, tq, tk, d, st)
                  : launch_bwd<float>(pj, p, out, pairs, tq, tk, d, st);
+}
+
+// sh_attn_bwd_kernel's per-head products on their own: out_i = op(a_i)
+// op(b_i) for n products of [64, 64] f32 matrices, op(x) = x^T where ta /
+// tb (the three-term split on mma.sync, as the kernel runs it)
+extern "C" int sh_attention_split_check(const void* a, const void* b,
+                                        void* out, int n, int ta, int tb,
+                                        void* stream) {
+  const float* pa = (const float*)a;
+  const float* pb = (const float*)b;
+  float* po = (float*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (ta && tb) split_check_kernel<true, true><<<n, kThreads, 0, st>>>(pa, pb, po);
+  else if (ta) split_check_kernel<true, false><<<n, kThreads, 0, st>>>(pa, pb, po);
+  else if (tb) split_check_kernel<false, true><<<n, kThreads, 0, st>>>(pa, pb, po);
+  else split_check_kernel<false, false><<<n, kThreads, 0, st>>>(pa, pb, po);
+  return (int)cudaGetLastError();
 }

@@ -183,7 +183,10 @@ gemm.launches = gemm.fma_launches = 0
 
 
 def colsum(x: torch.Tensor) -> torch.Tensor:
-    """Column sums of an f32 [R, C] CUDA tensor, in a fixed order."""
+    """Column sums of an f32 [R, C] tensor, in a fixed order on the card
+    (`x.sum(0)`, its plain version, for a CPU tensor)."""
+    if x.device.type == "cpu":
+        return x.float().sum(dim=0)
     req = _build.require
     req(x.is_cuda and x.dim() == 2 and x.dtype == torch.float32,
         "colsum: x must be a 2-D float32 CUDA tensor")

@@ -37,9 +37,13 @@ Training:
 * `fused_sh_attention_bwd` is the backward from those saved outputs
   (replaces pallas_attention.py:630 `_fused_bwd_call`): the per-pair part in
   csrc/sh_attention.cu from the projections (`project` again, or the saved
-  ones), the projections' input and weight gradients on csrc/gemm.cu.  Its
-  plain version, `sh_attention_bwd_reference`, is torch autograd through
-  `sh_attention_reference`;
+  ones; `short_bwd_pairs`, whose plain version is
+  `sh_attention_bwd_pairs_reference`), then the projections' input and
+  weight gradients on csrc/gemm.cu (`bwd_products`).  Its plain version,
+  `sh_attention_bwd_reference`, is torch autograd through
+  `sh_attention_reference`.  The per-pair kernel's per-head products run
+  on the tensor cores in a three-term bf16 split of both f32 operands;
+  `split6_matmul` emulates them, `split_check` runs them alone;
 * dropout (keep_prob < 1): both take the mask source of the JAX package's
   two dropout forms.  With `seed` ([2] int32 on the operands' device) the
   kernels draw the masks from the port's Philox stream (csrc/philox.cuh:
@@ -215,7 +219,8 @@ _I, _P = ctypes.c_int, ctypes.c_void_p
 _DROP = [_P, _P, _P, ctypes.c_uint, ctypes.c_float]  # seed, masks, thresh, 1/kp
 _FUNCS = {"sh_attention_fwd": [_I] + [_P] * 15 + [_I] * 3 + _DROP + [_P],
           "sh_attention_bwd_pairs": [_I] + [_P] * 11 + [_I] + [_P] * 9 +
-          [_I] * 3 + _DROP + [_P, _P]}
+          [_I] * 3 + _DROP + [_P, _P],
+          "sh_attention_split_check": [_P, _P, _P, _I, _I, _I, _P]}
 _GENERAL_FUNCS = {
     "sh_attention_general_fwd": [_I] + [_P] * 17 + [_I] * 3 + _DROP + [_P],
     "sh_attention_general_bwd": [_I, _I] + [_P] * 26 + [_I] * 3 + _DROP + [_P]}
@@ -482,6 +487,245 @@ def sh_attention_bwd_reference(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
                   g)
 
 
+def _heads(x, p, t, n_head, dh, saved):
+    """[P, H, T, dh] f32 from a projection [P*T, H*dh] or, saved, from the
+    heads-major [H, P*T, dh]."""
+    if saved:
+        return x.float().reshape(n_head, p, t, dh).transpose(0, 1)
+    return x.float().reshape(p, t, n_head, dh).transpose(1, 2)
+
+
+def sh_attention_bwd_pairs_reference(q, k, v, sk_w, sk_b, fc_w, x_q, ln_s,
+                                     mask, oh, g, n_head=8, d_k=64, d_v=64, *,
+                                     qkv_saved=False, attn_keep=None,
+                                     out_keep=None, keep_prob=1.0,
+                                     seed=None):
+    """Plain version of `short_bwd_pairs`, the per-pair kernel's outputs:
+    (dy [P*Tq, D], o [P*Tq, d_v], s [P, d_v], dlogit [P, H*d_v], LayerNorm
+    partials [2, P, D], dz [P*Tq, H*d_k], dk, dv [P*Tk, H*d_k], dy0 [P*Tq,
+    D]), all f32, from the projections q, k, v (`project`'s, q unscaled; or
+    with qkv_saved the forward's saved q / sqrt(d_k), k, v [H, P*T, d_k]),
+    the saved per-head outputs oh [H, P*Tq, d_v] and the output cotangent g.
+    The Pallas kernel's cast points (pallas_attention.py:474-627): f32
+    between the products, the gated head sum rounded to x_q's dtype before
+    fc, the LayerNorm in f32; dy0 = dy * out_keep / keep_prob (dy without
+    dropout)."""
+    p, tq, d = x_q.shape
+    tk = k.shape[-2] // p if qkv_saved else k.shape[0] // p
+    dt = x_q.dtype
+    attn_keep, out_keep = _plain_masks(attn_keep, out_keep, keep_prob, seed,
+                                       p, tq, tk, d, n_head)
+    ohh = oh.float().reshape(n_head, p, tq, d_v)
+    # 1. the gate, as the forward built it
+    u = ohh[0]
+    for h in range(1, n_head):
+        u = u + ohh[h]
+    s = u.sum(dim=1) / tq                                     # [P, d_v]
+    gate = torch.softmax((s @ sk_w.float() + sk_b.float())
+                         .reshape(p, n_head, d_v), dim=1)      # [P, H, d_v]
+    o = ohh[0] * gate[:, 0, None, :]
+    for h in range(1, n_head):
+        o = o + ohh[h] * gate[:, h, None, :]
+    o = o.reshape(p * tq, d_v).to(dt).float()
+    # 2. fc, the output dropout, the residual, the LayerNorm and back
+    okf = (out_keep.float() * (1.0 / keep_prob) if out_keep is not None
+           else None)
+    y0 = o @ fc_w.float()
+    y = (y0 * okf if okf is not None else y0) + x_q.reshape(p * tq, d).float()
+    mu = y.mean(dim=-1, keepdim=True)
+    rs = torch.rsqrt(((y - mu) ** 2).mean(dim=-1, keepdim=True) + LN_EPS)
+    xhat = (y - mu) * rs
+    g32 = g.reshape(p * tq, d).float()
+    lnp = torch.stack([(g32 * xhat).reshape(p, tq, d).sum(dim=1),
+                       g32.reshape(p, tq, d).sum(dim=1)])
+    dxhat = g32 * ln_s.float()
+    dy = rs * (dxhat - dxhat.mean(dim=-1, keepdim=True) -
+               xhat * (dxhat * xhat).mean(dim=-1, keepdim=True))
+    dy0 = dy * okf if okf is not None else dy
+    do = (dy0 @ fc_w.float().t()).reshape(p, tq, d_v)
+    # 3. the gate backward
+    dgate = torch.stack([(do * ohh[h]).sum(dim=1) for h in range(n_head)], 1)
+    gdot = (gate * dgate).sum(dim=1, keepdim=True)
+    dlogit = (gate * (dgate - gdot)).reshape(p, n_head * d_v)
+    du = (dlogit @ sk_w.float().t()) / tq                     # [P, d_v]
+    # 4. per head
+    qh = _heads(q, p, tq, n_head, d_k, qkv_saved)
+    if not qkv_saved:
+        qh = qh / (d_k ** 0.5)
+    kh = _heads(k, p, tk, n_head, d_k, qkv_saved)
+    vh = _heads(v, p, tk, n_head, d_v, qkv_saved)
+    doh = do[:, None] * gate[:, :, None, :] + du[:, None, None, :]
+    probs = torch.softmax(torch.where(mask[None, None], qh @ kh.transpose(-1, -2),
+                                      -1e9), dim=-1)
+    dprobs = doh @ vh.transpose(-1, -2)
+    pd = probs
+    if attn_keep is not None:
+        akf = (attn_keep.float().reshape(n_head, p, tq, tk).transpose(0, 1) *
+               (1.0 / keep_prob))
+        pd, dprobs = probs * akf, dprobs * akf
+    dv = pd.transpose(-1, -2) @ doh
+    ds = probs * (dprobs - (probs * dprobs).sum(dim=-1, keepdim=True))
+    dz = ds @ kh / (d_k ** 0.5)
+    dk = ds.transpose(-1, -2) @ qh
+
+    def flat(x, t):
+        return x.transpose(1, 2).reshape(p * t, -1)
+
+    return (dy, o, s, dlogit, lnp, flat(dz, tq), flat(dk, tk), flat(dv, tk),
+            dy0)
+
+
+def bwd_products(x_q, x_kv, wq, wk, wv, pairs_out):
+    """The products that follow the per-pair part, on csrc/gemm.cu (its
+    plain version for CPU tensors): from `short_bwd_pairs`'s outputs (or its
+    plain version's), the cotangents of (x_q, x_kv, wq, wk, wv, sk_w, sk_b,
+    fc_w, ln_s, ln_b), the weights' in their dtype:
+    dxq = dy + dz wq^T, dxkv = dk wk^T + dv wv^T, dwq = x_q^T dz, dwk =
+    x_kv^T dk, dwv = x_kv^T dv, dsk_w = s^T dlogit, dfc_w = o^T dy0, and
+    column sums for dsk_b, dln_s and dln_b."""
+    dy, o, s, dgl, lnp, dz, dk, dv, dy0 = pairs_out
+    p, tq, d = x_q.shape
+    tk = x_kv.shape[1]
+    dt = x_q.dtype
+    gemm, NT, TN = _gemm.gemm, _gemm.NT, _gemm.TN
+    xq2, xkv2 = x_q.reshape(p * tq, d), x_kv.reshape(p * tk, d)
+    dxq = gemm(NT, dz, wq, cadd=dy).to(dt).view(p, tq, d)
+    dxkv = gemm(NT, dk, wk)
+    dxkv = gemm(NT, dv, wv, cadd=dxkv, out=dxkv).to(dt).view(p, tk, d)
+    # o is rounded to x's dtype where the kernels write it: as bf16 (an
+    # exact cast) its product with dy0 takes the tensor cores
+    return (dxq, dxkv, gemm(TN, xq2, dz, out_dtype=dt),
+            gemm(TN, xkv2, dk, out_dtype=dt),
+            gemm(TN, xkv2, dv, out_dtype=dt), gemm(TN, s, dgl, out_dtype=dt),
+            _gemm.colsum(dgl).to(dt), gemm(TN, o.to(dt), dy0, out_dtype=dt),
+            _gemm.colsum(lnp[0]), _gemm.colsum(lnp[1]))
+
+
+# the per-head products of the per-pair kernel: each f32 operand in three
+# bf16 terms (`_gemm.split3`), the six term products with i + j <= 2 summed
+# in f32.  Its error against the exact product, element by element, is held
+# (on the CPU for this emulation, on the card for the kernel's products) to
+# SPLIT_BOUND * sum_k |a_ik| |b_kj| where the products are normal f32
+# numbers.  The dropped terms are below 2^-23 of |a| |b|, so the error is
+# the f32 sums' (the emulation 1.4e-7 to 6.4e-7 of the scale on the inputs
+# of tests/test_torch_bwd_redesign.py and chip_smoke.py, the kernel 1.1e-6
+# on an H100); the three-term split (i + j <= 1) drops terms up to 3 * 2^-18
+# and reaches 1.5e-5 to 2.3e-5 there on all but normal-distributed pairs,
+# so the bound lies between the two
+SPLIT_BOUND = 2.0 ** -17
+
+
+def split6_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [.., M, K] @ b [.., K, N] as the per-pair kernel's mma.sync
+    products compute it: sum over i + j <= 2 of a_i @ b_j, smallest terms
+    first, the terms as f32."""
+    at = [x.float() for x in _gemm.split3(a)]
+    bt = [x.float() for x in _gemm.split3(b)]
+    out = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32,
+                      device=a.device)
+    for i, j in ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)):
+        out = out + at[i] @ bt[j]
+    return out
+
+
+def split_check(a: torch.Tensor, b: torch.Tensor, ta=False, tb=False):
+    """op(a) @ op(b) for [n, 64, 64] f32 a and b (op a transpose where ta /
+    tb) through the per-pair kernel's own product code
+    (`sh_attention_split_check`); `split6_matmul` on the CPU."""
+    if a.device.type == "cpu":
+        return split6_matmul(a.transpose(-1, -2) if ta else a,
+                             b.transpose(-1, -2) if tb else b)
+    req = _build.require
+    req(a.shape == b.shape and a.dim() == 3 and tuple(a.shape[1:]) == (64, 64)
+        and a.dtype == b.dtype == torch.float32,
+        "split_check: a and b must be float32 [n, 64, 64]")
+    _build.require_operands("split_check", a.device, (a, b))
+    out = torch.empty_like(a)
+    lib = _build.load("sh_attention", _FUNCS)
+    _build.check(lib.sh_attention_split_check(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0], int(ta),
+        int(tb), _build.stream_ptr(a.device)), "sh_attention_split_check")
+    return out
+
+
+def short_bwd_pairs(x_q, proj, sk_w, sk_b, fc_w, ln_s, mask, oh, g, tk,
+                    qkv_saved=False, drop=_NO_DROP):
+    """The per-pair kernel of csrc/sh_attention.cu (`sh_attn_bwd_kernel`) on
+    the projections (`project`'s, or with qkv_saved the forward's saved
+    q/k/v): the outputs of `sh_attention_bwd_pairs_reference`, in f32 (dy0
+    is dy itself without dropout).  Operands as `_check` leaves them
+    (contiguous, 16-byte aligned: checked again here, since callers other
+    than the wrapper pass them); counts nothing (its callers do)."""
+    p, tq, d = x_q.shape
+    dev = x_q.device
+    _build.require_operands("sh_attention_bwd_pairs", dev,
+                            (x_q, sk_w, sk_b, fc_w, ln_s, mask, oh, g) +
+                            tuple(proj))
+    dy, o, s, dgl, lnp = (_f32(dev, p * tq, d), _f32(dev, p * tq, KERNEL_DK),
+                          _f32(dev, p, KERNEL_DK),
+                          _f32(dev, p, KERNEL_HEADS * KERNEL_DK),
+                          _f32(dev, 2, p, d))
+    dz, dk, dv = _f32(dev, p * tq, d), _f32(dev, p * tk, d), _f32(dev, p * tk, d)
+    dropout = drop[0] is not None or drop[1] is not None
+    dy0 = _f32(dev, p * tq, d) if dropout else dy
+    lib = _build.load("sh_attention", _FUNCS)
+    _build.check(lib.sh_attention_bwd_pairs(
+        int(x_q.dtype == torch.bfloat16),
+        *(t.data_ptr() for t in (x_q, sk_w, sk_b, fc_w, ln_s, mask, oh, g) +
+          tuple(proj)),
+        int(qkv_saved), *(t.data_ptr() for t in (dy, o, s, dgl)),
+        lnp[0].data_ptr(), lnp[1].data_ptr(), dz.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), p, tq, tk, *drop,
+        dy0.data_ptr() if dropout else None, _build.stream_ptr(dev)),
+        "sh_attention_bwd_pairs")
+    return dy, o, s, dgl, lnp, dz, dk, dv, dy0
+
+
+def _backward(x_q, args, oh, g, p, tq, tk, regime, kdrop=_NO_DROP, qkv=None):
+    """Launch the regime's backward on operands `_check` passed: the
+    projections (`project`, unless the forward saved q/k/v), the per-pair
+    kernel(s) on them, then the products (`bwd_products`); returns the
+    cotangents of args[:10].  Counts nothing (its caller does)."""
+    if not p:
+        return tuple(torch.zeros_like(t) for t in args[:10])
+    dev, dt, d = x_q.device, x_q.dtype, x_q.shape[2]
+    x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s, ln_b, mask = args[1:]
+    n_head, d_v = KERNEL_HEADS, KERNEL_DK
+    dropout = kdrop[0] is not None or kdrop[1] is not None
+    proj = qkv if qkv is not None else project(x_q, x_kv, wq, wk, wv)
+    if regime == "short":
+        pairs_out = short_bwd_pairs(x_q, proj, sk_w, sk_b, fc_w, ln_s, mask,
+                                    oh, g, tk, qkv is not None, kdrop)
+    else:
+        def f32(*shape):
+            return _f32(dev, *shape)
+
+        tiles = -(-tq // 64)
+        dy, o, s, dgl, lnp = (f32(p * tq, d), f32(p * tq, d_v), f32(p, d_v),
+                              f32(p, n_head * d_v), f32(2, p * tiles, d))
+        dz, dk, dv = f32(p * tq, d), f32(p * tk, d), f32(p * tk, d)
+        dy0 = f32(p * tq, d) if dropout else dy
+        dy0_ptr = dy0.data_ptr() if dropout else None
+        gate, dos, dgp, du, stats = (f32(p, n_head * d_v), f32(p * tq, d_v),
+                                     f32(p * tiles, n_head * d_v),
+                                     f32(p, d_v), f32(3, n_head * p * tq))
+        lib = _build.load("sh_attention_general", _GENERAL_FUNCS)
+        _build.check(lib.sh_attention_general_bwd(
+            int(dt == torch.bfloat16), int(qkv is not None),
+            *(t.data_ptr() for t in proj),
+            sk_w.data_ptr(), sk_b.data_ptr(), fc_w.data_ptr(),
+            x_q.data_ptr(), ln_s.data_ptr(), mask.data_ptr(), oh.data_ptr(),
+            g.data_ptr(), gate.data_ptr(), s.data_ptr(), dy.data_ptr(),
+            dy0_ptr, o.data_ptr(), dos.data_ptr(), lnp[0].data_ptr(),
+            lnp[1].data_ptr(), dgp.data_ptr(), dgl.data_ptr(), du.data_ptr(),
+            stats.data_ptr(), dz.data_ptr(), dk.data_ptr(), dv.data_ptr(), p,
+            tq, tk, *kdrop, _build.stream_ptr(dev)),
+            "sh_attention_general_bwd")
+        pairs_out = (dy, o, s, dgl, lnp, dz, dk, dv, dy0)
+    del proj
+    return bwd_products(x_q, x_kv, wq, wk, wv, pairs_out)
+
+
 def fused_sh_attention_bwd(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
                            ln_b, mask, oh, g, n_head=8, d_k=64, d_v=64, *,
                            attn_keep=None, out_keep=None, keep_prob=1.0,
@@ -497,13 +741,11 @@ def fused_sh_attention_bwd(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
     the gate and fc/LayerNorm from oh, runs the LayerNorm, fc and gate
     backward and, per head, the probabilities for dz, dk, dv;
     it writes dy (the LayerNorm input's cotangent), the gated output o, the
-    gate's s and logit cotangent, and the per-head dz/dk/dv in f32: one
-    block per pair in the short regime (csrc/sh_attention.cu), the tiled
-    launches of csrc/sh_attention_general.cu in the general one.  The
-    products over
-    the pair batch then run on csrc/gemm.cu: dxq = dy + dz wq^T, dxkv = dk
-    wk^T + dv wv^T, dwq = xq^T dz, dwk = xkv^T dk, dwv = xkv^T dv, dfc_w =
-    o^T dy0, dsk_w = s^T dlogit; column sums give dsk_b, dln_s and dln_b.
+    gate's s and logit cotangent, and the per-head dz/dk/dv in f32: the
+    persistent per-pair kernel in the short regime (`short_bwd_pairs`,
+    csrc/sh_attention.cu), the tiled launches of
+    csrc/sh_attention_general.cu in the general one.  The products over the
+    pair batch then run on csrc/gemm.cu (`bwd_products`).
     With dropout the kernels regenerate (or read) the forward's masks and
     also write dy0 = dy * out_keep / keep_prob, fc's output cotangent
     ([P*Tq, 512] f32 more); without, dy0 is dy.  Weight cotangents come back
@@ -535,59 +777,9 @@ def fused_sh_attention_bwd(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s,
             t.dtype == torch.float32 for t, n in zip(qkv, (tq, tk, tk))),
             f"{name}: qkv must be three float32 [H, P*T, d_k] tensors")
         _build.require_operands(name, x_q.device, qkv)
-    if not p:
-        return tuple(torch.zeros_like(t) for t in args[:10])
-    dev = x_q.device
-
-    def f32(*shape):
-        return _f32(dev, *shape)
-
-    tiles = 1 if regime == "short" else -(-tq // 64)
-    dy, o, s, dgl, lnp = (f32(p * tq, d), f32(p * tq, d_v), f32(p, d_v),
-                          f32(p, n_head * d_v), f32(2, p * tiles, d))
-    dz, dk, dv = f32(p * tq, d), f32(p * tk, d), f32(p * tk, d)
-    dy0 = f32(p * tq, d) if keep_prob < 1.0 else dy
-    dy0_ptr = dy0.data_ptr() if keep_prob < 1.0 else None
-    bf16 = int(dt == torch.bfloat16)
-    gemm, NN, NT, TN = _gemm.gemm, _gemm.NN, _gemm.NT, _gemm.TN
-    xq2, xkv2 = x_q.view(p * tq, d), x_kv.view(p * tk, d)
-    proj = qkv if qkv is not None else project(x_q, x_kv, wq, wk, wv)
-    if regime == "short":
-        lib = _build.load("sh_attention", _FUNCS)
-        _build.check(lib.sh_attention_bwd_pairs(
-            bf16, *(t.data_ptr() for t in (x_q, sk_w, sk_b, fc_w, ln_s, mask,
-                                          oh, g) + tuple(proj)),
-            int(qkv is not None), *(t.data_ptr() for t in (dy, o, s, dgl)),
-            lnp[0].data_ptr(), lnp[1].data_ptr(), dz.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), p, tq, tk, *kdrop, dy0_ptr,
-            _build.stream_ptr(dev)), "sh_attention_bwd_pairs")
-    else:
-        gate, dos, dgp, du, stats = (f32(p, n_head * d_v), f32(p * tq, d_v),
-                                     f32(p * tiles, n_head * d_v),
-                                     f32(p, d_v), f32(3, n_head * p * tq))
-        lib = _build.load("sh_attention_general", _GENERAL_FUNCS)
-        _build.check(lib.sh_attention_general_bwd(
-            bf16, int(qkv is not None), *(t.data_ptr() for t in proj),
-            sk_w.data_ptr(), sk_b.data_ptr(), fc_w.data_ptr(),
-            x_q.data_ptr(), ln_s.data_ptr(), mask.data_ptr(), oh.data_ptr(),
-            g.data_ptr(), gate.data_ptr(), s.data_ptr(), dy.data_ptr(),
-            dy0_ptr, o.data_ptr(), dos.data_ptr(), lnp[0].data_ptr(),
-            lnp[1].data_ptr(), dgp.data_ptr(), dgl.data_ptr(), du.data_ptr(),
-            stats.data_ptr(), dz.data_ptr(), dk.data_ptr(), dv.data_ptr(), p,
-            tq, tk, *kdrop, _build.stream_ptr(dev)),
-            "sh_attention_general_bwd")
-    del proj
-    dxq = gemm(NT, dz, wq, cadd=dy).to(dt).view(p, tq, d)
-    dxkv = gemm(NT, dk, wk)
-    dxkv = gemm(NT, dv, wv, cadd=dxkv, out=dxkv).to(dt).view(p, tk, d)
-    # o is rounded to x's dtype where the kernels write it: as bf16 (an
-    # exact cast) its product with dy0 takes the tensor cores
-    grads = (dxq, dxkv, gemm(TN, xq2, dz, out_dtype=dt),
-             gemm(TN, xkv2, dk, out_dtype=dt),
-             gemm(TN, xkv2, dv, out_dtype=dt), gemm(TN, s, dgl, out_dtype=dt),
-             _gemm.colsum(dgl).to(dt), gemm(TN, o.to(dt), dy0, out_dtype=dt),
-             _gemm.colsum(lnp[0]), _gemm.colsum(lnp[1]))
-    _count(fused_sh_attention_bwd, keep_prob, regime, qkv is not None)
+    grads = _backward(x_q, args, oh, g, p, tq, tk, regime, kdrop, qkv)
+    if p:
+        _count(fused_sh_attention_bwd, keep_prob, regime, qkv is not None)
     return grads
 
 

@@ -10,7 +10,8 @@ keep bits of the first `max_out` survivors are exact; callers take those.
 
 `nms_keep_mask_batched` is the wrapper of the CUDA kernel
 (csrc/nms.cu, which replaces ait_tpu/ops/nms_pallas.py:133
-nms_keep_mask_batched): a CUDA tensor goes to the kernel, a CPU tensor to
+nms_keep_mask_batched; a cluster of 16 blocks per image shares each
+tile's IoU tests): a CUDA tensor goes to the kernel, a CPU tensor to
 the plain version.  The IoU test is division-free (inter > thr * union,
 +1 areas) so that every version rounds the same way.
 """
@@ -126,11 +127,19 @@ def nms_keep_mask_batched(boxes: torch.Tensor, valid: torch.Tensor,
         "nms: valid must be bool [B, N]")
     _build.require_operands("nms", boxes.device, (boxes, valid))
     req(tile == 256, "nms: the kernel sweeps 256-box tiles")
+    cap = boxes.shape[1] if max_out is None else min(max_out, boxes.shape[1])
+    return _launch(boxes, valid, iou_threshold, cap)
+
+
+def _launch(boxes, valid, iou_threshold, cap):
+    """csrc/nms.cu on the operands `nms_keep_mask_batched` checked; counts
+    one launch.  Each of an image's 16 blocks holds 1/16 of the survivors
+    (16 bytes each) in shared memory."""
     b, n, _ = boxes.shape
-    cap = n if max_out is None else min(max_out, n)
     cap_pad = _round_up(cap, 128)
-    req(cap_pad * 16 <= 200 * 1024,
-        f"nms: survivor cap {cap} exceeds the kernel's shared memory")
+    _build.require(-(-cap_pad // 16) * 16 <= 160 * 1024,
+                   f"nms: survivor cap {cap} exceeds the kernel's shared "
+                   "memory")
     keep = torch.empty((b, n), dtype=torch.uint8, device=boxes.device)
     if b and n:
         lib = _build.load("nms", _FUNCS)

@@ -33,6 +33,17 @@
      (eval, saved outputs, dropout from a seed and from operand masks,
      save-qkv) at the eval and the train shapes against the plain versions;
      the attention's eval time also split into its projections and core.
+   * the per-pair attention backward kernel alone (check_bwd_pairs,
+     csrc/sh_attention.cu sh_attn_bwd_kernel) against its plain version on
+     the same projections at the train shapes (f32 within 5e-6 and bf16
+     within 2e-2 of each output's max |plain|; no dropout, the seed's
+     stream, operand masks; the saved q/k/v bit-equal to the projections),
+     its per-head split products alone within SPLIT_BOUND, and HMMA in the
+     library's SASS; its time per step beside its own bound.
+   * NMS on two inputs per call: the synthetic boxes and the flagship's own
+     proposals (its anchors decoded with small seeded deltas), with the
+     tiles walked and IoU tests logged; the kernel's time and bound are the
+     proposals'.
 3. Serves the full-width ResNet-50 flagship (random weights from a numpy
    seed, carried in through the weight bridge) with OneShotPredictor:
    batches of 8 uint8 608x800 canvases and 128x128 queries.  Every kernel's
@@ -156,10 +167,83 @@ def bound(nbytes: float, flops: float, peak: float):
 
 NMS_EVAL = ((6144, 0.7, 300), (300, 0.3, 300))
 NMS_TRAIN = ((12032, 0.7, 2000),)
+# the flagship's proposals: 9 anchors at each cell of the 38 x 50 feature map
+# (608 x 800 canvas, stride 16) and the candidates each call keeps (the
+# sweep takes them rounded up to its 256-box tile, the rest invalid)
+FEAT_HW, FEAT_STRIDE = (38, 50), 16
+NMS_TOP = {6144: 6000, 12032: 12000, 300: 300}
+
+
+def synthetic_nms_boxes(torch, g, n):
+    """B images of n score-sorted boxes, random centres over the canvas and
+    sides of 16-316 px, drawn from the CPU generator g; valid [B, n] with
+    the last tenth padded on every other image."""
+    ctr = torch.rand(B, n, 2, generator=g) * torch.tensor([800., 608.])
+    wh = 16 + torch.rand(B, n, 2, generator=g) * 300
+    boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], -1).clamp(0, 799)
+    scores = torch.rand(B, n, generator=g)
+    order = scores.argsort(dim=1, descending=True)
+    boxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
+    valid = torch.ones(B, n, dtype=torch.bool)
+    valid[::2, -n // 10:] = False        # padded rows on half the images
+    return boxes.contiguous(), valid
+
+
+def model_nms_boxes(torch, n, seed, images=B):
+    """`images` images of n proposals as the flagship's proposal layer hands
+    them to NMS: its 17,100 anchors (ops/anchors.py at the 38 x 50 map)
+    decoded (ops/boxes.py) with deltas 0 (even images: an untrained head) or
+    N(0, 0.05) (odd images), clipped to the 608 x 800 canvas, in the order
+    of a seeded uniform score, the first n taken and those past the call's
+    top-k (NMS_TOP) invalid.  Overlapping clusters, as a real RPN emits."""
+    from ait_tpu_torch.ops import anchors, boxes as box_ops
+
+    anc = torch.from_numpy(anchors.shifted_anchors(*FEAT_HW, FEAT_STRIDE))
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    hw = torch.tensor([FEAT_HW[0] * FEAT_STRIDE, FEAT_HW[1] * FEAT_STRIDE],
+                      dtype=torch.float32)
+    out = []
+    for i in range(images):
+        deltas = torch.randn(anc.shape, generator=g) * 0.05
+        if i % 2 == 0:
+            deltas.zero_()
+        props = box_ops.clip_boxes(box_ops.bbox_transform_inv(anc, deltas),
+                                   hw)
+        scores = torch.rand(anc.shape[0], generator=g)
+        order = torch.sort(scores, descending=True, stable=True).indices
+        out.append(props[order[:n]])
+    valid = (torch.arange(n) < NMS_TOP.get(n, n))[None].expand(images, n)
+    return torch.stack(out).contiguous(), valid.contiguous()
+
+
+def nms_walk(keep, n, cap):
+    """(tiles walked, IoU tests) of the sweep per image, from its keep bits
+    [images, n]: each tile until the cap is reached, tested against the
+    survivors so far (the kernel holds at most the cap rounded up to 128)
+    and its own upper triangle."""
+    cap_pad = -(-cap // 128) * 128
+    kept = keep.cpu()
+    tiles, tests = [], []
+    for i in range(kept.shape[0]):
+        before, walked, count = 0, 0, 0
+        for start in range(0, n, 256):
+            if before >= cap:
+                break
+            walked += 1
+            count += 256 * min(before, cap_pad) + 256 * 255 // 2
+            before += int(kept[i, start:start + 256].sum())
+        tiles.append(walked)
+        tests.append(count)
+    return tiles, tests
 
 
 def check_nms(torch, dev, shapes):
-    """shapes: (candidates, threshold, survivor cap) per call."""
+    """shapes: (candidates, threshold, survivor cap) per call.  Each call on
+    two inputs: the synthetic boxes (`synthetic_nms_boxes`) and the
+    flagship's own proposals (`model_nms_boxes`, what the model's calls
+    sweep); the kernel's selections bit-equal to the plain version's on
+    both.  ms, plain_ms and bound_ms sum the model's input over the
+    calls."""
     from ait_tpu_torch.ops import nms as nms_mod
 
     g = torch.Generator(device="cpu").manual_seed(1)
@@ -168,49 +252,36 @@ def check_nms(torch, dev, shapes):
     # postprocess (300 detections, thr 0.3), both keep at most 300; train:
     # the proposal layer at the TRAIN tops (12000 -> 12032, keep 2000)
     for n, thr, cap in shapes:
-        ctr = torch.rand(B, n, 2, generator=g) * torch.tensor([800., 608.])
-        wh = 16 + torch.rand(B, n, 2, generator=g) * 300
-        boxes = torch.cat([ctr - wh / 2, ctr + wh / 2], -1).clamp(0, 799)
-        scores = torch.rand(B, n, generator=g)
-        order = scores.argsort(dim=1, descending=True)
-        boxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
-        valid = torch.ones(B, n, dtype=torch.bool)
-        valid[::2, -n // 10:] = False        # padded rows on half the images
-        boxes, valid = boxes.to(dev).contiguous(), valid.to(dev)
-
-        got = nms_mod.nms_keep_mask_batched(boxes, valid, thr, max_out=cap)
-        want = nms_mod.nms_keep_mask_reference(boxes, valid, thr,
-                                               max_out=cap)
-        sel_got, cnt_got = nms_mod._select_top(got, cap)
-        sel_want, cnt_want = nms_mod._select_top(want, cap)
-        if not (torch.equal(cnt_got, cnt_want) and all(
-                torch.equal(sel_got[i, :int(cnt_got[i])],
-                            sel_want[i, :int(cnt_want[i])])
-                for i in range(B))):
-            fail(f"nms [{B},{n}] thr {thr} cap {cap}: kernel selections "
-                 "differ from the plain version")
-        ms = cuda_ms(lambda: nms_mod.nms_keep_mask_batched(
-            boxes, valid, thr, max_out=cap), iters=20)
-        plain_ms = cuda_ms(lambda: nms_mod.nms_keep_mask_reference(
-            boxes, valid, thr, max_out=cap), iters=2, warmup=1)
-        # IoU tests this data needs: each processed tile against the
-        # survivors so far (the kernel holds at most the cap, rounded up to
-        # 128), plus its own upper triangle; ~25 f32 ops each
-        cap_pad = -(-cap // 128) * 128
-        kept = got.cpu()
-        tests = 0
-        for i in range(B):
-            before = 0
-            for start in range(0, n, 256):
-                if before >= cap:
-                    break
-                tests += 256 * min(before, cap_pad) + 256 * 255 // 2
-                before += int(kept[i, start:start + 256].sum())
-        t_bound, by = bound(B * n * (16 + 1 + 1), tests * 25, F32_FLOP_S)
-        log(f"nms [{B},{n}] thr {thr} cap {cap}: selections bit-equal "
-            f"(counts {cnt_got.tolist()}); kernel_ms {ms:.4f} "
-            f"plain_ms {plain_ms:.3f} bound_ms {t_bound:.6f} ({by})")
-        entries.append((ms, plain_ms, t_bound, by))
+        inputs = (("synthetic", synthetic_nms_boxes(torch, g, n)),
+                  ("model", model_nms_boxes(torch, n, seed=n)))
+        for what, (boxes, valid) in inputs:
+            boxes, valid = boxes.to(dev), valid.to(dev)
+            want = nms_mod.nms_keep_mask_reference(boxes, valid, thr,
+                                                   max_out=cap)
+            sel_want, cnt_want = nms_mod._select_top(want, cap)
+            got = nms_mod.nms_keep_mask_batched(boxes, valid, thr,
+                                                max_out=cap)
+            sel_got, cnt_got = nms_mod._select_top(got, cap)
+            if not (torch.equal(cnt_got, cnt_want) and all(
+                    torch.equal(sel_got[i, :int(cnt_got[i])],
+                                sel_want[i, :int(cnt_want[i])])
+                    for i in range(B))):
+                fail(f"nms [{B},{n}] thr {thr} cap {cap} ({what}): kernel "
+                     "selections differ from the plain version")
+            ms = cuda_ms(lambda: nms_mod.nms_keep_mask_batched(
+                boxes, valid, thr, max_out=cap), iters=20)
+            plain_ms = cuda_ms(lambda: nms_mod.nms_keep_mask_reference(
+                boxes, valid, thr, max_out=cap), iters=2, warmup=1)
+            # the IoU tests this data needs, ~25 f32 ops each
+            tiles, tests = nms_walk(want, n, cap)
+            t_bound, by = bound(B * n * (16 + 1 + 1), sum(tests) * 25,
+                                F32_FLOP_S)
+            log(f"nms [{B},{n}] thr {thr} cap {cap} {what}: selections "
+                f"bit-equal (counts {cnt_want.tolist()}); tiles walked "
+                f"{tiles}, IoU tests per image {tests}; kernel_ms {ms:.4f} "
+                f"plain_ms {plain_ms:.3f} bound_ms {t_bound:.6f} ({by})")
+            if what == "model":
+                entries.append((ms, plain_ms, t_bound, by))
     return {"max_abs_err": 0.0, "ms": sum(e[0] for e in entries),
             "plain_ms": sum(e[1] for e in entries),
             "bound_ms": sum(e[2] for e in entries),
@@ -583,6 +654,136 @@ def check_attention_train(torch, dev):
     return {k: {"max_abs_err": max(v[0]), "ms": v[1], "plain_ms": v[2],
                 "bound_ms": v[3], "bound_by": "operations"}
             for k, v in res.items()}
+
+
+# the per-pair backward kernel against its plain version on the same
+# projections, each output over its max |plain| (tests/test_torch_bwd_
+# redesign.py holds it to the same): f32, the six-term split products
+# (near-f32) and the order of sums, between the kernel's 1.7e-6 on an H100
+# and the 7.3e-6 to 1.3e-5 that the three-term split's emulation reaches on
+# the CPU (tests/test_torch_bwd_redesign.py);
+# bf16, o rounded to bf16 after sums in another order moves a few elements
+# of o by an ulp (2^-8) and all that follows
+PAIR_F32_REL, PAIR_BF16_REL = 5e-6, 2e-2
+PAIR_OUTPUTS = ("dy", "o", "s", "dlogit", "ln partials", "dz", "dk", "dv",
+                "dy0")
+
+
+def pair_bound(p, tq, tk, dropout):
+    """The per-pair kernel's own bound: f32 q, k, v and oh and bf16 g and
+    x_q read once, f32 dy, o, dz, dk, dv (dy0 with dropout) written once;
+    its ~29 MFLOP a pair at the bf16 rate."""
+    d, h, dk = 512, 8, 64
+    nbytes = (p * (tq + 2 * tk) * d * 4 + h * p * tq * dk * 4 +
+              2 * p * tq * d * 2 + p * tq * d * 4 * (3 if dropout else 2) +
+              p * tq * dk * 4 + 2 * p * tk * d * 4 + p * (dk + 3 * d) * 4)
+    flops = p * (2 * 2 * tq * dk * d + h * 5 * 2 * tq * tk * dk)
+    return bound(nbytes, flops, BF16_FLOP_S)
+
+
+def check_bwd_pairs(torch, dev):
+    """The per-pair backward kernel alone (`short_bwd_pairs`, csrc/
+    sh_attention.cu sh_attn_bwd_kernel) against its plain version
+    (`sh_attention_bwd_pairs_reference`) on the same projections at the
+    train shapes: f32 and bf16, without dropout, with the seed's stream and
+    with operand masks; from the saved q/k/v its outputs bit-equal to those
+    from the projections.  Its per-head products alone (`split_check`)
+    within SPLIT_BOUND of the exact product.  Times it in bf16 with the
+    seed's dropout (the train path's form) beside its own bound: an error
+    of the backward is then the per-pair kernel's or the products'."""
+    from ait_tpu_torch.ops import dropout_masks as dm, fused_attention as fa
+
+    g64 = torch.Generator(device=dev).manual_seed(5)
+    split_err = 0.0
+    for ta in (False, True):
+        for tb in (False, True):
+            a = torch.randn(64, 64, 64, generator=g64, device=dev)
+            b = torch.rand(64, 64, 64, generator=g64, device=dev) * \
+                torch.exp2(torch.randint(-20, 20, (64, 64, 64), device=dev,
+                                         generator=g64).float())
+            got = fa.split_check(a, b, ta, tb)
+            a2 = (a.transpose(1, 2) if ta else a).double()
+            b2 = (b.transpose(1, 2) if tb else b).double()
+            e = ((got.double() - a2 @ b2).abs() /
+                 (a2.abs() @ b2.abs())).max().item()
+            if not e <= fa.SPLIT_BOUND:
+                fail(f"split_check ta={ta} tb={tb}: error {e} of sum |a||b| "
+                     f"> {fa.SPLIT_BOUND}")
+            split_err = max(split_err, e)
+    log(f"sh_attn_bwd_kernel per-head products (split_check): max error "
+        f"{split_err:.3e} of sum_k |a_k| |b_k| (bound {fa.SPLIT_BOUND:.3e})")
+    res = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "err": 0.0}
+    for i, (name, p, tq, tk, self_attn) in enumerate(ATTN_TRAIN):
+        mask = _attn_mask(torch, dev, tq, tk, self_attn)
+        gen = torch.Generator(device="cpu").manual_seed(p + tq + 2)
+        seed = _seed(torch, dev, 40 + i)
+        ak, ok = dm.dropout_keep_masks(seed, p, tq, tk, 512, keep_prob=KEEP)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _attn_args(torch, dev, p, tq, tk, dtype, seed=tq + tk)
+            x_q, sk_w, sk_b, fc_w, ln_s = (args[0], args[5], args[6],
+                                           args[7], args[8])
+            proj = fa.project(*args[:5])
+            oh = fa.sh_attention_saved_reference(*args, mask)[1]
+            g = torch.randn((p, tq, 512), generator=gen).to(dev, dtype)
+            tol = PAIR_F32_REL if dtype == torch.float32 else PAIR_BF16_REL
+            for source, kdrop, plain in (
+                    ("none", fa._NO_DROP, {}),
+                    ("seed", fa._kernel_drop("pairs", x_q, p, tq, tk, KEEP,
+                                             seed, None, None),
+                     dict(attn_keep=ak, out_keep=ok, keep_prob=KEEP)),
+                    ("operand masks", fa._kernel_drop(
+                        "pairs", x_q, p, tq, tk, KEEP, None, ak, ok),
+                     dict(attn_keep=ak, out_keep=ok, keep_prob=KEEP))):
+                got = fa.short_bwd_pairs(x_q, proj, sk_w, sk_b, fc_w, ln_s,
+                                         mask, oh, g, tk, False, kdrop)
+                want = fa.sh_attention_bwd_pairs_reference(
+                    *proj, sk_w, sk_b, fc_w, x_q, ln_s, mask, oh, g, **plain)
+                errs = [rel_err(a, b) for a, b in zip(got, want)]
+                if not all(math.isfinite(e) and e <= tol for e in errs):
+                    fail(f"sh_attn_bwd_kernel {name} {dtype} ({source}): "
+                         f"errors {dict(zip(PAIR_OUTPUTS, errs))} of max "
+                         f"|plain| (tol {tol})")
+                if dtype == torch.float32:
+                    res["err"] = max(res["err"], max(
+                        (a - b).abs().max().item() for a, b in zip(got, want)))
+                log(f"sh_attn_bwd_kernel {name} P={p} {tq}x{tk} {dtype} "
+                    f"({source}): max err {max(errs):.3e} of max |plain| "
+                    f"(tol {tol}; worst {PAIR_OUTPUTS[errs.index(max(errs))]})")
+            # from the saved q/k/v (heads-major, q pre-scaled): bit-equal
+            saved = (torch.stack(proj[0].view(p * tq, 8, 64).unbind(1)) *
+                     0.125,
+                     torch.stack(proj[1].view(p * tk, 8, 64).unbind(1)),
+                     torch.stack(proj[2].view(p * tk, 8, 64).unbind(1)))
+            kdrop = fa._kernel_drop("pairs", x_q, p, tq, tk, KEEP, seed, None,
+                                    None)
+            a = fa.short_bwd_pairs(x_q, proj, sk_w, sk_b, fc_w, ln_s, mask, oh,
+                                   g, tk, False, kdrop)
+            b = fa.short_bwd_pairs(x_q, saved, sk_w, sk_b, fc_w, ln_s, mask,
+                                   oh, g, tk, True, kdrop)
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                fail(f"sh_attn_bwd_kernel {name} {dtype}: the saved q/k/v "
+                     "give other bits than the projections")
+            del saved, a, b
+        # timed in bf16 with the seed's dropout, the train path's form
+        ms = cuda_ms(lambda: fa.short_bwd_pairs(
+            x_q, proj, sk_w, sk_b, fc_w, ln_s, mask, oh, g, tk, False, kdrop))
+        plain_ms = cuda_ms(lambda: fa.sh_attention_bwd_pairs_reference(
+            *proj, sk_w, sk_b, fc_w, x_q, ln_s, mask, oh, g, attn_keep=ak,
+            out_keep=ok, keep_prob=KEEP), iters=3, warmup=1)
+        t_bound, by = pair_bound(p, tq, tk, True)
+        log(f"sh_attn_bwd_kernel {name}: kernel_ms {ms:.4f} plain_ms "
+            f"{plain_ms:.3f} bound_ms {t_bound:.4f} ({by}); saved q/k/v "
+            "bit-equal")
+        res["ms"] += ms
+        res["plain_ms"] += plain_ms
+        res["bound_ms"] += t_bound
+        del proj, oh, g
+    log(f"sh_attn_bwd_kernel per train step (3 calls, bf16, seed dropout): "
+        f"kernel_ms {res['ms']:.4f} plain_ms {res['plain_ms']:.3f} bound_ms "
+        f"{res['bound_ms']:.4f}")
+    return {"pairs_ms": res["ms"], "pairs_plain_ms": res["plain_ms"],
+            "pairs_bound_ms": res["bound_ms"], "pairs_max_abs_err": res["err"],
+            "split_err": split_err}
 
 
 def ffn_relu_ties(torch, args):
@@ -1373,6 +1574,13 @@ def check_tensor_core_libraries():
                 fail(f"{stem}: {name} spills ({use})")
         log(f"{stem}: {n} HGMMA instructions in the library")
         out[stem] = n
+    # the per-pair backward's per-head products: mma.sync (HMMA)
+    out["sh_attention_hmma"] = _cuobjdump("sh_attention", "-sass").count(
+        "HMMA")
+    if out["sh_attention_hmma"] <= 0:
+        fail("sh_attention: no HMMA instruction in the built library")
+    log(f"sh_attention: {out['sh_attention_hmma']} HMMA instructions in the "
+        "library")
     return out
 
 
@@ -2049,6 +2257,7 @@ def main() -> int:
                "ffn_fwd": check_ffn(torch, dev),
                "posln_fwd": check_posln(torch, dev)}
     attn = check_attention_train(torch, dev)
+    attn["bwd"].update(check_bwd_pairs(torch, dev))
     results.update({"sh_attention_saved": attn["saved"],
                     "sh_attention_bwd": attn["bwd"],
                     "ffn_bwd": check_ffn_train(torch, dev),
@@ -2069,6 +2278,7 @@ def main() -> int:
     for key, err in check_forward_modes(torch, dev).items():
         results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
     results["sh_attention_fwd"]["hgmma"] = hgmma["sh_attention"]
+    results["sh_attention_bwd"]["hmma"] = hgmma["sh_attention_hmma"]
     results["ffn_fwd"]["hgmma"] = hgmma["ffn"]
 
     cfg, params, state = make_weights(torch)
