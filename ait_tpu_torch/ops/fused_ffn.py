@@ -32,13 +32,25 @@ LayerNorm eps is 1e-6 with f32 statistics.  A CUDA tensor goes to the
 kernel, a CPU tensor to the plain version beside it (`ffn_reference`,
 `posln_reference`, and for the backward, torch autograd through them:
 `ffn_bwd_reference`, `posln_bwd_reference`).
+
+csrc/posln.cu's two kernels run in persistent blocks of 8 warps whose grid
+the wrappers compute here (`posln_grid`, `ln_bwd_grid`: as many blocks as
+the card's SMs hold at once, given each kernel's ring of row slots in
+shared memory; warp w of block b walks rows b * 8 + w, then every
+8 * blocks-th row after it, `grid_rows`).  `ln_bwd` sums dln_s and dln_b
+in a fixed order over that grid (`ln_param_sums` emulates it), so two
+calls give the same bits.  `ln_bwd_reference` is the plain version of the
+C entry `ln_bwd` itself, the LayerNorm backward that the glue and the FFN
+backward share.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
+import torch.nn.functional as F
 
 from ait_tpu_torch.ops import _build, _gemm, philox
 from ait_tpu_torch.ops.dropout_masks import count_launch, seed_args
@@ -106,11 +118,136 @@ def _check_rows(name, x, params):
 _I, _P = ctypes.c_int, ctypes.c_void_p
 _DROP = [_P, ctypes.c_uint, ctypes.c_float]        # seed, threshold, 1 / keep
 _FFN_FUNCS = {"ffn_fwd": [_I] + [_P] * 8 + [_I] + _DROP + [_P]}
-_POSLN_FUNCS = {"posln_fwd": [_I] + [_P] * 5 + [_I, _I] + _DROP + [_P],
-                "ln_bwd": [_I] * 3 + [_P] * 2 + [_I] + [_P] * 5 +
-                [_I, _I, _I] + _DROP + [_P, _P]}
+_POSLN_FUNCS = {"posln_fwd": [_I] + [_P] * 5 + [_I] * 3 + _DROP + [_P],
+                "ln_bwd": [_I] * 3 + [_P] * 2 + [_I] + [_P] * 6 +
+                [_I] * 3 + _DROP + [_P, _P]}
 # ln_bwd's dropout modes (csrc/posln.cu)
 _LN_PLAIN, _LN_GLUE, _LN_FFN = 0, 1, 2
+
+# csrc/posln.cu's launch shape: blocks of LN_WARPS warps, each warp with a
+# ring of LN_STAGES row slots in shared memory (a slot holds one row of
+# each array the kernel reads); as many blocks a SM as the rings leave room
+# for, at most the kernels' __launch_bounds__ minimum (3 for the forward,
+# 2 for the backward, which holds more registers)
+LN_WARPS, LN_STAGES = 8, 3
+SM_SHARED_BYTES = 228 * 1024       # a Hopper SM's; a block reserves 1 KB
+# the second pass of ln_bwd: warps a block, each summing every 32nd partial
+LN_REDUCE_WARPS = 32
+
+
+def _rows_grid(n, sms, slot_bytes, most_per_sm):
+    ring = LN_WARPS * LN_STAGES * slot_bytes
+    per_sm = max(1, min(most_per_sm, SM_SHARED_BYTES // (ring + 1024)))
+    return max(1, min(-(-n // LN_WARPS), sms * per_sm))
+
+
+def posln_grid(n, sms, itemsize):
+    """Blocks of csrc/posln.cu's forward for n rows on a card of `sms` SMs,
+    x and pos of `itemsize` bytes an element."""
+    return _rows_grid(n, sms, 2 * KERNEL_D * itemsize, 3)
+
+
+def ln_bwd_grid(n, sms, x_itemsize, add_itemsize):
+    """Blocks of csrc/posln.cu's `ln_bwd` (and rows of its partials) for n
+    rows: x and g of `x_itemsize` bytes an element, the addend of
+    `add_itemsize`."""
+    return _rows_grid(n, sms, KERNEL_D * (2 * x_itemsize + add_itemsize), 2)
+
+
+def grid_rows(blocks, n):
+    """{(block, warp): the rows that warp walks, in order} for a grid of
+    `blocks` persistent blocks over n rows."""
+    stride = blocks * LN_WARPS
+    return {(b, w): range(b * LN_WARPS + w, n, stride)
+            for b in range(blocks) for w in range(LN_WARPS)}
+
+
+@functools.lru_cache(maxsize=None)
+def _device_sms(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sms(device):
+    """Streaming multiprocessors of a CUDA device."""
+    return _device_sms(device.index if device.index is not None
+                       else torch.cuda.current_device())
+
+
+def ln_param_sums(g, xhat, blocks):
+    """(dln_s, dln_b) = (sum_i g * xhat, sum_i g) over f32 rows [N, D] in
+    `ln_bwd`'s fixed order for a grid of `blocks`: each warp sums its rows
+    (`grid_rows`) in order, dln_s as an FMA a row (here a float64 product
+    and sum rounded to f32); each block adds its 8 warps in order; then
+    warp v of the second pass adds partials v, v + 32, ... in order, and the
+    32 warp sums are added in order."""
+    n, d = g.shape
+    stride = blocks * LN_WARPS
+    rounds = -(-n // stride)
+    pad = (0, 0, 0, rounds * stride - n)        # rows of zeros add nothing
+    gp = F.pad(g, pad).view(rounds, stride, d)
+    xp = F.pad(xhat, pad).view(rounds, stride, d)
+    zeros = functools.partial(torch.zeros, dtype=torch.float32,
+                              device=g.device)
+    ps, pb = zeros(stride, d), zeros(stride, d)
+    for k in range(rounds):
+        ps = (ps.double() + gp[k].double() * xp[k].double()).float()
+        pb = pb + gp[k]
+    out = []
+    for warp_sums in (ps, pb):
+        per_block = warp_sums.view(blocks, LN_WARPS, d)
+        part = zeros(blocks, d)
+        for w in range(LN_WARPS):
+            part = part + per_block[:, w]
+        passes = -(-blocks // LN_REDUCE_WARPS)
+        part = F.pad(part, (0, 0, 0, passes * LN_REDUCE_WARPS - blocks))
+        acc = zeros(LN_REDUCE_WARPS, d)
+        for k in range(passes):
+            acc = acc + part.view(passes, LN_REDUCE_WARPS, d)[k]
+        total = zeros(d)
+        for v in range(LN_REDUCE_WARPS):
+            total = total + acc[v]
+        out.append(total)
+    return tuple(out)
+
+
+def ln_bwd_reference(x, add, period, ln_s, g, mode=_LN_PLAIN, keep=None,
+                     keep_prob=1.0, out_dtype=torch.float32, blocks=None):
+    """Plain version of csrc/posln.cu `ln_bwd`: (dx, dln_s, dln_b, dy2) of
+    the LayerNorm of y = x + add[i mod period] for the output cotangent g,
+    in f32 with the JAX kernels' formula (pallas_ffn.py:135-151, :319-341).
+    Dropout by `mode` with the [N, D] 0/1 mask `keep`, m = keep / keep_prob:
+    the glue's y = (x + add) * m and dx = dy * m; the FFN's y = x + add * m,
+    dx = dy and dy2 = dy * m (else None).  dx in out_dtype.  With `blocks`,
+    dln_s and dln_b are summed in the kernel's fixed order for that grid
+    (`ln_param_sums`), else by torch."""
+    n = x.shape[0]
+    a = add.float()[torch.arange(n, device=x.device) % period]
+    m = None
+    if mode != _LN_PLAIN:
+        _build.require(keep is not None, "ln_bwd_reference: a dropout mode "
+                       "needs its keep mask")
+        m = keep.float() * (1.0 / keep_prob)
+    if mode == _LN_GLUE:
+        y = (x.float() + a) * m
+    elif mode == _LN_FFN:
+        y = x.float() + a * m
+    else:
+        y = x.float() + a
+    mu = y.mean(dim=-1, keepdim=True)
+    var = ((y - mu) ** 2).mean(dim=-1, keepdim=True)
+    r = torch.rsqrt(var + 1e-6)
+    xhat = (y - mu) * r
+    gf = g.float()
+    dxhat = gf * ln_s
+    dy = r * (dxhat - dxhat.mean(dim=-1, keepdim=True) -
+              xhat * (dxhat * xhat).mean(dim=-1, keepdim=True))
+    if blocks is None:
+        dln_s, dln_b = (gf * xhat).sum(dim=0), gf.sum(dim=0)
+    else:
+        dln_s, dln_b = ln_param_sums(gf, xhat, blocks)
+    dy2 = dy * m if mode == _LN_FFN else None
+    dx = dy * m if mode == _LN_GLUE else dy
+    return dx.to(out_dtype), dln_s, dln_b, dy2
 
 
 def _kernel_drop(name, x, keep, keep_prob, seed):
@@ -173,16 +310,24 @@ def fused_posln(x, pos, ln_s, ln_b, keep=None, keep_prob=1.0, seed=None):
             f"posln: {name} must be float32 [{d}]")
     out = torch.empty_like(x)
     if n:
-        lib = _build.load("posln", _POSLN_FUNCS)
-        _build.check(lib.posln_fwd(
-            int(x.dtype == torch.bfloat16), x.data_ptr(), pos.data_ptr(),
-            ln_s.data_ptr(), ln_b.data_ptr(), out.data_ptr(), n, t, *drop,
-            _build.stream_ptr(x.device)), "posln_fwd")
+        _posln_launch(x, pos, ln_s, ln_b, out, drop)
         count_launch(fused_posln, keep_prob)
     return out
 
 
 fused_posln.launches = fused_posln.dropout_launches = 0
+
+
+def _posln_launch(x, pos, ln_s, ln_b, out, drop):
+    """csrc/posln.cu `posln_fwd` on checked operands (n >= 1 rows) over
+    `posln_grid`'s persistent blocks."""
+    n, t = x.shape[0], pos.shape[0]
+    blocks = posln_grid(n, _sms(x.device), x.element_size())
+    lib = _build.load("posln", _POSLN_FUNCS)
+    _build.check(lib.posln_fwd(
+        int(x.dtype == torch.bfloat16), x.data_ptr(), pos.data_ptr(),
+        ln_s.data_ptr(), ln_b.data_ptr(), out.data_ptr(), n, t, blocks,
+        *drop, _build.stream_ptr(x.device)), "posln_fwd")
 
 
 # ------------------------------------------------------------------ backward
@@ -212,27 +357,30 @@ def posln_bwd_reference(x, pos, ln_s, ln_b, g, keep=None, keep_prob=1.0,
 def _ln_bwd(x, add, period, ln_s, g, out_dtype, mode=_LN_PLAIN,
             drop=(None, 0, 1.0)):
     """csrc/posln.cu `ln_bwd`: (dx, dln_s, dln_b, dy2) of the LayerNorm of
-    x + add[i mod period] on the card, with the dropout of `mode` (drop =
-    the kernel's seed pointer, threshold and 1 / keep_prob).  dy2 [N, 512]
-    f32 in the FFN mode, else None."""
+    x + add[i mod period] on the card (n >= 1 rows), with the dropout of
+    `mode` (drop = the kernel's seed pointer, threshold and 1 / keep_prob);
+    one entry, two kernels: the rows over `ln_bwd_grid`'s persistent blocks,
+    then the fixed-order sum of the blocks' [blocks, 2, 512] partials.  dy2
+    [N, 512] f32 in the FFN mode, else None."""
     n = x.shape[0]
-    per_block = -(-n // 1024)                    # ~1024 blocks, 8-row runs
-    rpb = max(8, -(-per_block // 8) * 8)
-    blocks = -(-n // rpb)
-    dx = torch.empty((n, KERNEL_D), dtype=out_dtype, device=x.device)
-    dy2 = (torch.empty((n, KERNEL_D), dtype=torch.float32, device=x.device)
+    blocks = ln_bwd_grid(n, _sms(x.device), x.element_size(),
+                         add.element_size())
+    dev = x.device
+    dx = torch.empty((n, KERNEL_D), dtype=out_dtype, device=dev)
+    dy2 = (torch.empty((n, KERNEL_D), dtype=torch.float32, device=dev)
            if mode == _LN_FFN else None)
-    parts = torch.empty((2, blocks, KERNEL_D), dtype=torch.float32,
-                        device=x.device)
+    part = torch.empty((blocks, 2, KERNEL_D), dtype=torch.float32, device=dev)
+    dln_s = torch.empty(KERNEL_D, dtype=torch.float32, device=dev)
+    dln_b = torch.empty(KERNEL_D, dtype=torch.float32, device=dev)
     lib = _build.load("posln", _POSLN_FUNCS)
     _build.check(lib.ln_bwd(
         int(x.dtype == torch.bfloat16), int(add.dtype == torch.bfloat16),
         int(out_dtype == torch.bfloat16), x.data_ptr(), add.data_ptr(),
         period, ln_s.data_ptr(), g.data_ptr(), dx.data_ptr(),
-        parts[0].data_ptr(), parts[1].data_ptr(), n, rpb, mode, *drop,
-        dy2.data_ptr() if dy2 is not None else None,
-        _build.stream_ptr(x.device)), "ln_bwd")
-    return dx, _gemm.colsum(parts[0]), _gemm.colsum(parts[1]), dy2
+        part.data_ptr(), dln_s.data_ptr(), dln_b.data_ptr(), n, blocks, mode,
+        *drop, dy2.data_ptr() if dy2 is not None else None,
+        _build.stream_ptr(dev)), "ln_bwd")
+    return dx, dln_s, dln_b, dy2
 
 
 def fused_ffn_bwd(x, w1, b1, w2, b2, ln_s, ln_b, g, keep=None, keep_prob=1.0,
@@ -272,12 +420,28 @@ def fused_ffn_bwd(x, w1, b1, w2, b2, ln_s, ln_b, g, keep=None, keep_prob=1.0,
                 torch.zeros_like(b1), torch.zeros_like(w2),
                 torch.zeros_like(b2), torch.zeros_like(ln_s),
                 torch.zeros_like(ln_b))
+    out = _ffn_bwd_launches(x, w1, b1, w2, b2, ln_s, g, keep_prob, drop)
+    count_launch(fused_ffn_bwd, keep_prob)
+    return out
+
+
+# `ln_launches`: its LayerNorm backward's launches of csrc/posln.cu `ln_bwd`
+fused_ffn_bwd.launches = fused_ffn_bwd.dropout_launches = 0
+fused_ffn_bwd.ln_launches = 0
+
+
+def _ffn_bwd_launches(x, w1, b1, w2, b2, ln_s, g, keep_prob, drop):
+    """`fused_ffn_bwd`'s launches on checked operands (n >= 1 rows): the
+    recompute's two products, `ln_bwd` on y2, the four gradient products
+    and the two bias column sums."""
+    dt = x.dtype
     gemm, NN, NT, TN = _gemm.gemm, _gemm.NN, _gemm.NT, _gemm.TN
     y1 = gemm(NN, x, w1, bias=b1, relu=True, out_dtype=dt)
     y2 = gemm(NN, y1, w2, bias=b2)
     dy, dln_s, dln_b, dy2 = _ln_bwd(
         x, y2, x.shape[0], ln_s, g, torch.float32,
         _LN_FFN if keep_prob < 1.0 else _LN_PLAIN, drop)
+    fused_ffn_bwd.ln_launches += 1
     del y2
     if dy2 is None:
         dy2 = dy
@@ -286,11 +450,7 @@ def fused_ffn_bwd(x, w1, b1, w2, b2, ln_s, ln_b, g, keep=None, keep_prob=1.0,
     dw1 = gemm(TN, x, dy1, out_dtype=dt)
     dw2 = gemm(TN, y1, dy2, out_dtype=dt)
     db1, db2 = _gemm.colsum(dy1), _gemm.colsum(dy2)
-    count_launch(fused_ffn_bwd, keep_prob)
     return dx, dw1, db1, dw2, db2, dln_s, dln_b
-
-
-fused_ffn_bwd.launches = fused_ffn_bwd.dropout_launches = 0
 
 
 def fused_posln_bwd(x, pos, ln_s, ln_b, g, keep=None, keep_prob=1.0,
@@ -317,13 +477,22 @@ def fused_posln_bwd(x, pos, ln_s, ln_b, g, keep=None, keep_prob=1.0,
     if not n:
         return (torch.zeros_like(x), torch.zeros_like(pos),
                 torch.zeros_like(ln_s), torch.zeros_like(ln_b))
-    mode = _LN_GLUE if keep_prob < 1.0 else _LN_PLAIN
-    dx, dln_s, dln_b, _ = _ln_bwd(x, pos, t, ln_s, g, x.dtype, mode, drop)
+    out = _posln_bwd_launches(x, pos, ln_s, g, keep_prob, drop)
     count_launch(fused_posln_bwd, keep_prob)
-    return dx, torch.zeros_like(pos), dln_s, dln_b
+    return out
 
 
 fused_posln_bwd.launches = fused_posln_bwd.dropout_launches = 0
+
+
+def _posln_bwd_launches(x, pos, ln_s, g, keep_prob, drop):
+    """`fused_posln_bwd`'s launch on checked operands (n >= 1 rows): one
+    `ln_bwd` with the position table as the addend, in the glue's dropout
+    mode at keep_prob < 1; dx in x's dtype."""
+    mode = _LN_GLUE if keep_prob < 1.0 else _LN_PLAIN
+    dx, dln_s, dln_b, _ = _ln_bwd(x, pos, pos.shape[0], ln_s, g, x.dtype,
+                                  mode, drop)
+    return dx, torch.zeros_like(pos), dln_s, dln_b
 
 
 class FusedFFN(torch.autograd.Function):

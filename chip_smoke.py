@@ -44,6 +44,18 @@
      proposals (its anchors decoded with small seeded deltas), with the
      tiles walked and IoU tests logged; the kernel's time and bound are the
      proposals'.
+   * the LayerNorm glue (csrc/posln.cu, persistent blocks): the forward
+     and the backward at every main-path shape and mode, including the
+     backward in the FFN's mode alone (check_ffn_ln_bwd: 57,344 and 65,536
+     rows, f32 addend, dy and dy2), dln_s and dln_b bit-equal over two
+     calls; their times on the device (torch.profiler: the event time of a
+     512-row call measures its wrapper's host work) beside the bound, the
+     plain version's and a yardstick, one PyTorch LayerNorm call on the
+     already-summed rows (`F.layer_norm` forward, aten's
+     native_layer_norm_backward); the library's registers logged.
+   * Philox's bound term: one Philox4x32-10 call's instructions counted in
+     the posln library's SASS, at the int32 issue rate (64 a clock per SM
+     on compute capability 9.0) x the SMs x nvidia-smi's SM clock.
 3. Serves the full-width ResNet-50 flagship (random weights from a numpy
    seed, carried in through the weight bridge) with OneShotPredictor:
    batches of 8 uint8 608x800 canvases and 128x128 queries.  Every kernel's
@@ -113,11 +125,20 @@ BF16_BWD_REL = 2e-2
 # the plain version run in f32 on the same bf16-rounded operands
 BF16_BWD_REL_LONG = 4e-2
 KEEP = 0.9                # 1 - Config().model.t_dropout
-# integer operations of one Philox4x32-10 call (10 rounds of 2 high and 2
-# low 32-bit products, 4 xors and 2 key additions) and the 4 compares and
-# selects of its words; counted at the CUDA cores' f32 rate (the card's
-# table gives no int32 rate)
-PHILOX_OPS = 110
+# int32 results per clock per SM on compute capability 9.0 (add, multiply
+# and multiply-add, logic, compare: the CUDA C++ Programming Guide's
+# arithmetic-throughput table; f32 add and FMA are 128).  Philox4x32-10 is
+# integer work: its bound term is one `keep_group` call's instructions,
+# counted in the built posln library's SASS (`philox_instructions`), over
+# this rate times the SMs and the SM clock that nvidia-smi reports.
+INT32_PER_CLOCK_SM = 64
+# set by main(): instructions of one Philox call, the card's int32 rate
+PHILOX = {"instructions": None, "int32_ops_s": None}
+
+
+def philox_s(groups):
+    """Seconds of int32 issue that `groups` Philox4x32-10 calls need."""
+    return groups * PHILOX["instructions"] / PHILOX["int32_ops_s"]
 
 
 def log(msg: str) -> None:
@@ -142,6 +163,52 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_kernels(fn, iters: int = 20, warmup: int = 2):
+    """[(kernel, launches a call, device ms a call)] of the kernels that
+    fn launches (torch.profiler over `iters` calls, after warm-up)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.count / iters,
+             e.self_device_time_total / iters / 1e3)
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA and
+            getattr(e, "self_device_time_total", 0.0) > 0]
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 2) -> float:
+    """Device time of one call of fn: the summed time of the kernels it
+    launches.  Event timing (`cuda_ms`) of a call shorter than its
+    wrapper's host work measures the host; this does not."""
+    return sum(ms for _, _, ms in device_kernels(fn, iters, warmup))
+
+
+def layer_norm_yardstick(torch, y, g=None):
+    """Device ms of one PyTorch LayerNorm call on the already-summed rows y
+    (eps 1e-6; weight and bias in y's dtype): `F.layer_norm`'s forward, or
+    with the cotangent g its backward (aten's native_layer_norm_backward
+    from the forward's mean and rstd).  A yardstick, not a library call
+    for the same function: it omits the add and the dropout."""
+    d = y.shape[1]
+    w = torch.ones(d, dtype=y.dtype, device=y.device)
+    b = torch.zeros(d, dtype=y.dtype, device=y.device)
+    if g is None:
+        return device_ms(lambda: torch.nn.functional.layer_norm(
+            y, (d,), w, b, 1e-6))
+    _, mean, rstd = torch.ops.aten.native_layer_norm(y, [d], w, b, 1e-6)
+    return device_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+        g.to(y.dtype), y, [d], mean, rstd, w, b, [True, True, True]))
 
 
 def err_of(got, want):
@@ -411,12 +478,18 @@ def check_ffn(torch, dev):
 
 
 def check_posln(torch, dev):
+    """The glue's forward (csrc/posln.cu `posln_kernel`) at the eval
+    forward's two calls against its plain version; its device time
+    (`device_ms`: the decoder's 512 rows take less device time than the
+    wrapper's host work, which the event time logged beside it measures),
+    the bound, the plain version's time and the F.layer_norm yardstick on
+    the summed rows."""
     from ait_tpu_torch.models.layers import sinusoid_table
     from ait_tpu_torch.ops.fused_ffn import fused_posln, posln_reference
 
     g = torch.Generator(device="cpu").manual_seed(4)
     d = 512
-    errs, ms_sum, plain_sum, bound_sum = [], 0.0, 0.0, 0.0
+    errs, sums = [], [0.0] * 4            # ms, plain, bound, yardstick
     for name, n, t in (("encoder", 300 * B * 56, 56), ("decoder", B * 64, 64)):
         x = torch.randn(n, d, generator=g).to(dev)
         pos = torch.from_numpy(sinusoid_table(64, d)[:t]).to(dev)
@@ -435,16 +508,19 @@ def check_posln(torch, dev):
                 errs.append(err)
             log(f"posln {name} N={n} {dtype}: err {err:.3e} "
                 f"(tol {tol})")
-        ms = cuda_ms(lambda: fused_posln(*args), iters=20)
+        ms = device_ms(lambda: fused_posln(*args))
+        event_ms = cuda_ms(lambda: fused_posln(*args), iters=20)
         plain_ms = cuda_ms(lambda: posln_reference(*args), iters=20)
+        yard = layer_norm_yardstick(torch, (args[0].float() + args[1].float(
+        ).repeat(n // t, 1)).to(args[0].dtype))
         t_bound, by = bound(n * d * 2 * 2 + t * d * 2 + 2 * d * 4,
-                            8 * n * d, BF16_FLOP_S)
-        log(f"posln {name}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-            f"bound_ms {t_bound:.4f} ({by})")
-        ms_sum, plain_sum, bound_sum = (ms_sum + ms, plain_sum + plain_ms,
-                                        bound_sum + t_bound)
-    return {"max_abs_err": max(errs), "ms": ms_sum, "plain_ms": plain_sum,
-            "bound_ms": bound_sum, "bound_by": "bytes"}
+                            8 * n * d, F32_FLOP_S)
+        log(f"posln {name}: kernel_ms {ms:.4f} (device; event {event_ms:.4f}) "
+            f"plain_ms {plain_ms:.4f} bound_ms {t_bound:.4f} ({by}) "
+            f"F.layer_norm yardstick_ms {yard:.4f}")
+        sums = [a + b for a, b in zip(sums, (ms, plain_ms, t_bound, yard))]
+    return {"max_abs_err": max(errs), "ms": sums[0], "plain_ms": sums[1],
+            "bound_ms": sums[2], "bound_by": "bytes", "yardstick_ms": sums[3]}
 
 
 # the eval path's attention calls at a batch of 8 requests, 300 rois each
@@ -861,15 +937,28 @@ def check_ffn_train(torch, dev):
             "bound_ms": bound_sum, "bound_by": "operations"}
 
 
+def same_param_grads(name, got, again):
+    """dln_s and dln_b (entries 2 and 3 of `fused_posln_bwd`'s result, 1
+    and 2 of `_ln_bwd`'s, 5 and 6 of `fused_ffn_bwd`'s) bit-equal over two
+    calls: csrc/posln.cu sums them in a fixed order, no atomics."""
+    import torch
+
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"{name}: dln_s / dln_b differ between two calls")
+
+
 def check_posln_train(torch, dev):
-    """Kernel C: the glue's LayerNorm backward."""
+    """Kernel C: the glue's LayerNorm backward (csrc/posln.cu `ln_bwd`, no
+    dropout) at the train step's two calls against torch autograd through
+    the plain forward, its parameter gradients bit-equal over two calls;
+    device time, bound, plain time and the LayerNorm-backward yardstick."""
     from ait_tpu_torch.models.layers import sinusoid_table
     from ait_tpu_torch.ops.fused_ffn import (fused_posln_bwd,
                                              posln_bwd_reference)
 
     g = torch.Generator(device="cpu").manual_seed(6)
     d = 512
-    errs, ms_sum, plain_sum, bound_sum = [], 0.0, 0.0, 0.0
+    errs, sums = [], [0.0] * 4            # ms, plain, bound, yardstick
     for name, n, t in (("encoder", B * ROIS * 56, 56), ("decoder", B * 64,
                                                         64)):
         x = torch.randn(n, d, generator=g).to(dev)
@@ -880,23 +969,96 @@ def check_posln_train(torch, dev):
         for dtype, tol in ((torch.float32, BWD_REL),
                            (torch.bfloat16, BF16_BWD_REL)):
             args = (x.to(dtype), pos.to(dtype), ln_s, ln_b, gy.to(dtype))
-            err, abs_err = check_grads(f"posln_bwd {name} {dtype}",
-                                       fused_posln_bwd(*args),
+            got = fused_posln_bwd(*args)
+            same_param_grads(f"posln_bwd {name} {dtype}", got[2:],
+                             fused_posln_bwd(*args)[2:])
+            err, abs_err = check_grads(f"posln_bwd {name} {dtype}", got,
                                        posln_bwd_reference(*args), tol)
             if dtype == torch.float32:
                 errs.append(abs_err)
             log(f"posln_bwd {name} N={n} {dtype}: rel err {err:.3e} "
-                f"(tol {tol}), abs err {abs_err:.3e}")
-        ms = cuda_ms(lambda: fused_posln_bwd(*args), iters=20)
+                f"(tol {tol}), abs err {abs_err:.3e}, dln bit-equal over "
+                "two calls")
+        ms = device_ms(lambda: fused_posln_bwd(*args))
+        event_ms = cuda_ms(lambda: fused_posln_bwd(*args), iters=20)
         plain_ms = cuda_ms(lambda: posln_bwd_reference(*args), iters=20)
+        yard = layer_norm_yardstick(torch, (args[0].float() + args[1].float(
+        ).repeat(n // t, 1)).to(dtype), args[4])
         t_bound, by = bound(3 * n * d * 2 + 2 * t * d * 2 + 4 * d * 4,
-                            12 * n * d, BF16_FLOP_S)
-        log(f"posln_bwd {name}: kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-            f"bound_ms {t_bound:.4f} ({by})")
-        ms_sum, plain_sum, bound_sum = (ms_sum + ms, plain_sum + plain_ms,
-                                        bound_sum + t_bound)
-    return {"max_abs_err": max(errs), "ms": ms_sum, "plain_ms": plain_sum,
-            "bound_ms": bound_sum, "bound_by": "bytes"}
+                            14 * n * d, F32_FLOP_S)
+        log(f"posln_bwd {name}: kernel_ms {ms:.4f} (device; event "
+            f"{event_ms:.4f}) plain_ms {plain_ms:.4f} bound_ms "
+            f"{t_bound:.4f} ({by}) yardstick_ms {yard:.4f}")
+        sums = [a + b for a, b in zip(sums, (ms, plain_ms, t_bound, yard))]
+    return {"max_abs_err": max(errs), "ms": sums[0], "plain_ms": sums[1],
+            "bound_ms": sums[2], "bound_by": "bytes", "yardstick_ms": sums[3]}
+
+
+def check_ffn_ln_bwd(torch, dev):
+    """csrc/posln.cu `ln_bwd` in the FFN backward's mode, alone, at the
+    default train step's two FFN calls (57,344 and 65,536 rows): bf16 x and
+    g, the f32 addend y2 (the FFN's recomputed output), f32 dy and, with
+    the FFN's output dropout from a seed (the default step's form), dy2;
+    against its plain version `ln_bwd_reference` fed the dumped mask (every
+    output within BWD_REL of its max |plain|), dln_s and dln_b bit-equal
+    over two calls.  The keep_prob 1 form (t_dropout 0) is held and timed
+    too, and logged; the entry's numbers are the dropout form's."""
+    from ait_tpu_torch.ops import dropout_masks as dm, fused_ffn as ff, philox
+
+    g = torch.Generator(device="cpu").manual_seed(8)
+    d = 512
+    errs, sums = [], [0.0] * 4            # ms, plain, bound, yardstick
+    for i, (name, n) in enumerate((("encoder", B * ROIS * 56),
+                                   ("decoder", B * ROIS * 64))):
+        x = torch.randn(n, d, generator=g).to(dev, torch.bfloat16)
+        y2 = torch.randn(n, d, generator=g).to(dev)
+        gy = torch.randn(n, d, generator=g).to(dev, torch.bfloat16)
+        ln_s = (1 + 0.1 * torch.randn(d, generator=g)).to(dev)
+        seed = _seed(torch, dev, 50 + i)
+        keep = dm.ffn_keep_mask(seed, n, d, keep_prob=KEEP)
+        forms = (("dropout", ff._LN_FFN, (seed.data_ptr(),
+                                          philox.keep_threshold(KEEP),
+                                          1.0 / KEEP), keep),
+                 ("keep_prob 1", ff._LN_PLAIN, (None, 0, 1.0), None))
+        for form, mode, drop, mask in forms:
+            def run(mode=mode, drop=drop):
+                return ff._ln_bwd(x, y2, n, ln_s, gy, torch.float32, mode,
+                                  drop)
+
+            def plain(mode=mode, mask=mask):
+                return ff.ln_bwd_reference(x, y2, n, ln_s, gy, mode, mask,
+                                           KEEP)
+
+            got = run()
+            same_param_grads(f"ln_bwd ffn {form} {name}", got[1:3],
+                             run()[1:3])
+            want = plain()
+            pairs = [(u, v) for u, v in zip(got, want) if v is not None]
+            err, abs_err = check_grads(f"ln_bwd ffn {form} {name}",
+                                       [u for u, _ in pairs],
+                                       [v for _, v in pairs], BWD_REL)
+            ms = device_ms(run)
+            plain_ms = cuda_ms(plain, iters=3, warmup=1)
+            y = x.float() + (y2 if mask is None else y2 * mask / KEEP)
+            yard = layer_norm_yardstick(torch, y, gy)
+            # x, g bf16 and y2 f32 in, dy (and dy2) f32 out; ~14 f32
+            # operations an element and the Philox draws
+            nbytes = n * d * (2 + 4 + 2 + 4 + (4 if mask is not None else 0))
+            t_bytes = (nbytes + 3 * d * 4) / HBM_BYTES_S * 1e3
+            t_ops = (14 * n * d / F32_FLOP_S +
+                     (philox_s(n * d / 4) if mask is not None else 0)) * 1e3
+            t_bound = max(t_bytes, t_ops)
+            by = "bytes" if t_bytes >= t_ops else "operations"
+            log(f"ln_bwd ffn {form} {name} N={n}: rel err {err:.3e} (tol "
+                f"{BWD_REL}), abs err {abs_err:.3e}, dln bit-equal over two "
+                f"calls; kernel_ms {ms:.4f} (device) plain_ms {plain_ms:.3f}"
+                f" bound_ms {t_bound:.4f} ({by}) yardstick_ms {yard:.4f}")
+            if form == "dropout":
+                errs.append(abs_err)
+                sums = [a + b for a, b in zip(sums, (ms, plain_ms, t_bound,
+                                                     yard))]
+    return {"max_abs_err": max(errs), "ms": sums[0], "plain_ms": sums[1],
+            "bound_ms": sums[2], "bound_by": "bytes", "yardstick_ms": sums[3]}
 
 
 # ---------------------------------------------------------------- dropout
@@ -969,9 +1131,10 @@ def check_masks(torch, dev):
         lib_ms = cuda_ms(lambda: [torch.rand(m.shape, generator=g,
                                              device=dev) < KEEP
                                   for m in want], iters=20)
-        t_bound = bound(n * 4 + 8, n / 4 * PHILOX_OPS, F32_FLOP_S)[0]
+        t_bound = max(bound(n * 4 + 8, 0, F32_FLOP_S)[0],
+                      philox_s(n / 4) * 1e3)
         log(f"mask dump {name}: kernel_ms {ms:.4f} plain_ms {plain_ms:.3f} "
-            f"library_ms {lib_ms:.4f} bound_ms {t_bound:.4f} (bytes)")
+            f"library_ms {lib_ms:.4f} bound_ms {t_bound:.4f}")
     # a pair's masks do not depend on how many pairs one dump covers
     seed = dumps[0][1]
     small = dm.dropout_keep_masks(seed, 4, 56, 56, 512, keep_prob=KEEP)
@@ -984,7 +1147,7 @@ def check_masks(torch, dev):
 
     # held and timed at the main path's shapes (the co-attention's dumps)
     seed = _seed(torch, dev, 20)
-    ms = plain_ms = lib_ms = t_bound = 0.0
+    ms = plain_ms = lib_ms = t_bytes = t_ops = 0.0
     for tag, heads, blocks, length in COATT_DUMPS:
         held(f"co-attention tag {tag}",
              dm.keep_mask(seed, tag, heads, blocks, length, KEEP),
@@ -999,12 +1162,16 @@ def check_masks(torch, dev):
             (heads, blocks, length), generator=g, device=dev) < KEEP,
             iters=20)
         n = heads * blocks * length
-        t_bound += bound(n * 4 + 8, n / 4 * PHILOX_OPS, F32_FLOP_S)[0]
+        t_bytes += bound(n * 4 + 8, 0, F32_FLOP_S)[0]
+        t_ops += philox_s(n / 4) * 1e3
+    t_bound = max(t_bytes, t_ops)
+    by = "bytes" if t_bytes >= t_ops else "operations"
     log(f"keep_mask_dump (the co-attention's 4 dumps per step): kernel_ms "
         f"{ms:.4f} plain_ms {plain_ms:.3f} library_ms (torch.rand < p) "
-        f"{lib_ms:.4f} bound_ms {t_bound:.4f} (bytes)")
+        f"{lib_ms:.4f} bound_ms {t_bound:.4f} ({by}; bytes {t_bytes:.4f}, "
+        f"Philox {t_ops:.4f})")
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": t_bound, "bound_by": "bytes", "library_ms": lib_ms}
+            "bound_ms": t_bound, "bound_by": by, "library_ms": lib_ms}
 
 
 def _res():
@@ -1093,7 +1260,9 @@ def check_attention_dropout(torch, dev):
 def check_rows_dropout(torch, dev):
     """The FFN's and the glue's dropout forms, forward and backward, with
     the mask from a seed, against the plain versions fed the dumped mask
-    (the same tolerances as their keep_prob 1 checks)."""
+    (the same tolerances as their keep_prob 1 checks); the backward's dln_s
+    and dln_b bit-equal over two calls.  The glue's kernels are timed on
+    the device (`device_ms`), with the LayerNorm yardstick beside them."""
     from ait_tpu_torch.models.layers import sinusoid_table
     from ait_tpu_torch.ops import dropout_masks as dm, fused_ffn as ff
 
@@ -1101,6 +1270,7 @@ def check_rows_dropout(torch, dev):
     d, hid = 512, 2048
     res = {k: _res() for k in ("ffn_fwd", "ffn_bwd", "posln_fwd",
                                "posln_bwd")}
+    yard = {"posln_fwd": 0.0, "posln_bwd": 0.0}
     cases = (("ffn", "encoder", B * ROIS * 56, None),
              ("ffn", "decoder", B * ROIS * 64, None),
              ("posln", "encoder", B * ROIS * 56, 56),
@@ -1143,21 +1313,32 @@ def check_rows_dropout(torch, dev):
                 mask, n_ties = ffn_relu_ties(torch, args)
                 ties = {"relu_mask": mask}
                 log(f"ffn dropout {name} bf16: relu ties {n_ties}")
+            got = bwd(*args, gd, **drop)
+            dln = slice(5, 7) if kind == "ffn" else slice(2, 4)
+            same_param_grads(f"{kind}_bwd dropout {name} {dtype}", got[dln],
+                             bwd(*args, gd, **drop)[dln])
             e_b, abs_b = check_grads(f"{kind}_bwd dropout {name} {dtype}",
-                                     bwd(*args, gd, **drop),
-                                     pbwd(*args, gd, **fed, **ties), tol_b)
+                                     got, pbwd(*args, gd, **fed, **ties),
+                                     tol_b)
             if dtype == torch.float32:
                 res[f"{kind}_fwd"][0].append(err)
                 res[f"{kind}_bwd"][0].append(abs_b)
             log(f"{kind} dropout {name} N={n} {dtype}: fwd err {err:.3e} "
                 f"(tol {tol}), bwd rel err {e_b:.3e} (tol {tol_b}), abs "
-                f"err {abs_b:.3e}")
-        it = 5 if kind == "ffn" else 20
-        ms_f = cuda_ms(lambda: fwd(*args, **drop), iters=it)
+                f"err {abs_b:.3e}, dln bit-equal over two calls")
+        if kind == "ffn":
+            ms_f = cuda_ms(lambda: fwd(*args, **drop), iters=5)
+            ms_b = cuda_ms(lambda: bwd(*args, gd, **drop), iters=3, warmup=1)
+        else:
+            ms_f = device_ms(lambda: fwd(*args, **drop))
+            ms_b = device_ms(lambda: bwd(*args, gd, **drop))
+            y = ((args[0].float() + args[1].float().repeat(n // t, 1)) *
+                 keep / KEEP).to(dtype)
+            yard["posln_fwd"] += layer_norm_yardstick(torch, y)
+            yard["posln_bwd"] += layer_norm_yardstick(torch, y, gd)
         plain_f = cuda_ms(lambda: pfwd(*args, **drop), iters=3, warmup=1)
-        ms_b = cuda_ms(lambda: bwd(*args, gd, **drop), iters=3, warmup=1)
         plain_b = cuda_ms(lambda: pbwd(*args, gd, **drop), iters=3, warmup=1)
-        philox_s = n * d / 4 * PHILOX_OPS / F32_FLOP_S
+        t_philox = philox_s(n * d / 4)
         if kind == "ffn":
             specs = ((n * d * 2 * 2 + 2 * d * hid * 2 + (hid + 3 * d) * 4,
                       4 * n * d * hid),
@@ -1166,21 +1347,24 @@ def check_rows_dropout(torch, dev):
             rate = BF16_FLOP_S
         else:
             specs = ((n * d * 2 * 2 + t * d * 2 + 2 * d * 4, 8 * n * d),
-                     (3 * n * d * 2 + 2 * t * d * 2 + 4 * d * 4, 12 * n * d))
+                     (3 * n * d * 2 + 2 * t * d * 2 + 4 * d * 4, 14 * n * d))
             rate = F32_FLOP_S
         for key, ms, pms, (nbytes, ops) in (
                 (f"{kind}_fwd", ms_f, plain_f, specs[0]),
                 (f"{kind}_bwd", ms_b, plain_b, specs[1])):
             t_bytes = (nbytes + 8) / HBM_BYTES_S * 1e3
-            t_ops = (ops / rate + philox_s) * 1e3
+            t_ops = (ops / rate + t_philox) * 1e3
             t_bound = max(t_bytes, t_ops)
             log(f"{key} dropout {name}: kernel_ms {ms:.4f} plain_ms "
                 f"{pms:.3f} bound_ms {t_bound:.4f} "
                 f"({'bytes' if t_bytes >= t_ops else 'operations'})")
             for j, v in enumerate((ms, pms, t_bound)):
                 res[key][j + 1] += v
-    return {k: _finish(v, "operations" if k.startswith("ffn") else "bytes")
-            for k, v in res.items()}
+    out = {k: _finish(v, "operations" if k.startswith("ffn") else "bytes")
+           for k, v in res.items()}
+    for k, v in yard.items():
+        out[k]["yardstick_ms"] = v
+    return out
 
 
 # ------------------------------------------- the general attention regime
@@ -1208,8 +1392,8 @@ def _general_mask(torch, dev, tq, tk, kind):
 def attn_bounds(p, tq, tk, self_attn, dropout, qkv=False):
     """{eval, saved, bwd}: (bound_ms, bound_by) of one attention call in
     bf16: every operand read once and every result written once, the
-    products at the tensor cores' rate plus the Philox draws at the CUDA
-    cores'.  qkv: the save-qkv policy's three more f32 [H, P*T, 64] arrays,
+    products at the tensor cores' rate plus the Philox draws at the int32
+    rate (`philox_s`).  qkv: the save-qkv policy's three more f32 [H, P*T, 64] arrays,
     written by the forward and read by the backward instead of the three
     projections."""
     d, dk, h = 512, 64, 8
@@ -1218,7 +1402,7 @@ def attn_bounds(p, tq, tk, self_attn, dropout, qkv=False):
     oh_bytes = h * p * tq * dk * 4
     qkv_bytes = h * p * (tq + 2 * tk) * dk * 4 if qkv else 0
     seed = 8 if dropout else 0
-    philox_s = ((h * p * tq * tk + p * tq * d) / 4 * PHILOX_OPS / F32_FLOP_S
+    t_philox = (philox_s((h * p * tq * tk + p * tq * d) / 4)
                 if dropout else 0.0)
     proj = p * (2 * tq * d * d + 4 * tk * d * d)
     flops_f = proj + p * (4 * tq * tk * d + 2 * dk * h * dk + 2 * tq * dk * d)
@@ -1235,7 +1419,7 @@ def attn_bounds(p, tq, tk, self_attn, dropout, qkv=False):
     out = {}
     for k, (nbytes, flops) in specs.items():
         t_bytes = nbytes / HBM_BYTES_S * 1e3
-        t_ops = (flops / BF16_FLOP_S + (philox_s if k != "eval" else 0)) * 1e3
+        t_ops = (flops / BF16_FLOP_S + (t_philox if k != "eval" else 0)) * 1e3
         out[k] = (max(t_bytes, t_ops),
                   "bytes" if t_bytes >= t_ops else "operations")
     return out
@@ -1584,6 +1768,49 @@ def check_tensor_core_libraries():
     return out
 
 
+def philox_instructions():
+    """Instructions of one Philox4x32-10 call (`keep_group`) in the built
+    posln library's SASS: `philox_probe_kernel` minus
+    `philox_probe_base_kernel` (the same loads and stores around no call),
+    each counted without its padding (NOP) and closing self-branch."""
+    import re
+
+    counts, name = {}, None
+    for line in _cuobjdump("posln", "-sass").splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and re.match(r"\s*/\*[0-9a-f]{4}\*/\s+\S", line):
+            op = line.split("*/", 1)[1].strip()
+            if not op.startswith(("NOP", "BRA")):
+                counts[name] += 1
+    probe = [v for k, v in counts.items() if "philox_probe_kernel" in k]
+    base = [v for k, v in counts.items() if "philox_probe_base_kernel" in k]
+    if len(probe) != 1 or len(base) != 1 or probe[0] <= base[0]:
+        fail(f"posln: no Philox probe kernels in the SASS ({counts})")
+    return probe[0] - base[0]
+
+
+def check_posln_library(torch):
+    """Logs csrc/posln.cu's kernels' registers, stack and static shared
+    memory; counts one Philox call's instructions in its SASS and sets the
+    Philox bound term's rate (PHILOX): INT32_PER_CLOCK_SM x the SMs x the
+    SM clock nvidia-smi reports (clocks.max.sm)."""
+    for name, use in sorted(kernel_resources("posln").items()):
+        log(f"posln: {name[:100]}: {use}")
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    PHILOX["instructions"] = philox_instructions()
+    PHILOX["int32_ops_s"] = INT32_PER_CLOCK_SM * sms * mhz * 1e6
+    log(f"Philox4x32-10: {PHILOX['instructions']} instructions a call (SASS);"
+        f" int32 rate {INT32_PER_CLOCK_SM} x {sms} SMs x {mhz:g} MHz = "
+        f"{PHILOX['int32_ops_s']:.4g} /s")
+
+
 def check_gemm(torch, dev):
     """csrc/gemm.cu at every shape of the default train step: the kernel
     against `gemm_reference` (f32 outputs within 1e-4 of max |plain|, bf16
@@ -1707,6 +1934,8 @@ def kernel_wrappers():
             "sh_attention_bwd": (fa.fused_sh_attention_bwd, "launches"),
             "ffn_bwd": (ff.fused_ffn_bwd, "launches"),
             "posln_bwd": (ff.fused_posln_bwd, "launches"),
+            # csrc/posln.cu `ln_bwd` inside the FFN backward (either form)
+            "ln_bwd_ffn": (ff.fused_ffn_bwd, "ln_launches"),
             "sh_attention_drop_fwd": (fa.fused_sh_attention_saved,
                                       "dropout_launches"),
             "sh_attention_drop_bwd": (fa.fused_sh_attention_bwd,
@@ -1761,17 +1990,17 @@ GEMM_STEP = {"gemm": 2 * 6 + 3 * (ATTN_FWD_GEMM + ATTN_BWD_GEMM),
 PER_FORWARD = {**_ZERO, "nms_keep_mask": 2, "sh_attention_fwd": 3,
                "ffn_fwd": 2, "posln_fwd": 2, "sh_attention_saved": 0,
                "sh_attention_bwd": 0, "ffn_bwd": 0, "posln_bwd": 0,
-               "gemm": 3 * ATTN_FWD_GEMM, "gemm_fma": 0}
+               "ln_bwd_ffn": 0, "gemm": 3 * ATTN_FWD_GEMM, "gemm_fma": 0}
 PER_STEP = {**_ZERO, "nms_keep_mask": 1, "sh_attention_fwd": 0, "ffn_fwd": 0,
             "posln_fwd": 0, "sh_attention_saved": 0, "sh_attention_bwd": 0,
             "ffn_bwd": 0, "posln_bwd": 0, "sh_attention_drop_fwd": 3,
             "sh_attention_drop_bwd": 3, "ffn_drop_fwd": 2, "ffn_drop_bwd": 2,
             "posln_drop_fwd": 2, "posln_drop_bwd": 2, "keep_mask_dump": 4,
-            **GEMM_STEP}
+            "ln_bwd_ffn": 2, **GEMM_STEP}
 PER_STEP_NO_DROPOUT = {**_ZERO, "nms_keep_mask": 1, "sh_attention_fwd": 0,
                        "ffn_fwd": 2, "posln_fwd": 2, "sh_attention_saved": 3,
                        "sh_attention_bwd": 3, "ffn_bwd": 2, "posln_bwd": 2,
-                       **GEMM_STEP}
+                       "ln_bwd_ffn": 2, **GEMM_STEP}
 # _LONG_SEQ_FUSION on: the co-attention's two attentions go to the general
 # regime (5 attention launches per forward) and draw seeds, so no mask dump;
 # their products run on csrc/gemm.cu as the transformer's do
@@ -2251,6 +2480,7 @@ def main() -> int:
                "gemm", "dropout"]
     _build.build_all(sources)
     log(f"built {sources} in {time.time() - t0:.1f} s")
+    check_posln_library(torch)
 
     results = {"nms_keep_mask": check_nms(torch, dev, NMS_EVAL + NMS_TRAIN),
                "sh_attention_fwd": check_attention(torch, dev),
@@ -2261,7 +2491,8 @@ def main() -> int:
     results.update({"sh_attention_saved": attn["saved"],
                     "sh_attention_bwd": attn["bwd"],
                     "ffn_bwd": check_ffn_train(torch, dev),
-                    "posln_bwd": check_posln_train(torch, dev)})
+                    "posln_bwd": check_posln_train(torch, dev),
+                    "ln_bwd_ffn": check_ffn_ln_bwd(torch, dev)})
     results["keep_mask_dump"] = check_masks(torch, dev)
     attn = check_attention_dropout(torch, dev)
     rows = check_rows_dropout(torch, dev)
@@ -2330,6 +2561,9 @@ def main() -> int:
                         "ait_tpu/ops/pallas_ffn.py:216"),
             "posln_bwd": ("ait_tpu_torch/csrc/posln.cu",
                           "ait_tpu/ops/pallas_ffn.py:387"),
+            # the LayerNorm part of the FFN backward's kernel (:135-151)
+            "ln_bwd_ffn": ("ait_tpu_torch/csrc/posln.cu",
+                           "ait_tpu/ops/pallas_ffn.py:104"),
             # the dropout forms: the same kernels, the masks from a seed
             "sh_attention_drop_fwd": ("ait_tpu_torch/csrc/sh_attention.cu",
                                       "ait_tpu/ops/pallas_attention.py:915"),

@@ -28,6 +28,11 @@ reports, as JSON lines on stdout (and in --out):
   summed time over the mean wall clock of an unprofiled batch or step;
 * `gemm_products`: the device time and launches of csrc/gemm.cu's
   products (tensor-core and FMA tiles and their split-K sums);
+* `posln_kernels`: the device time and launches of csrc/posln.cu's
+  kernels by template instance (`posln_kernel`, the glue's forward;
+  `ln_bwd_kernel`, the LayerNorm backward of the glue and of the FFN;
+  `ln_param_reduce_kernel`, its fixed-order parameter sums), and their
+  sum;
 * `batch_ms`: host wall clock per batch or step, ending in a synchronize;
 * `peak_memory_gib`: the most device memory allocated during the timed
   batches or steps;
@@ -55,6 +60,8 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# csrc/posln.cu's kernels (the last one since its redesign)
+POSLN_KERNELS = ("posln_kernel", "ln_bwd_kernel", "ln_param_reduce_kernel")
 
 
 def main() -> int:
@@ -198,6 +205,16 @@ def main() -> int:
     # csrc/gemm.cu's products (tensor-core and FMA tiles, split-K sums)
     products = [r for r in rows
                 if "gemm_kernel" in r[0] or "reduce_splits" in r[0]]
+    # csrc/posln.cu's kernels by template instance (e.g. the glue's
+    # ln_bwd_kernel<bf16, bf16, bf16, ..> apart from the FFN's <bf16, float,
+    # float, ..>)
+    posln = {}
+    for key, ms, n in rows:
+        for name in POSLN_KERNELS:
+            if name + "<" in key or name + "(" in key:
+                inst = key[key.index(name):].split("(")[0]
+                ms0, n0 = posln.get(inst, (0.0, 0))
+                posln[inst] = (ms0 + ms, n0 + n)
     mean_ms = sum(batch_ms) / len(batch_ms)
     result = {
         "card": card, "repo": os.path.abspath(args.repo),
@@ -214,6 +231,9 @@ def main() -> int:
         "device_busy_share": busy_ms / mean_ms,
         "gemm_products_ms_per_batch": sum(r[1] for r in products),
         "gemm_products_calls_per_batch": sum(r[2] for r in products),
+        "posln_kernels_ms_per_batch": sum(v[0] for v in posln.values()),
+        "posln_kernels": {k: {"ms": v[0], "calls": v[1]}
+                          for k, v in posln.items()},
         "top_kernels_ms_per_batch": [
             {"name": k[:120], "ms": ms, "calls": n} for k, ms, n in rows[:25]],
     }
@@ -229,7 +249,10 @@ def main() -> int:
                       "gemm_products_ms_per_batch":
                           result["gemm_products_ms_per_batch"],
                       "gemm_products_calls_per_batch":
-                          result["gemm_products_calls_per_batch"]}))
+                          result["gemm_products_calls_per_batch"],
+                      "posln_kernels_ms_per_batch":
+                          result["posln_kernels_ms_per_batch"],
+                      "posln_kernels": result["posln_kernels"]}))
     if stages:
         print(json.dumps({"stages_ms_per_batch": stages}))
     for r in result["top_kernels_ms_per_batch"]:
