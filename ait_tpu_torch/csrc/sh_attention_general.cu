@@ -19,43 +19,80 @@
 // side.  So the block is a sequence of launches over 64-row tiles, with the
 // per-head projections and the per-head outputs in device memory between
 // them (the projections themselves, x @ w over all pairs, run on csrc/gemm.cu
-// from the wrapper, ops/fused_attention.py):
+// from the wrapper, ops/fused_attention.py).  The wrapper's plan
+// (ops/fused_attention.py::general_plan) splits the long side of a
+// (head, pair) across blocks wherever the grid would leave the card's SMs
+// idle, and every sum across blocks is a second pass in a fixed order:
 //
-//   forward   core_fwd  (q tile, head, pair): scores against 64-key tiles in
-//                       two passes (row max and sum, then P = exp(s - m) / l,
-//                       dropout, P v), so the softmax streams any number of
-//                       keys; writes o_h [H, P*Tq, 64]
-//             gate      (pair): s = mean_t sum_h o_h in a fixed order, the
-//                       gate's Linear and its softmax over heads
-//             out_fwd   (q tile, pair): o = sum_h gate_h o_h, fc, output
-//                       dropout, residual, LayerNorm
-//   backward  gate, then
-//             out_bwd   (q tile, pair): fc and LayerNorm forward and backward
-//                       (dy, dy0, do = dy0 fc^T), per-tile partials of the
-//                       LayerNorm scale and bias and of dgate = sum_t do o_h
-//             gate_bwd  (pair): the partials in tile order, the softmax
+//   forward   core_fwd  (q tile x key split, head, pair): per 64-key tile the
+//                       scores, a running row max and sum (one pass, the
+//                       accumulated P v rescaled when the max grows), the
+//                       dropout factor on e^(s - m), P v, and the division
+//                       by the row sum after the key loop (the reference
+//                       puts the factor on the normalized probability: the
+//                       same product in another rounding order); writes
+//                       o_h [H, P*Tq, 64] and each tile's column sums of o_h
+//                       (the gate's row-sum partials); with a key split, the
+//                       unnormalized partial (m, l, o) per split instead
+//             combine   (q tile, head, pair): the splits' (m, l, o) in split
+//                       order, o = sum_s e^(m_s - M) o_s / L; o_h and its
+//                       column sums
+//             gate      (pair): s = the column sums in (tile, head) order /
+//                       Tq, the gate's Linear and its softmax over heads
+//             out_fwd   (persistent, 16-row items): o = sum_h gate_h o_h
+//                       rounded to the storage type, fc, the output dropout,
+//                       residual, LayerNorm
+//   backward  gate_sums (q tile, head, pair): the column sums from the saved
+//                       o_h, in the forward's order; then gate, then
+//             out_bwd   (persistent, 16-row items): fc and the LayerNorm
+//                       forward and backward (dy, dy0, do = dy0 fc^T), the
+//                       item's LayerNorm partials and dgate = sum_t do o_h
+//             gate_bwd  (pair): the items' dgate in order, the softmax
 //                       backward, du = dlogit sk_w^T / Tq
-//             core_bwd_q  (q tile, head, pair): row max and sum again,
-//                       rowdot = sum_d do_h o_h (equal to sum_c P dP, and
-//                       complete without a pass over the keys), then per key
-//                       tile dS = P (dP - rowdot) and dz += dS k; writes the
-//                       row statistics
-//             core_bwd_kv (key tile, head, pair): per q tile, P and dS from
-//                       the row statistics, dv += (P ak)^T do_h, dk += dS^T q
-// Sums across tiles are taken by one block in tile order, no atomics: a step
-// is deterministic.  Padded key columns get a score of -inf (their exp is
-// exactly 0); padded query rows are computed and never stored.
+//             core_bwd_q  (q tile x key split, head, pair): rowdot = sum_d
+//                       do_h o_h (equal to sum_c P dP), then per key tile
+//                       dS = P (dP - rowdot) with a running row max and sum
+//                       as in core_fwd, dz += dS k; writes dz and the row
+//                       statistics (with a key split: partials, combined by
+//                       `combine` as in the forward)
+//             core_bwd_kv (key tile x q split, head, pair): per q tile, P and
+//                       dS from the row statistics, dv += (P ak)^T do_h,
+//                       dk += dS^T q; with a q split, per-split partials
+//                       that `reduce_kv` sums in split order
+// No atomics: two calls give bit-equal results.  Padded key columns score
+// -inf (their exp is exactly 0); padded query rows are computed and never
+// stored; the mask gives -1e9; the LayerNorm eps is 1e-6.
 //
-// What bounds it on the H100: operations.  At the co-attention's shapes the
-// 1900-row projections are ~75% of the work (on csrc/gemm.cu); the tiles here
-// are CUDA-core FMAs with 4 x 4 outputs per thread.  Tensor cores and fewer
-// trips through device memory are later work.
+// What bounds it on the H100: operations (the projections on csrc/gemm.cu
+// are ~75% of them at the co-attention's shapes) and, at q2i, the bytes of
+// o_h (31 MB a trip).  The design:
+//   * every per-head product (the scores q k^T, P v, dP = do_h v^T, dS k,
+//     (P ak)^T do_h, dS^T q) on mma.sync with both f32 operands in three
+//     exact bf16 terms and six term products (csrc/split_mma.cuh, as the
+//     per-pair backward): near-f32 products on the tensor cores; each
+//     64-deep product lands in its own accumulator and is added to the
+//     running sum in f32 (the tensor cores' additions truncate);
+//   * one pass over the keys in core_fwd and core_bwd_q (running max and
+//     sum), and the grid split over the long side (the keys at i2q, the
+//     query tiles of core_bwd_kv at q2i);
+//   * fc staged once per persistent block in the storage type, its two
+//     products on mma.sync (bf16: o is bf16-exact, one term; dy0 in three
+//     terms; f32, the parity path: six term products), 16-row items;
+//   * o_h makes two trips (core_fwd writes it, out_fwd reads it): the gate's
+//     row sums come from core_fwd's epilogue;
+//   * the dropout factors from one Philox call per 4 probabilities
+//     (attn_factors4, shared by a lane pair, as the per-pair backward).
+// On the H100 the core kernels run latency-bound at 2 blocks (16 warps) an
+// SM, as many as their registers allow; the six term products are about a
+// third of their time (ops/attention_general.py emulates their sums).
 
 #include <type_traits>
 
 #include "attn_drop.cuh"
 #include "common.cuh"
+#include "hopper.cuh"
 #include "philox.cuh"
+#include "split_mma.cuh"
 
 namespace {
 
@@ -63,167 +100,276 @@ using bf16 = __nv_bfloat16;
 using ait::AttnDrop;
 using ait::Proj;
 using ait::make_proj;
-using ait::attn_factor;
 using ait::out_factors;
+using ait::split_mma;
+using ait::store_frag;
+using ait::swz;
+using ait::zero44;
 
 constexpr int kD = 512;
 constexpr int kHeads = 8;
 constexpr int kDk = 64;
 constexpr int kHD = kHeads * kDk;
-constexpr int kT = 64;            // tile of query rows, and of keys
-constexpr int kThreads = 256;     // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kLd = kDk + 4;      // rows of the q, k, v and do_h tiles
-constexpr int kLds = kT + 1;      // rows of the score tiles
-constexpr int kTile = kT * kLd;
-constexpr int kGateThreads = 1024;
+constexpr int kT = 64;             // rows of a core tile: query rows, or keys
+constexpr int kTileF = kT * kDk;   // floats of a swizzled [64][64] tile
+constexpr int kThreads = 256;      // 8 warps
+constexpr int kRows = 16;          // rows of an out_fwd / out_bwd item
+constexpr int kFcLd = kD + 8;      // row stride of the staged fc (elements)
+constexpr int kYLd = kD + 4;       // row stride of fc's f32 output rows
+constexpr int kOLd = kDk + 4;      // row stride of the o and do rows
 
-// dst[r][0..63] = scale * src[(row0 + r) * rs + 0..63] for row0 + r < rows,
-// else 0
-__device__ __forceinline__ void load_tile(const float* __restrict__ src,
-                                          int rs, int row0, int rows,
-                                          float scale, float* dst) {
-  for (int e = threadIdx.x; e < kT * kDk / 4; e += kThreads) {
+// ------------------------------------------------------------ tiles, rows
+
+// rows r0.. of one pair's head (src: its row 0, row stride rs), n rows in
+// all, into the swizzled tile at shared address dst; zero past n (cp.async,
+// uncommitted)
+__device__ __forceinline__ void load_tile(const float* src, int rs, int r0,
+                                          int n, uint32_t dst) {
+  for (int e = threadIdx.x; e < kT * 16; e += kThreads) {
     const int r = e >> 4, c = (e & 15) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < rows) {
-      v = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * rs + c);
-      v.x *= scale;
-      v.y *= scale;
-      v.z *= scale;
-      v.w *= scale;
-    }
-    *reinterpret_cast<float4*>(dst + r * kLd + c) = v;
+    const bool ok = r0 + r < n;
+    hopper::cp_async16(dst + 4 * swz(r, c),
+                       src + (size_t)(ok ? r0 + r : 0) * rs + c, ok ? 16 : 0);
   }
 }
 
-// s[i][j] = sum_d a[ty + 16 i][d] b[tx + 16 j][d] over two [64][kLd] tiles
-__device__ __forceinline__ void dot_rows(const float* a, const float* b,
-                                         float s[4][4]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < kDk; ++d) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(ty + 16 * i) * kLd + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * kLd + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] += av[i] * bv[j];
+// rows 0..n-1 of the swizzled tile X * scale into rows of dst (row stride
+// ld): 16-byte stores, 16 threads a row
+__device__ __forceinline__ void store_rows(float* __restrict__ dst, int ld,
+                                           const float* X, int n,
+                                           float scale) {
+  for (int e = threadIdx.x; e < n * 16; e += kThreads) {
+    const int r = e >> 4, c = (e & 15) * 4;
+    float4 v = *reinterpret_cast<const float4*>(X + swz(r, c));
+    v.x *= scale;
+    v.y *= scale;
+    v.z *= scale;
+    v.w *= scale;
+    *reinterpret_cast<float4*>(dst + (size_t)r * ld + c) = v;
   }
 }
 
-// acc[i][j] += sum_r a[r][ty + 16 i] b[r][tx + 16 j] (a: [64][lda])
-__device__ __forceinline__ void dot_cols(const float* a, int lda,
-                                         const float* b, float acc[4][4]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll 4
-  for (int r = 0; r < kT; ++r) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[r * lda + ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[r * kLd + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
-  }
+// the gate's row-sum partial of one (q tile, head, pair): dst[c] = the sum
+// over rows 0..n-1 of X[r][c]: each quarter of 16 rows in row order, then
+// the four quarters in order (the forward's epilogue, `combine` and
+// `gate_sums` all sum this way, so the backward rebuilds the gate bit for
+// bit).  All threads; `quarters` [4][64] of shared scratch
+__device__ __forceinline__ void tile_colsum(const float* X, int n,
+                                            float* quarters,
+                                            float* __restrict__ dst) {
+  const int c = threadIdx.x & (kDk - 1), q = threadIdx.x >> 6;
+  float s = 0.f;
+  for (int r = 16 * q; r < min(n, 16 * q + 16); ++r) s += X[swz(r, c)];
+  quarters[q * kDk + c] = s;
+  __syncthreads();
+  if (threadIdx.x < kDk)
+    dst[c] = ((quarters[c] + quarters[kDk + c]) + quarters[2 * kDk + c]) +
+             quarters[3 * kDk + c];
 }
 
-// acc[i][j] += sum_c p[ty + 16 i][c] b[c][tx + 16 j] (p: [64][kLds])
-__device__ __forceinline__ void dot_pv(const float* p, const float* b,
-                                       float acc[4][4]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll 4
-  for (int c = 0; c < kT; ++c) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = p[(ty + 16 * i) * kLds + c];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[c * kLd + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
-  }
-}
-
-// the masked score of query row gr and key gc: -inf for a padded key (its
-// exp is exactly 0), 0 for a padded query row (finite, never stored)
-__device__ __forceinline__ float masked(float s, const uint8_t* __restrict__ mask,
+// the masked, scaled score of query row gr and key gc: -inf for a padded key
+// (its exp is exactly 0), 0 for a padded query row (finite, never stored),
+// -1e9 where the mask is off
+__device__ __forceinline__ float masked(float s,
+                                        const uint8_t* __restrict__ mask,
                                         int gr, int gc, int tq, int tk) {
   if (gc >= tk) return -CUDART_INF_F;
   if (gr >= tq) return 0.f;
   return mask[(size_t)gr * tk + gc] ? s : -1e9f;
 }
 
-// m[r] = max_c score and l[r] = sum_c exp(score - m[r]) over all tk keys for
-// the 64 query rows at qs (rows r0.. of the pair); kb: the head's k rows of
-// the pair.  Uses ks and sc; ends with a barrier.
-__device__ __forceinline__ void row_stats(const float* qs, float* ks, float* sc,
-                                          float* m, float* l,
-                                          const float* __restrict__ kb, int rs,
-                                          const uint8_t* __restrict__ mask,
-                                          int r0, int tq, int tk) {
-  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
-  const int warp = t >> 5, lane = t & 31;
-  if (t < kT) {
-    m[t] = -CUDART_INF_F;
-    l[t] = 0.f;
+// The warp's fragment of a 64 x 64 block of the scores (split_mma's layout:
+// element (j, e) at row ra + 8 (e / 2), column n0 + 8 j + t2 + e % 2):
+// the probability dropout's factors ak / kp of head h, 0 outside [tq, tk].
+// A lane pair shares a group of 4 columns: the even lane draws row ra's
+// group, the odd one row ra + 8's, and they swap the halves the other needs.
+// gr, gc: the fragment's first row and column in the pair's [tq, tk] block
+__device__ __forceinline__ void frag_factors(const AttnDrop& d, uint2 key,
+                                             int h, int pair, int pairs,
+                                             int tq, int tk, int gr, int gc,
+                                             int lane, float (&fa)[4][4]) {
+  const bool odd = lane & 1;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int cb = gc + 8 * j + 4 * ((lane & 3) >> 1);
+    const float4 f = ait::attn_factors4(d, key, h, pair, pairs, tq, tk,
+                                        odd ? gr + 8 : gr, cb);
+    const float s0 = odd ? f.x : f.z, s1 = odd ? f.y : f.w;
+    const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+    const float r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+    fa[j][0] = odd ? r0 : f.x;
+    fa[j][1] = odd ? r1 : f.y;
+    fa[j][2] = odd ? f.z : r0;
+    fa[j][3] = odd ? f.w : r1;
   }
-  for (int c0 = 0; c0 < tk; c0 += kT) {
-    load_tile(kb, rs, c0, tk, 1.f, ks);
-    __syncthreads();
-    float s[4][4];
-    dot_rows(qs, ks, s);
+}
+
+// the fragment's row maxima (rows ra, ra + 8) over the lane quad
+__device__ __forceinline__ void quad_max(float (&m)[2]) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int hh = 0; hh < 2; ++hh) {
+    m[hh] = fmaxf(m[hh], __shfl_xor_sync(0xffffffffu, m[hh], 1));
+    m[hh] = fmaxf(m[hh], __shfl_xor_sync(0xffffffffu, m[hh], 2));
+  }
+}
+
+__device__ __forceinline__ void quad_sum(float (&s)[2]) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        sc[r * kLds + c] = masked(s[i][j], mask, r0 + r, c0 + c, tq, tk);
+  for (int hh = 0; hh < 2; ++hh) {
+    s[hh] += __shfl_xor_sync(0xffffffffu, s[hh], 1);
+    s[hh] += __shfl_xor_sync(0xffffffffu, s[hh], 2);
+  }
+}
+
+// ------------------------------------------------ one pass over the keys
+
+// What core_fwd and core_bwd_q share: warp w computes rows 16 (w % 4) ..
+// of a 64 x 64 tile's products, columns 32 (w / 4) ..; a row spans warps w
+// and w + 4, which meet at named barrier 1 + w % 4 to agree on its running
+// max.  The q tile, and a ring of two k and v tiles for the key tiles
+// kt0..kt1-1 (the next tile's cp.async copies in flight while one is
+// computed).
+struct KeyPass {
+  int mb, nh, m0, n0, ra, t2, lane;
+  float m[2], l[2];   // running row max, and the lane's part of the sum
+
+  __device__ __forceinline__ KeyPass() {
+    const int warp = threadIdx.x >> 5;
+    lane = threadIdx.x & 31;
+    mb = warp & 3;
+    nh = warp >> 2;
+    m0 = 16 * mb;
+    n0 = 32 * nh;
+    ra = m0 + (lane >> 2);
+    t2 = 2 * (lane & 3);
+    m[0] = m[1] = -CUDART_INF_F;
+    l[0] = l[1] = 0.f;
+  }
+
+  // masks and scales the scores `sc` of key tile c0 (rows r0..), raises the
+  // running max with the partner warp's (rmax [2][64]), and turns sc into
+  // P = exp(s - m) (0 past tk), adding it to l; returns alpha = exp(m_old -
+  // m_new) per row, the factor that rescales what was summed so far
+  __device__ __forceinline__ void softmax_step(float (&sc)[4][4], float qscale,
+                                               const uint8_t* __restrict__ mask,
+                                               int r0, int c0, int tq, int tk,
+                                               float* rmax, float (&alpha)[2]) {
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = ra + 8 * (e >> 1), c = n0 + 8 * j + t2 + (e & 1);
+        const float v =
+            masked(sc[j][e] * qscale, mask, r0 + r, c0 + c, tq, tk);
+        sc[j][e] = v;
+        mx[e >> 1] = fmaxf(mx[e >> 1], v);
       }
-    __syncthreads();
-    for (int r = warp; r < kT; r += kThreads / 32) {
-      const float v0 = sc[r * kLds + lane], v1 = sc[r * kLds + lane + 32];
-      const float mo = m[r], lo = l[r];
-      const float mn = fmaxf(mo, ait::warp_max(fmaxf(v0, v1)));
-      const float sum = ait::warp_sum(expf(v0 - mn) + expf(v1 - mn));
-      __syncwarp();
-      if (lane == 0) {
-        m[r] = mn;
-        l[r] = lo * expf(mo - mn) + sum;
-      }
+    quad_max(mx);
+    if ((lane & 3) == 0) {
+      rmax[nh * kT + ra] = mx[0];
+      rmax[nh * kT + ra + 8] = mx[1];
     }
+    hopper::named_sync(1 + mb, 64);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = ra + 8 * hh;
+      const float mn = fmaxf(m[hh], fmaxf(rmax[r], rmax[kT + r]));
+      alpha[hh] = expf(m[hh] - mn);   // 0 at the first tile (m = -inf)
+      m[hh] = mn;
+      l[hh] *= alpha[hh];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = n0 + 8 * j + t2 + (e & 1);
+        const float p = c0 + c < tk ? expf(sc[j][e] - m[e >> 1]) : 0.f;
+        sc[j][e] = p;
+        l[e >> 1] += p;
+      }
   }
-  __syncthreads();
+
+  // the row sums of P over all keys of the pass: the lane quads', then the
+  // two warps' (rsum [2][64])
+  __device__ __forceinline__ void row_sums(float* rsum, float (&sum)[2]) {
+    float s[2] = {l[0], l[1]};
+    quad_sum(s);
+    if ((lane & 3) == 0) {
+      rsum[nh * kT + ra] = s[0];
+      rsum[nh * kT + ra + 8] = s[1];
+    }
+    hopper::named_sync(1 + mb, 64);
+    sum[0] = rsum[ra] + rsum[kT + ra];
+    sum[1] = rsum[ra + 8] + rsum[kT + ra + 8];
+  }
+};
+
+// acc = acc * alpha (per row) + part
+__device__ __forceinline__ void rescale_add(float (&acc)[4][4],
+                                            const float (&part)[4][4],
+                                            const float (&alpha)[2]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc[j][e] = acc[j][e] * alpha[e >> 1] + part[j][e];
+}
+
+// a fragment times a per-row factor into the swizzled tile X
+__device__ __forceinline__ void store_frag_rows(float* X,
+                                                const float (&acc)[4][4],
+                                                int m0, int n0, int lane,
+                                                const float (&f)[2]) {
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<float2*>(X + swz(m0 + g + 8 * hh, n0 + 8 * j + t2)) =
+          make_float2(acc[j][2 * hh] * f[hh], acc[j][2 * hh + 1] * f[hh]);
 }
 
 // ------------------------------------------------------------------ forward
 
-constexpr int kFwdSmem = 3 * kTile + kT * kLds + 2 * kT;   // floats
+// shared memory, bytes: core_fwd's swizzled tiles q, k and v twice, P, and
+// the two warps' row maxima (then sums) [2][64]; core_bwd_q's q, do_h, k and
+// v twice, dS, the row maxima and rowdot [64]; core_bwd_kv's k, v, q, do_h,
+// P ak / kp and dS.  Two blocks an SM
+constexpr int kFwdSmem = (6 * kTileF + 2 * kT) * 4;
+constexpr int kBwdQSmem = (7 * kTileF + 3 * kT) * 4;
+constexpr int kBwdKvSmem = 6 * kTileF * 4;
+static_assert(2 * (kBwdQSmem + 1024) <= 233472, "two blocks an SM");
 
-// grid (q tiles, heads, pairs).  qsv/ksv/vsv: null, or the save-qkv outputs
-// [H, P*T, 64] (q scaled), written by the blocks that hold the tiles.
-__global__ void __launch_bounds__(kThreads)
+// Where a split's partials go: o (or dz) [splits, H, P*Tq, 64] unnormalized,
+// and (m, l) [splits, 2, H * P * Tq]
+struct Partials {
+  float* x;
+  float* ml;
+};
+
+// grid (q tiles x splits, heads, pairs); key split `split` takes key tiles
+// split * chunk .. .  oh [H, P*Tq, 64] and colsum [P, q tiles, H, 64] where
+// there is one split, else the partials.  qsv/ksv/vsv: null, or the
+// save-qkv outputs [H, P*T, 64] (q scaled), written by split 0 (q) and by
+// the blocks of q tile 0 (k, v)
+__global__ void __launch_bounds__(kThreads, 2)
 core_fwd(Proj pj, const uint8_t* __restrict__ mask, float* __restrict__ oh,
-         float* __restrict__ qsv, float* __restrict__ ksv,
-         float* __restrict__ vsv, int pairs, int tq, int tk, AttnDrop drop) {
+         float* __restrict__ colsum, Partials part, float* __restrict__ qsv,
+         float* __restrict__ ksv, float* __restrict__ vsv, int pairs, int tq,
+         int tk, int splits, int chunk, AttnDrop drop) {
   extern __shared__ __align__(16) float sm[];
   float* qs = sm;
-  float* ks = qs + kTile;
-  float* vs = ks + kTile;
-  float* sc = vs + kTile;
-  float* m = sc + kT * kLds;
-  float* l = m + kT;
-  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
-  const int r0 = blockIdx.x * kT, h = blockIdx.y, pair = blockIdx.z;
+  float* ks = sm + kTileF;       // two buffers
+  float* vs = sm + 3 * kTileF;   // two buffers
+  float* ps = sm + 5 * kTileF;
+  float* red = sm + 6 * kTileF;   // the row maxima, then the row sums
+  const uint32_t base = hopper::smem_u32(sm);
+  const int qt = blockIdx.x / splits, split = blockIdx.x - qt * splits;
+  const int h = blockIdx.y, pair = blockIdx.z;
+  const int r0 = qt * kT, qtiles = gridDim.x / splits;
+  const int ktiles = (tk + kT - 1) / kT;
+  const int kt0 = split * chunk, kt1 = min(ktiles, kt0 + chunk);
   const uint2 key = drop.seed != nullptr ? ait::seed_key(drop.seed)
                                          : make_uint2(0u, 0u);
   const float* qb = pj.q + (size_t)pair * tq * pj.rs + h * pj.q_hs;
@@ -232,95 +378,200 @@ core_fwd(Proj pj, const uint8_t* __restrict__ mask, float* __restrict__ oh,
   const size_t qhead = ((size_t)h * pairs + pair) * tq;   // flat row of o_h
   const size_t khead = ((size_t)h * pairs + pair) * tk;
 
-  load_tile(qb, pj.rs, r0, tq, pj.qscale, qs);
-  row_stats(qs, ks, sc, m, l, kb, pj.rs, mask, r0, tq, tk);
-  if (qsv != nullptr)
-    for (int e = t; e < kT * kDk; e += kThreads) {
-      const int r = e / kDk, c = e % kDk;
-      if (r0 + r < tq) qsv[(qhead + r0 + r) * kDk + c] = qs[r * kLd + c];
-    }
+  load_tile(qb, pj.rs, r0, tq, base);
+  load_tile(kb, pj.rs, kt0 * kT, tk, base + 4 * kTileF);
+  load_tile(vb, pj.rs, kt0 * kT, tk, base + 4 * 3 * kTileF);
+  hopper::cp_async_commit();
 
+  KeyPass kp;
   float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int c0 = 0; c0 < tk; c0 += kT) {
-    load_tile(kb, pj.rs, c0, tk, 1.f, ks);
-    load_tile(vb, pj.rs, c0, tk, 1.f, vs);
-    __syncthreads();
-    if (ksv != nullptr && blockIdx.x == 0)
-      for (int e = t; e < kT * kDk; e += kThreads) {
-        const int r = e / kDk, c = e % kDk;
-        if (c0 + r < tk) {
-          ksv[(khead + c0 + r) * kDk + c] = ks[r * kLd + c];
-          vsv[(khead + c0 + r) * kDk + c] = vs[r * kLd + c];
-        }
-      }
-    float s[4][4];
-    dot_rows(qs, ks, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        const int gr = r0 + r, gc = c0 + c;
-        float p = 0.f;
-        if (gc < tk) {
-          p = expf(masked(s[i][j], mask, gr, gc, tq, tk) - m[r]) / l[r];
-          if (drop.on() && gr < tq)
-            p *= attn_factor(drop, key, h, pair, pairs, tq, tk, gr, gc);
-        }
-        sc[r * kLds + c] = p;
-      }
-    __syncthreads();
-    dot_pv(sc, vs, acc);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gr = r0 + ty + 16 * i;
-      if (gr < tq) oh[(qhead + gr) * kDk + tx + 16 * j] = acc[i][j];
+  zero44(acc);
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int b = (kt - kt0) & 1, c0 = kt * kT;
+    const float* kbuf = ks + b * kTileF;
+    const float* vbuf = vs + b * kTileF;
+    hopper::cp_async_wait<0>();
+    __syncthreads();   // tile kt is in; every warp is done with tile kt - 1
+    if (kt + 1 < kt1) {
+      load_tile(kb, pj.rs, c0 + kT, tk, base + 4 * (1 + (b ^ 1)) * kTileF);
+      load_tile(vb, pj.rs, c0 + kT, tk, base + 4 * (3 + (b ^ 1)) * kTileF);
+      hopper::cp_async_commit();
     }
+    if (qsv != nullptr) {
+      if (kt == kt0 && split == 0)
+        store_rows(qsv + (qhead + r0) * kDk, kDk, qs, min(kT, tq - r0),
+                   pj.qscale);
+      if (qt == 0) {
+        store_rows(ksv + (khead + c0) * kDk, kDk, kbuf, min(kT, tk - c0), 1.f);
+        store_rows(vsv + (khead + c0) * kDk, kDk, vbuf, min(kT, tk - c0), 1.f);
+      }
+    }
+    float sc[4][4], alpha[2];
+    zero44(sc);
+    split_mma<false, false>(sc, qs, kbuf, kp.m0, kp.n0, kp.lane);
+    kp.softmax_step(sc, pj.qscale, mask, r0, c0, tq, tk, red, alpha);
+    if (drop.on()) {   // on e^(s - m): the division by l follows the loop
+      float fa[4][4];
+      frag_factors(drop, key, h, pair, pairs, tq, tk, r0 + kp.ra,
+                   c0 + kp.n0, kp.lane, fa);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] *= fa[j][e];
+    }
+    const float one[2] = {1.f, 1.f};
+    store_frag_rows(ps, sc, kp.m0, kp.n0, kp.lane, one);
+    hopper::named_sync(1 + kp.mb, 64);   // the row pair's P is complete
+    float pv[4][4];
+    zero44(pv);
+    split_mma<false, true>(pv, ps, vbuf, kp.m0, kp.n0, kp.lane);
+    rescale_add(acc, pv, alpha);
+  }
+  float l[2];
+  kp.row_sums(red, l);   // also: the row pair is done with ps
+  const int rows = min(kT, tq - r0);
+  if (splits == 1) {
+    const float inv[2] = {1.f / l[0], 1.f / l[1]};
+    store_frag_rows(ps, acc, kp.m0, kp.n0, kp.lane, inv);
+    __syncthreads();
+    store_rows(oh + (qhead + r0) * kDk, kDk, ps, rows, 1.f);
+    tile_colsum(ps, rows, qs,
+                colsum + (((size_t)pair * qtiles + qt) * kHeads + h) * kDk);
+    return;
+  }
+  const float one[2] = {1.f, 1.f};
+  store_frag_rows(ps, acc, kp.m0, kp.n0, kp.lane, one);
+  const size_t n = (size_t)kHeads * pairs * tq;
+  if (kp.nh == 0 && (kp.lane & 3) == 0)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = kp.ra + 8 * hh;
+      if (r0 + r < tq) {
+        part.ml[(size_t)split * 2 * n + qhead + r0 + r] = kp.m[hh];
+        part.ml[(size_t)split * 2 * n + n + qhead + r0 + r] = l[hh];
+      }
+    }
+  __syncthreads();
+  store_rows(part.x + ((size_t)split * n + qhead + r0) * kDk, kDk, ps, rows,
+             1.f);
 }
 
-// grid (pairs): s = mean over rows of the head sum (rows r = g, g + 16, ...
-// per thread group g, the 16 groups then in order), the gate's Linear, and
-// its softmax over heads per channel; writes s [P, 64] and gate [P, 512]
+// grid (q tiles, heads, pairs): the splits' partials of 64 rows in split
+// order, M = max_s m_s, L = sum_s e^(m_s - M) l_s, x = sum_s e^(m_s - M)
+// x_s / L.  Forward: x is o_h, written with its column sums; backward: x is
+// dz / 8's numerator, written as dz (head h in columns 64 h..) with the row
+// statistics (M, L) in stats [3, H * P * Tq]
+template <bool kFwd>
+__global__ void __launch_bounds__(kThreads)
+combine(Partials part, int splits, int pairs, int tq,
+        float* __restrict__ out, float* __restrict__ colsum,
+        float* __restrict__ stats) {
+  __shared__ __align__(16) float xs[kTileF];
+  __shared__ float ml[kT][2];   // per row: M and L
+  __shared__ float quarters[4 * kDk];
+  const int t = threadIdx.x, qt = blockIdx.x, h = blockIdx.y,
+            pair = blockIdx.z;
+  const int r0 = qt * kT, rows = min(kT, tq - r0);
+  const size_t n = (size_t)kHeads * pairs * tq;
+  const size_t qhead = ((size_t)h * pairs + pair) * tq;
+  if (t < rows) {
+    const size_t i = qhead + r0 + t;
+    float mm = -CUDART_INF_F;
+    for (int s = 0; s < splits; ++s) mm = fmaxf(mm, part.ml[s * 2 * n + i]);
+    float big_l = 0.f;
+    for (int s = 0; s < splits; ++s)
+      big_l += part.ml[s * 2 * n + n + i] * expf(part.ml[s * 2 * n + i] - mm);
+    ml[t][0] = mm;
+    ml[t][1] = big_l;
+    if (!kFwd) {
+      stats[i] = mm;
+      stats[n + i] = big_l;
+    }
+  }
+  __syncthreads();
+  for (int e = t; e < kT * 16; e += kThreads) {
+    const int r = e >> 4, c = (e & 15) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < rows) {
+      const size_t i = qhead + r0 + r;
+      for (int s = 0; s < splits; ++s) {
+        const float w = expf(part.ml[s * 2 * n + i] - ml[r][0]);
+        const float4 x = *reinterpret_cast<const float4*>(
+            part.x + ((size_t)s * n + i) * kDk + c);
+        v.x += x.x * w;
+        v.y += x.y * w;
+        v.z += x.z * w;
+        v.w += x.w * w;
+      }
+      const float lv = ml[r][1];
+      v.x /= lv;
+      v.y /= lv;
+      v.z /= lv;
+      v.w /= lv;
+    }
+    *reinterpret_cast<float4*>(xs + swz(r, c)) = v;
+  }
+  __syncthreads();
+  if (kFwd) {
+    store_rows(out + (qhead + r0) * kDk, kDk, xs, rows, 1.f);
+    tile_colsum(xs, rows, quarters,
+                colsum + (((size_t)pair * gridDim.x + qt) * kHeads + h) * kDk);
+  } else {
+    store_rows(out + ((size_t)pair * tq + r0) * kD + h * kDk, kD, xs, rows,
+               0.125f);
+  }
+}
+
+// grid (q tiles, heads, pairs): the gate's row-sum partials from the saved
+// o_h, as core_fwd's epilogue sums them
+__global__ void __launch_bounds__(kThreads)
+gate_sums(const float* __restrict__ oh, float* __restrict__ colsum, int pairs,
+          int tq) {
+  __shared__ __align__(16) float xs[kTileF];
+  __shared__ float quarters[4 * kDk];
+  const int qt = blockIdx.x, h = blockIdx.y, pair = blockIdx.z;
+  const int r0 = qt * kT, rows = min(kT, tq - r0);
+  const float* src = oh + (((size_t)h * pairs + pair) * tq + r0) * kDk;
+  for (int e = threadIdx.x; e < kT * 16; e += kThreads) {
+    const int r = e >> 4, c = (e & 15) * 4;
+    *reinterpret_cast<float4*>(xs + swz(r, c)) =
+        r < rows ? *reinterpret_cast<const float4*>(src + (size_t)r * kDk + c)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __syncthreads();
+  tile_colsum(xs, rows, quarters,
+              colsum + (((size_t)pair * gridDim.x + qt) * kHeads + h) * kDk);
+}
+
+// grid (pairs), 512 threads: s = (sum over q tiles of the sum over heads of
+// the row-sum partials) / Tq, the gate's Linear, its softmax over heads per
+// channel; writes s [P, 64] and gate [P, 512]
 template <typename T>
-__global__ void __launch_bounds__(kGateThreads)
-gate_kernel(const float* __restrict__ oh, const T* __restrict__ skw,
+__global__ void __launch_bounds__(kHD)
+gate_kernel(const float* __restrict__ colsum, const T* __restrict__ skw,
             const T* __restrict__ skb, float* __restrict__ s_out,
-            float* __restrict__ gate_out, int tq) {
-  __shared__ float part[kGateThreads / kDk][kDk];
+            float* __restrict__ gate_out, int qtiles, int tq) {
   __shared__ float sv[kDk];
   __shared__ float gt[kHD];
-  const int t = threadIdx.x, c = t & (kDk - 1), g = t / kDk;
-  const int pair = blockIdx.x, pairs = gridDim.x;
-  float acc = 0.f;
-  for (int r = g; r < tq; r += kGateThreads / kDk) {
-    float u = 0.f;
-#pragma unroll
-    for (int h = 0; h < kHeads; ++h)
-      u += oh[(((size_t)h * pairs + pair) * tq + r) * kDk + c];
-    acc += u;
-  }
-  part[g][c] = acc;
-  __syncthreads();
+  const int t = threadIdx.x, pair = blockIdx.x;
   if (t < kDk) {
-    float a = 0.f;
-    for (int i = 0; i < kGateThreads / kDk; ++i) a += part[i][t];
-    sv[t] = a / tq;
+    float acc = 0.f;
+#pragma unroll 8
+    for (int qt = 0; qt < qtiles; ++qt) {
+      const float* p = colsum + ((size_t)pair * qtiles + qt) * kHD + t;
+      float u = 0.f;
+#pragma unroll
+      for (int h = 0; h < kHeads; ++h) u += p[h * kDk];
+      acc += u;
+    }
+    sv[t] = acc / tq;
     s_out[(size_t)pair * kDk + t] = sv[t];
   }
   __syncthreads();
-  for (int o = t; o < kHD; o += kGateThreads) {
-    float a = 0.f;
-    for (int d = 0; d < kDk; ++d) a += sv[d] * ait::to_float(skw[d * kHD + o]);
-    gt[o] = a + ait::to_float(skb[o]);
-  }
+  float a = 0.f;
+#pragma unroll 16
+  for (int d = 0; d < kDk; ++d) a += sv[d] * ait::to_float(skw[d * kHD + t]);
+  gt[t] = a + ait::to_float(skb[t]);
   __syncthreads();
   if (t < kDk) {
     float mx = -CUDART_INF_F;
@@ -338,99 +589,214 @@ gate_kernel(const float* __restrict__ oh, const T* __restrict__ skw,
   }
 }
 
-// shared memory of out_fwd and out_bwd, in floats
-constexpr int kOOffGm = 0;                      // gate [8][64]
-constexpr int kOOffOs = kOOffGm + kHD;          // o, rounded [64][64]
-constexpr int kOOffDo = kOOffOs + kT * kDk;     // do [64][64] (backward)
-constexpr int kOOffFc = kOOffDo + kT * kDk;     // fc as f32 [64][512]
-constexpr int kOOffYt = kOOffFc + kDk * kD;     // y0, then dy0 [16][512]
-constexpr int kOutSmem = kOOffYt + 16 * kD;
-static_assert(kOutSmem * 4 <= 232448, "shared memory of one block");
-static_assert(2 * (kThreads / 32) * kD <= kDk * kD, "LN partials fit in fc's place");
+// ------------------------------------------- fc on mma.sync, 16-row items
 
-// the gate and fc into shared memory (no barrier)
+// bf16 x bf16 operands are one term (o is rounded to bf16 before fc, fc is
+// bf16): the product is exact in f32.  f32 (the parity path): three terms
 template <typename T>
-__device__ __forceinline__ void stage_gate_fc(const float* __restrict__ gate,
-                                              const T* __restrict__ fcw,
-                                              int pair, float* gm, float* fcs) {
-  const int t = threadIdx.x;
-  for (int o = t; o < kHD; o += kThreads) gm[o] = gate[(size_t)pair * kHD + o];
-  for (int v = t; v < kDk * kD / 8; v += kThreads) {
-    float a[8];
-    ait::load8(fcw + (size_t)v * 8, a);
-    ait::store8(fcs + v * 8, a);
+struct Terms {
+  static constexpr int n = std::is_same<T, bf16>::value ? 1 : 3;
+};
+
+template <int NT>
+__device__ __forceinline__ void to_terms(float a, float b, uint32_t (&t)[NT]) {
+  if constexpr (NT == 1) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    t[0] = *reinterpret_cast<const uint32_t*>(&h);
+  } else {
+    hopper::split_pair(a, b, t[0], t[1], t[2]);
   }
 }
+
+// d += A B over the term products with i + j <= 2, smallest first
+template <int NA, int NB>
+__device__ __forceinline__ void mma_terms(float (&d)[4],
+                                          const uint32_t (&a)[4][NA],
+                                          const uint32_t (&b)[2][NB]) {
+#pragma unroll
+  for (int s = NA + NB - 2; s >= 0; --s)
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const int j = s - i;
+      if (j < 0 || j >= NB || i + j > 2) continue;
+      const uint32_t ai[4] = {a[0][i], a[1][i], a[2][i], a[3][i]};
+      hopper::mma_16816(d, ai, b[0][j], b[1][j]);
+    }
+}
+
+// the A fragment (rows g, g + 8; columns k0 + t2 (+1), + 8) of 16 f32 rows
+// (row stride ld) in NT terms
+template <int NT>
+__device__ __forceinline__ void a_frag(const float* A, int ld, int k0,
+                                       int lane, uint32_t (&a)[4][NT]) {
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {   // rows g, g + 8, then columns + 8
+    const float2 v = *reinterpret_cast<const float2*>(
+        A + (g + 8 * (i & 1)) * ld + k0 + t2 + 8 * (i >> 1));
+    to_terms<NT>(v.x, v.y, a[i]);
+  }
+}
+
+// fc [64, 512] into shared memory in its storage type, row stride kFcLd
+template <typename T>
+__device__ __forceinline__ void stage_fc(const T* __restrict__ fcw, T* fcs) {
+  constexpr int kPer = 16 / sizeof(T);
+  for (int v = threadIdx.x; v < kDk * kD / kPer; v += kThreads) {
+    const int r = v / (kD / kPer), c = (v % (kD / kPer)) * kPer;
+    *reinterpret_cast<uint4*>(fcs + r * kFcLd + c) =
+        *reinterpret_cast<const uint4*>(fcw + (size_t)r * kD + c);
+  }
+}
+
+// y[16][512] = o[16][64] fc: warp w the columns 64 w .. 64 w + 63
+template <typename T>
+__device__ __forceinline__ void fc_fwd(const float* os, const T* fcs,
+                                       float* ys) {
+  constexpr int NT = Terms<T>::n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int k0 = 0; k0 < kDk; k0 += 16) {
+    uint32_t a[4][NT];
+    a_frag<NT>(os, kOLd, k0, lane, a);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = 64 * warp + 8 * j + g;
+      uint32_t b[2][NT];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int k = k0 + t2 + 8 * q;
+        to_terms<NT>(ait::to_float(fcs[k * kFcLd + n]),
+                     ait::to_float(fcs[(k + 1) * kFcLd + n]), b[q]);
+      }
+      mma_terms<NT, NT>(acc[j], a, b);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<float2*>(ys + (g + 8 * hh) * kYLd + 64 * warp + 8 * j +
+                                 t2) =
+          make_float2(acc[j][2 * hh], acc[j][2 * hh + 1]);
+}
+
+// do[16][64] = dy0[16][512] fc^T: warp w the columns 8 w .. 8 w + 7, dy0 in
+// three terms; each 64-deep stage summed in its own accumulator, then added
+// in f32
+template <typename T>
+__device__ __forceinline__ void fc_bwd(const float* ys, const T* fcs,
+                                       float* dos) {
+  constexpr int NT = Terms<T>::n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+  const int col = 8 * warp + g;   // fc's row for the B fragment
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 1
+  for (int st = 0; st < kD; st += 64) {
+    float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int k0 = st; k0 < st + 64; k0 += 16) {
+      uint32_t a[4][3];
+      a_frag<3>(ys, kYLd, k0, lane, a);
+      uint32_t b[2][NT];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int k = k0 + t2 + 8 * q;
+        to_terms<NT>(ait::to_float(fcs[col * kFcLd + k]),
+                     ait::to_float(fcs[col * kFcLd + k + 1]), b[q]);
+      }
+      mma_terms<3, NT>(sum, a, b);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[e] += sum[e];
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    *reinterpret_cast<float2*>(dos + (g + 8 * hh) * kOLd + 8 * warp + t2) =
+        make_float2(acc[2 * hh], acc[2 * hh + 1]);
+}
+
+// shared memory of out_fwd and out_bwd, bytes: fc [64][kFcLd] in T, y
+// [16][kYLd], o and do [16][kOLd], the pair's gate [512]
+template <typename T>
+struct OutSmem {
+  static constexpr int kFc = kDk * kFcLd * (int)sizeof(T);
+  static constexpr int kY = kFc;
+  static constexpr int kO = kY + kRows * kYLd * 4;
+  static constexpr int kDo = kO + kRows * kOLd * 4;
+  static constexpr int kGm = kDo + kRows * kOLd * 4;
+  static constexpr int kBytes = kGm + kHD * 4;
+};
+static_assert(OutSmem<float>::kBytes <= 232448, "shared memory of one block");
+static_assert(2 * kHeads * kD * 4 <= kRows * kYLd * 4,
+              "the LayerNorm partials fit in y's place");
 
 // os[r][c] = the gated head sum of row r0 + r rounded to the storage type
-// (the fc input), 0 beyond `rows`; also to o_out [P*Tq, 64] where given
+// (fc's input), 0 beyond `rows`; also to o_out [P*Tq, 64] where given
 template <typename T>
 __device__ __forceinline__ void gated_sum(const float* __restrict__ oh,
-                                          const float* gm, const T* type_of,
-                                          int pairs, int pair, int tq, int r0,
-                                          int rows, float* os,
+                                          const float* gm, int pairs, int pair,
+                                          int tq, int r0, int rows, float* os,
                                           float* __restrict__ o_out) {
-  for (int e = threadIdx.x; e < kT * kDk; e += kThreads) {
-    const int r = e / kDk, c = e % kDk;
-    float v = 0.f;
-    if (r < rows) {
-      float acc = 0.f;
+  const int r = threadIdx.x >> 4, c = (threadIdx.x & 15) * 4;   // 16 x 16
+  float v[4] = {0.f, 0.f, 0.f, 0.f};
+  if (r < rows) {
 #pragma unroll
-      for (int h = 0; h < kHeads; ++h)
-        acc += oh[(((size_t)h * pairs + pair) * tq + r0 + r) * kDk + c] *
-               gm[h * kDk + c];
-      v = ait::round_to(acc, type_of);
-      if (o_out != nullptr) o_out[((size_t)pair * tq + r0 + r) * kDk + c] = v;
+    for (int h = 0; h < kHeads; ++h) {
+      const float4 a = *reinterpret_cast<const float4*>(
+          oh + (((size_t)h * pairs + pair) * tq + r0 + r) * kDk + c);
+      v[0] += a.x * gm[h * kDk + c];
+      v[1] += a.y * gm[h * kDk + c + 1];
+      v[2] += a.z * gm[h * kDk + c + 2];
+      v[3] += a.w * gm[h * kDk + c + 3];
     }
-    os[e] = v;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[j] = ait::round_to(v[j], (const T*)nullptr);
+    if (o_out != nullptr)
+      ait::store4(o_out + ((size_t)pair * tq + r0 + r) * kDk + c, v[0], v[1],
+                  v[2], v[3]);
   }
+  ait::store4(os + r * kOLd + c, v[0], v[1], v[2], v[3]);
 }
 
-// yt[i][n] = sum_d os16[i][d] fcs[d][n] for 16 rows: thread (row t / 16,
-// columns t % 16 + 16 j)
-__device__ __forceinline__ void fc_rows(const float* os16, const float* fcs,
-                                        float* yt) {
-  const int t = threadIdx.x, tx = t & 15, i = t >> 4;
-  float acc[32];
-#pragma unroll
-  for (int j = 0; j < 32; ++j) acc[j] = 0.f;
-  for (int d = 0; d < kDk; ++d) {
-    const float a = os16[i * kDk + d];
-#pragma unroll
-    for (int j = 0; j < 32; ++j) acc[j] += a * fcs[d * kD + tx + 16 * j];
-  }
-#pragma unroll
-  for (int j = 0; j < 32; ++j) yt[i * kD + tx + 16 * j] = acc[j];
-}
-
-// grid (q tiles, pairs)
+// persistent blocks over the items (pair, 16 rows r0..) of all pairs
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, 2)
 out_fwd(const float* __restrict__ oh, const float* __restrict__ gate,
         const T* __restrict__ fcw, const T* __restrict__ xq,
         const float* __restrict__ lns, const float* __restrict__ lnb,
-        T* __restrict__ out, int tq, AttnDrop drop) {
-  extern __shared__ __align__(16) float sm[];
-  float* gm = sm + kOOffGm;
-  float* os = sm + kOOffOs;
-  float* fcs = sm + kOOffFc;
-  float* yt = sm + kOOffYt;
+        T* __restrict__ out, int pairs, int tq, AttnDrop drop) {
+  extern __shared__ __align__(16) uint8_t smo[];
+  using L = OutSmem<T>;
+  T* fcs = reinterpret_cast<T*>(smo);
+  float* ys = reinterpret_cast<float*>(smo + L::kY);
+  float* os = reinterpret_cast<float*>(smo + L::kO);
+  float* gm = reinterpret_cast<float*>(smo + L::kGm);
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const int r0 = blockIdx.x * kT, pair = blockIdx.y, pairs = gridDim.y;
-  const int rows = min(kT, tq - r0);
+  const int per = (tq + kRows - 1) / kRows;
   const uint2 key = drop.seed != nullptr ? ait::seed_key(drop.seed)
                                          : make_uint2(0u, 0u);
-  const size_t row0 = (size_t)pair * tq + r0;
-  stage_gate_fc(gate, fcw, pair, gm, fcs);
-  __syncthreads();
-  gated_sum(oh, gm, xq, pairs, pair, tq, r0, rows, os, nullptr);
-  __syncthreads();
-  for (int i0 = 0; i0 < rows; i0 += 16) {
-    fc_rows(os + i0 * kDk, fcs, yt);
+  stage_fc(fcw, fcs);
+  for (int item = blockIdx.x; item < pairs * per; item += gridDim.x) {
+    const int pair = item / per, r0 = (item - pair * per) * kRows;
+    const int rows = min(kRows, tq - r0);
+    const size_t row0 = (size_t)pair * tq + r0;
+    __syncthreads();   // fc is staged; the last item is done with the rest
+    for (int o = t; o < kHD; o += kThreads)
+      gm[o] = gate[(size_t)pair * kHD + o];
     __syncthreads();
-    for (int i = warp; i < 16; i += kThreads / 32) {   // one warp per row
-      const int r = i0 + i;
-      if (r >= rows) continue;
+    gated_sum<T>(oh, gm, pairs, pair, tq, r0, rows, os, nullptr);
+    __syncthreads();
+    fc_fwd(os, fcs, ys);
+    __syncthreads();
+    for (int r = warp; r < rows; r += kThreads / 32) {   // a warp per row
       float v[16];
       float s = 0.f;
 #pragma unroll
@@ -441,7 +807,7 @@ out_fwd(const float* __restrict__ oh, const float* __restrict__ gate,
         out_factors(drop, key, pair, tq, r0 + r, c, mk);
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          v[j * 8 + e] = yt[i * kD + c + e] * mk[e] + a[e];
+          v[j * 8 + e] = ys[r * kYLd + c + e] * mk[e] + a[e];
           s += v[j * 8 + e];
         }
       }
@@ -463,51 +829,55 @@ out_fwd(const float* __restrict__ oh, const float* __restrict__ gate,
         ait::store8(out + (row0 + r) * kD + c, o);
       }
     }
-    __syncthreads();
   }
 }
 
 // ----------------------------------------------------------------- backward
 
-// grid (q tiles, pairs).  Writes dy (the LayerNorm input's cotangent), dy0
-// (fc's output cotangent, with dropout; else it is dy), o, do [P*Tq, 64], and
-// per tile the LayerNorm partials and dgate partials [P * tiles, 512].
+// persistent blocks over the items (pair, 16 rows).  Writes dy (the
+// LayerNorm input's cotangent), dy0 (fc's output cotangent, with dropout;
+// else it is dy), o, do [P*Tq, 64], and per item the LayerNorm partials and
+// the dgate partials [P * items a pair, 512]
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, 2)
 out_bwd(const float* __restrict__ oh, const float* __restrict__ gate,
         const T* __restrict__ fcw, const T* __restrict__ xq,
         const float* __restrict__ lns, const T* __restrict__ g,
         float* __restrict__ dy_out, float* __restrict__ dy0_out,
         float* __restrict__ o_out, float* __restrict__ do_out,
         float* __restrict__ lnp_s, float* __restrict__ lnp_b,
-        float* __restrict__ dgp, int tq, AttnDrop drop) {
-  extern __shared__ __align__(16) float sm[];
-  float* gm = sm + kOOffGm;
-  float* os = sm + kOOffOs;
-  float* dos = sm + kOOffDo;
-  float* fcs = sm + kOOffFc;
-  float* yt = sm + kOOffYt;
+        float* __restrict__ dgp, int pairs, int tq, AttnDrop drop) {
+  extern __shared__ __align__(16) uint8_t smo[];
+  using L = OutSmem<T>;
+  T* fcs = reinterpret_cast<T*>(smo);
+  float* ys = reinterpret_cast<float*>(smo + L::kY);
+  float* os = reinterpret_cast<float*>(smo + L::kO);
+  float* dos = reinterpret_cast<float*>(smo + L::kDo);
+  float* gm = reinterpret_cast<float*>(smo + L::kGm);
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const int r0 = blockIdx.x * kT, pair = blockIdx.y, pairs = gridDim.y;
-  const int rows = min(kT, tq - r0);
-  const size_t tile = (size_t)pair * gridDim.x + blockIdx.x;
+  const int per = (tq + kRows - 1) / kRows;
   const uint2 key = drop.seed != nullptr ? ait::seed_key(drop.seed)
                                          : make_uint2(0u, 0u);
-  const size_t row0 = (size_t)pair * tq + r0;
-  stage_gate_fc(gate, fcw, pair, gm, fcs);
-  for (int e = t; e < kT * kDk; e += kThreads) dos[e] = 0.f;
-  __syncthreads();
-  gated_sum(oh, gm, xq, pairs, pair, tq, r0, rows, os, o_out);
-  __syncthreads();
-  float ps[16], pb[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) ps[i] = pb[i] = 0.f;
-  for (int i0 = 0; i0 < rows; i0 += 16) {
-    fc_rows(os + i0 * kDk, fcs, yt);
+  stage_fc(fcw, fcs);
+  for (int item = blockIdx.x; item < pairs * per; item += gridDim.x) {
+    const int pair = item / per, r0 = (item - pair * per) * kRows;
+    const int rows = min(kRows, tq - r0);
+    const size_t row0 = (size_t)pair * tq + r0;
     __syncthreads();
-    for (int i = warp; i < 16; i += kThreads / 32) {   // one warp per row
-      const int r = i0 + i;
-      if (r >= rows) continue;
+    for (int o = t; o < kHD; o += kThreads)
+      gm[o] = gate[(size_t)pair * kHD + o];
+    __syncthreads();
+    gated_sum<T>(oh, gm, pairs, pair, tq, r0, rows, os, o_out);
+    __syncthreads();
+    fc_fwd(os, fcs, ys);
+    __syncthreads();
+    // the LayerNorm of y0 * ok / kp + x_q and its backward, a warp per row
+    // (rows w, w + 8): dy to device memory, dy0 = dy * ok / kp there with
+    // dropout and into ys in place of y0 (rows past `rows` stay y0 = 0)
+    float ps[16], pb[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) ps[i] = pb[i] = 0.f;
+    for (int r = warp; r < rows; r += kThreads / 32) {
       float y[16], gv[16], mk[16];
       float s = 0.f;
 #pragma unroll
@@ -519,7 +889,7 @@ out_bwd(const float* __restrict__ oh, const float* __restrict__ gate,
         out_factors(drop, key, pair, tq, r0 + r, c, mk + j * 8);
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          y[j * 8 + e] = yt[i * kD + c + e] * mk[j * 8 + e] + a[e];
+          y[j * 8 + e] = ys[r * kYLd + c + e] * mk[j * 8 + e] + a[e];
           gv[j * 8 + e] = q[e];
           s += y[j * 8 + e];
         }
@@ -555,74 +925,73 @@ out_bwd(const float* __restrict__ oh, const float* __restrict__ gate,
         for (int e = 0; e < 8; ++e) {
           o[e] = rs * (gv[j * 8 + e] - m1 - y[j * 8 + e] * m2);
           o0[e] = o[e] * mk[j * 8 + e];       // fc's cotangent: dy * ok / kp
-          yt[i * kD + c + e] = o0[e];
         }
+        ait::store8(ys + r * kYLd + c, o0);
         ait::store8(dy_out + (row0 + r) * kD + c, o);
         if (drop.on()) ait::store8(dy0_out + (row0 + r) * kD + c, o0);
       }
     }
     __syncthreads();
-    // do = dy0 @ fc^T: warp w takes 128 of the 16 x 64 outputs, lanes split n
-    for (int k = 0; k < 128; ++k) {
-      const int idx = warp * 128 + k, i = idx / kDk, c = idx % kDk;
-      if (i0 + i >= rows) continue;
-      float acc = 0.f;
+    fc_bwd(ys, fcs, dos);
+    __syncthreads();   // do is complete; ys is free
+    {  // this item's LayerNorm partials: the 8 warps in order
+      float* red = ys;   // [2][8][512]
 #pragma unroll
-      for (int n = 0; n < kD / 32; ++n)
-        acc += yt[i * kD + lane + 32 * n] * fcs[c * kD + lane + 32 * n];
-      acc = ait::warp_sum(acc);
-      if (lane == 0) {
-        dos[(i0 + i) * kDk + c] = acc;
-        do_out[(row0 + i0 + i) * kDk + c] = acc;
-      }
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          red[warp * kD + j * 256 + lane * 8 + e] = ps[j * 8 + e];
+          red[(8 + warp) * kD + j * 256 + lane * 8 + e] = pb[j * 8 + e];
+        }
     }
-    __syncthreads();
-  }
-  {  // LayerNorm partials of this tile: the 8 warps in order
-    float* red = fcs;   // [2][8][512]
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        red[warp * kD + j * 256 + lane * 8 + e] = ps[j * 8 + e];
-        red[(8 + warp) * kD + j * 256 + lane * 8 + e] = pb[j * 8 + e];
-      }
+    for (int e = t; e < rows * 16; e += kThreads) {
+      const int r = e >> 4, c = (e & 15) * 4;
+      *reinterpret_cast<float4*>(do_out + (row0 + r) * kDk + c) =
+          *reinterpret_cast<const float4*>(dos + r * kOLd + c);
+    }
     __syncthreads();
     for (int c = t; c < kD; c += kThreads) {
       float a = 0.f, b = 0.f;
       for (int w = 0; w < kThreads / 32; ++w) {
-        a += red[w * kD + c];
-        b += red[(8 + w) * kD + c];
+        a += ys[w * kD + c];
+        b += ys[(8 + w) * kD + c];
       }
-      lnp_s[tile * kD + c] = a;
-      lnp_b[tile * kD + c] = b;
+      lnp_s[(size_t)item * kD + c] = a;
+      lnp_b[(size_t)item * kD + c] = b;
     }
-  }
-  // this tile's part of dgate_h = sum_t do o_h
-  for (int o = t; o < kHD; o += kThreads) {
-    const int h = o / kDk, c = o % kDk;
-    float acc = 0.f;
-    for (int r = 0; r < rows; ++r)
-      acc += dos[r * kDk + c] *
-             oh[(((size_t)h * pairs + pair) * tq + r0 + r) * kDk + c];
-    dgp[tile * kHD + o] = acc;
+    // this item's part of dgate_h = sum_t do o_h (the item's o_h rows
+    // loaded at once, then summed in row order)
+    for (int o = t; o < kHD; o += kThreads) {
+      const int h = o / kDk, c = o % kDk;
+      const float* src = oh + (((size_t)h * pairs + pair) * tq + r0) * kDk + c;
+      float x[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) x[r] = r < rows ? src[r * kDk] : 0.f;
+      float acc = 0.f;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        if (r < rows) acc += dos[r * kOLd + c] * x[r];
+      dgp[(size_t)item * kHD + o] = acc;
+    }
   }
 }
 
-// grid (pairs), 512 threads: dgate from the tiles' partials in tile order,
+// grid (pairs), 512 threads: dgate from the items' partials in item order,
 // the softmax-over-heads backward (dlogit [P, 512]) and du = dlogit sk_w^T /
-// Tq [P, 64]
+// Tq [P, 64] (a warp a channel at a time, each lane 16 consecutive logits,
+// then the warp's fixed tree)
 template <typename T>
 __global__ void __launch_bounds__(kHD)
 gate_bwd(const float* __restrict__ gate, const float* __restrict__ dgp,
          const T* __restrict__ skw, float* __restrict__ dgl_out,
-         float* __restrict__ du_out, int tiles, int tq) {
+         float* __restrict__ du_out, int items, int tq) {
   __shared__ float gm[kHD];
   __shared__ float dg[kHD];
   const int t = threadIdx.x, pair = blockIdx.x;
   float acc = 0.f;
-  for (int i = 0; i < tiles; ++i)
-    acc += dgp[((size_t)pair * tiles + i) * kHD + t];
+#pragma unroll 8
+  for (int i = 0; i < items; ++i)
+    acc += dgp[((size_t)pair * items + i) * kHD + t];
   dg[t] = acc;
   gm[t] = gate[(size_t)pair * kHD + t];
   __syncthreads();
@@ -638,142 +1007,65 @@ gate_bwd(const float* __restrict__ gate, const float* __restrict__ dgp,
     }
   }
   __syncthreads();
-  if (t < kDk) {
-    float a = 0.f;
-    for (int o = 0; o < kHD; ++o) a += dg[o] * ait::to_float(skw[t * kHD + o]);
-    du_out[(size_t)pair * kDk + t] = a / tq;
+  const int warp = t >> 5, lane = t & 31;
+  for (int c = warp; c < kDk; c += kHD / 32) {
+    float w[16], a = 0.f;
+    ait::load8(skw + c * kHD + lane * 16, w);
+    ait::load8(skw + c * kHD + lane * 16 + 8, w + 8);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) a += dg[lane * 16 + e] * w[e];
+    a = ait::warp_sum(a);
+    if (lane == 0) du_out[(size_t)pair * kDk + c] = a / tq;
   }
 }
 
-// do_h tile: doh[r][c] = do[r0 + r][c] gate_h[c] + du[c], 0 beyond tq
+// the do_h tile of q rows r0..: do[r][c] gate_h[c] + du[c], 0 beyond tq
 __device__ __forceinline__ void load_doh(const float* __restrict__ dos,
                                          const float* __restrict__ gate,
                                          const float* __restrict__ du,
                                          int pair, int h, int tq, int r0,
                                          float* doh) {
-  for (int e = threadIdx.x; e < kT * kDk; e += kThreads) {
-    const int r = e / kDk, c = e % kDk;
-    float v = 0.f;
-    if (r0 + r < tq)
-      v = dos[((size_t)pair * tq + r0 + r) * kDk + c] *
-              gate[(size_t)pair * kHD + h * kDk + c] +
-          du[(size_t)pair * kDk + c];
-    doh[r * kLd + c] = v;
+  const float* gh = gate + (size_t)pair * kHD + h * kDk;
+  const float* dup = du + (size_t)pair * kDk;
+  for (int e = threadIdx.x; e < kT * 16; e += kThreads) {
+    const int r = e >> 4, c = (e & 15) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < tq) {
+      const float4 d = *reinterpret_cast<const float4*>(
+          dos + ((size_t)pair * tq + r0 + r) * kDk + c);
+      v = make_float4(d.x * gh[c] + dup[c], d.y * gh[c + 1] + dup[c + 1],
+                      d.z * gh[c + 2] + dup[c + 2],
+                      d.w * gh[c + 3] + dup[c + 3]);
+    }
+    *reinterpret_cast<float4*>(doh + swz(r, c)) = v;
   }
 }
 
-constexpr int kBwdQSmem = 4 * kTile + kT * kLds + 3 * kT;    // floats
-constexpr int kBwdKvSmem = 4 * kTile + 2 * kT * kLds;
-
-// grid (q tiles, heads, pairs).  stats [3][H * P * Tq]: row max, row sum and
-// rowdot, for core_bwd_kv; dz [P*Tq, 512] (head h in columns 64h..).
-__global__ void __launch_bounds__(kThreads)
+// grid (q tiles x splits, heads, pairs), key split `split` over key tiles
+// split * chunk ...  stats [3, H * P * Tq]: row max, row sum and rowdot
+// (the first two from `combine` where there are splits); dz [P*Tq, 512]
+// (head h in columns 64 h..), or the partials
+__global__ void __launch_bounds__(kThreads, 2)
 core_bwd_q(Proj pj, const uint8_t* __restrict__ mask,
            const float* __restrict__ oh, const float* __restrict__ dos,
            const float* __restrict__ gate, const float* __restrict__ du,
-           float* __restrict__ stats, float* __restrict__ dz, int pairs,
-           int tq, int tk, AttnDrop drop) {
+           float* __restrict__ stats, float* __restrict__ dz, Partials part,
+           int pairs, int tq, int tk, int splits, int chunk, AttnDrop drop) {
   extern __shared__ __align__(16) float sm[];
   float* qs = sm;
-  float* ks = qs + kTile;
-  float* vs = ks + kTile;
-  float* doh = vs + kTile;
-  float* sc = doh + kTile;
-  float* m = sc + kT * kLds;
-  float* l = m + kT;
-  float* rd = l + kT;
-  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
-  const int warp = t >> 5, lane = t & 31;
-  const int r0 = blockIdx.x * kT, h = blockIdx.y, pair = blockIdx.z;
-  const uint2 key = drop.seed != nullptr ? ait::seed_key(drop.seed)
-                                         : make_uint2(0u, 0u);
-  const float* qb = pj.q + (size_t)pair * tq * pj.rs + h * pj.q_hs;
-  const float* kb = pj.k + (size_t)pair * tk * pj.rs + h * pj.kv_hs;
-  const float* vb = pj.v + (size_t)pair * tk * pj.rs + h * pj.kv_hs;
-  const size_t qhead = ((size_t)h * pairs + pair) * tq;
-
-  load_tile(qb, pj.rs, r0, tq, pj.qscale, qs);
-  load_doh(dos, gate, du, pair, h, tq, r0, doh);
-  __syncthreads();
-  // rowdot = sum_c P dP = sum_d do_h o_h (o_h is the post-dropout P v)
-  for (int r = warp; r < kT; r += kThreads / 32) {
-    float v = 0.f;
-    if (r0 + r < tq) {
-      const float* o = oh + (qhead + r0 + r) * kDk;
-      v = doh[r * kLd + lane] * o[lane] + doh[r * kLd + lane + 32] * o[lane + 32];
-    }
-    v = ait::warp_sum(v);
-    if (lane == 0) rd[r] = v;
-  }
-  row_stats(qs, ks, sc, m, l, kb, pj.rs, mask, r0, tq, tk);
-  if (t < kT && r0 + t < tq) {
-    const size_t n = (size_t)kHeads * pairs * tq, i = qhead + r0 + t;
-    stats[i] = m[t];
-    stats[n + i] = l[t];
-    stats[2 * n + i] = rd[t];
-  }
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int c0 = 0; c0 < tk; c0 += kT) {
-    load_tile(kb, pj.rs, c0, tk, 1.f, ks);
-    load_tile(vb, pj.rs, c0, tk, 1.f, vs);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    dot_rows(qs, ks, s);
-    dot_rows(doh, vs, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        const int gr = r0 + r, gc = c0 + c;
-        float ds = 0.f;
-        if (gr < tq && gc < tk) {
-          const float p =
-              expf(masked(s[i][j], mask, gr, gc, tq, tk) - m[r]) / l[r];
-          const float f = drop.on() ? attn_factor(drop, key, h, pair, pairs,
-                                                  tq, tk, gr, gc)
-                                    : 1.f;
-          ds = p * (dp[i][j] * f - rd[r]);
-        }
-        sc[r * kLds + c] = ds;
-      }
-    __syncthreads();
-    dot_pv(sc, ks, acc);   // dz += dS k
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gr = r0 + ty + 16 * i;
-      if (gr < tq)
-        dz[((size_t)pair * tq + gr) * kHD + h * kDk + tx + 16 * j] =
-            acc[i][j] * 0.125f;
-    }
-}
-
-// grid (key tiles, heads, pairs): dk, dv [P*Tk, 512] of this block's 64 keys,
-// summed over the q tiles in order
-__global__ void __launch_bounds__(kThreads)
-core_bwd_kv(Proj pj, const uint8_t* __restrict__ mask,
-            const float* __restrict__ dos, const float* __restrict__ gate,
-            const float* __restrict__ du, const float* __restrict__ stats,
-            float* __restrict__ dk, float* __restrict__ dv, int pairs, int tq,
-            int tk, AttnDrop drop) {
-  extern __shared__ __align__(16) float sm[];
-  float* qs = sm;
-  float* ks = qs + kTile;
-  float* vs = ks + kTile;
-  float* doh = vs + kTile;
-  float* pm = doh + kTile;            // P ak / kp
-  float* dsm = pm + kT * kLds;        // dS
-  const int t = threadIdx.x, tx = t & 15, ty = t >> 4;
-  const int c0 = blockIdx.x * kT, h = blockIdx.y, pair = blockIdx.z;
+  float* dohs = sm + kTileF;
+  float* ks = sm + 2 * kTileF;   // two buffers
+  float* vs = sm + 4 * kTileF;   // two buffers
+  float* dss = sm + 6 * kTileF;
+  float* red = sm + 7 * kTileF;   // the row maxima, then the row sums
+  float* rd = red + 2 * kT;
+  const uint32_t base = hopper::smem_u32(sm);
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int qt = blockIdx.x / splits, split = blockIdx.x - qt * splits;
+  const int h = blockIdx.y, pair = blockIdx.z;
+  const int r0 = qt * kT, rows = min(kT, tq - r0);
+  const int ktiles = (tk + kT - 1) / kT;
+  const int kt0 = split * chunk, kt1 = min(ktiles, kt0 + chunk);
   const uint2 key = drop.seed != nullptr ? ait::seed_key(drop.seed)
                                          : make_uint2(0u, 0u);
   const float* qb = pj.q + (size_t)pair * tq * pj.rs + h * pj.q_hs;
@@ -782,23 +1074,158 @@ core_bwd_kv(Proj pj, const uint8_t* __restrict__ mask,
   const size_t qhead = ((size_t)h * pairs + pair) * tq;
   const size_t n = (size_t)kHeads * pairs * tq;
 
-  load_tile(kb, pj.rs, c0, tk, 1.f, ks);
-  load_tile(vb, pj.rs, c0, tk, 1.f, vs);
-  float adk[4][4], adv[4][4];
+  load_tile(qb, pj.rs, r0, tq, base);
+  load_tile(kb, pj.rs, kt0 * kT, tk, base + 4 * 2 * kTileF);
+  load_tile(vb, pj.rs, kt0 * kT, tk, base + 4 * 4 * kTileF);
+  hopper::cp_async_commit();
+  load_doh(dos, gate, du, pair, h, tq, r0, dohs);
+  __syncthreads();
+  // rowdot = sum_c P dP = sum_d do_h o_h (o_h is the post-dropout P v)
+  for (int r = warp; r < kT; r += kThreads / 32) {
+    float v = 0.f;
+    if (r < rows) {
+      const float* o = oh + (qhead + r0 + r) * kDk;
+      v = dohs[swz(r, lane)] * o[lane] + dohs[swz(r, lane + 32)] * o[lane + 32];
+    }
+    v = ait::warp_sum(v);
+    if (lane == 0) rd[r] = v;
+  }
+  KeyPass kp;
+  float acc[4][4];
+  zero44(acc);
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int b = (kt - kt0) & 1, c0 = kt * kT;
+    const float* kbuf = ks + b * kTileF;
+    const float* vbuf = vs + b * kTileF;
+    hopper::cp_async_wait<0>();
+    __syncthreads();   // tile kt is in (and rowdot); tile kt - 1 is done
+    if (kt + 1 < kt1) {
+      load_tile(kb, pj.rs, c0 + kT, tk, base + 4 * (2 + (b ^ 1)) * kTileF);
+      load_tile(vb, pj.rs, c0 + kT, tk, base + 4 * (4 + (b ^ 1)) * kTileF);
+      hopper::cp_async_commit();
+    }
+    float sc[4][4], dp[4][4], alpha[2];
+    zero44(sc);
+    zero44(dp);
+    split_mma<false, false>(sc, qs, kbuf, kp.m0, kp.n0, kp.lane);
+    split_mma<false, false>(dp, dohs, vbuf, kp.m0, kp.n0, kp.lane);
+    kp.softmax_step(sc, pj.qscale, mask, r0, c0, tq, tk, red, alpha);
+    float fa[4][4];
+    if (drop.on())
+      frag_factors(drop, key, h, pair, pairs, tq, tk, r0 + kp.ra, c0 + kp.n0,
+                   kp.lane, fa);
+    // dS = P (dP ak / kp - rowdot), P unnormalized
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) adk[i][j] = adv[i][j] = 0.f;
-  for (int r0 = 0; r0 < tq; r0 += kT) {
-    load_tile(qb, pj.rs, r0, tq, pj.qscale, qs);
-    load_doh(dos, gate, du, pair, h, tq, r0, doh);
+      for (int e = 0; e < 4; ++e) {
+        const float d = drop.on() ? dp[j][e] * fa[j][e] : dp[j][e];
+        sc[j][e] *= d - rd[kp.ra + 8 * (e >> 1)];
+      }
+    const float one[2] = {1.f, 1.f};
+    store_frag_rows(dss, sc, kp.m0, kp.n0, kp.lane, one);
+    hopper::named_sync(1 + kp.mb, 64);   // the row pair's dS is complete
+    float pz[4][4];
+    zero44(pz);
+    split_mma<false, true>(pz, dss, kbuf, kp.m0, kp.n0, kp.lane);
+    rescale_add(acc, pz, alpha);
+  }
+  float l[2];
+  kp.row_sums(red, l);   // also: the row pair is done with dss
+  if (split == 0 && t < rows) stats[2 * n + qhead + r0 + t] = rd[t];
+  if (splits == 1) {
+    if (kp.nh == 0 && (lane & 3) == 0)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = kp.ra + 8 * hh;
+        if (r < rows) {
+          stats[qhead + r0 + r] = kp.m[hh];
+          stats[n + qhead + r0 + r] = l[hh];
+        }
+      }
+    const float inv[2] = {0.125f / l[0], 0.125f / l[1]};
+    store_frag_rows(dss, acc, kp.m0, kp.n0, kp.lane, inv);
     __syncthreads();
-    float s[4][4], dp[4][4];
-    dot_rows(qs, ks, s);
-    dot_rows(doh, vs, dp);
+    store_rows(dz + ((size_t)pair * tq + r0) * kD + h * kDk, kD, dss, rows,
+               1.f);
+    return;
+  }
+  const float one[2] = {1.f, 1.f};
+  store_frag_rows(dss, acc, kp.m0, kp.n0, kp.lane, one);
+  if (kp.nh == 0 && (lane & 3) == 0)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i, gr = r0 + r;
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = kp.ra + 8 * hh;
+      if (r < rows) {
+        part.ml[(size_t)split * 2 * n + qhead + r0 + r] = kp.m[hh];
+        part.ml[(size_t)split * 2 * n + n + qhead + r0 + r] = l[hh];
+      }
+    }
+  __syncthreads();
+  store_rows(part.x + ((size_t)split * n + qhead + r0) * kDk, kDk, dss, rows,
+             1.f);
+}
+
+// grid (key tiles x splits, heads, pairs), q split `split` over q tiles
+// split * chunk ..: dk, dv [P*Tk, 512] of this block's 64 keys, summed over
+// its q tiles in order (with splits: dkv [splits, 2, P*Tk, 512] partials)
+__global__ void __launch_bounds__(kThreads, 2)
+core_bwd_kv(Proj pj, const uint8_t* __restrict__ mask,
+            const float* __restrict__ dos, const float* __restrict__ gate,
+            const float* __restrict__ du, const float* __restrict__ stats,
+            float* __restrict__ dk, float* __restrict__ dv,
+            float* __restrict__ dkv, int pairs, int tq, int tk, int splits,
+            int chunk, AttnDrop drop) {
+  extern __shared__ __align__(16) float sm[];
+  float* ks = sm;
+  float* vs = sm + kTileF;
+  float* qs = sm + 2 * kTileF;
+  float* dohs = sm + 3 * kTileF;
+  float* pfs = sm + 4 * kTileF;   // P ak / kp
+  float* dss = sm + 5 * kTileF;   // dS
+  const uint32_t base = hopper::smem_u32(sm);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int mb = warp & 3, m0 = 16 * mb, n0 = 32 * (warp >> 2);
+  const int ra = m0 + (lane >> 2), t2 = 2 * (lane & 3);
+  const int kt = blockIdx.x / splits, split = blockIdx.x - kt * splits;
+  const int h = blockIdx.y, pair = blockIdx.z;
+  const int c0 = kt * kT, keys = min(kT, tk - c0);
+  const int qtiles = (tq + kT - 1) / kT;
+  const int qt0 = split * chunk, qt1 = min(qtiles, qt0 + chunk);
+  const uint2 key = drop.seed != nullptr ? ait::seed_key(drop.seed)
+                                         : make_uint2(0u, 0u);
+  const float* qb = pj.q + (size_t)pair * tq * pj.rs + h * pj.q_hs;
+  const float* kb = pj.k + (size_t)pair * tk * pj.rs + h * pj.kv_hs;
+  const float* vb = pj.v + (size_t)pair * tk * pj.rs + h * pj.kv_hs;
+  const size_t qhead = ((size_t)h * pairs + pair) * tq;
+  const size_t n = (size_t)kHeads * pairs * tq;
+
+  load_tile(kb, pj.rs, c0, tk, base);
+  load_tile(vb, pj.rs, c0, tk, base + 4 * kTileF);
+  hopper::cp_async_commit();
+  float adk[4][4], adv[4][4];
+  zero44(adk);
+  zero44(adv);
+  for (int qt = qt0; qt < qt1; ++qt) {
+    const int r0 = qt * kT;
+    __syncthreads();   // every warp is done with the last q tile
+    load_tile(qb, pj.rs, r0, tq, base + 4 * 2 * kTileF);
+    hopper::cp_async_commit();
+    load_doh(dos, gate, du, pair, h, tq, r0, dohs);
+    hopper::cp_async_wait<0>();
+    __syncthreads();
+    float sc[4][4], dp[4][4];
+    zero44(sc);
+    zero44(dp);
+    split_mma<false, false>(sc, qs, ks, m0, n0, lane);
+    split_mma<false, false>(dp, dohs, vs, m0, n0, lane);
+    float fa[4][4];
+    if (drop.on())
+      frag_factors(drop, key, h, pair, pairs, tq, tk, r0 + ra, c0 + n0, lane,
+                   fa);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int gr = r0 + ra + 8 * hh;
       float mr = 0.f, lr = 1.f, rdr = 0.f;
       if (gr < tq) {
         mr = stats[qhead + gr];
@@ -806,102 +1233,165 @@ core_bwd_kv(Proj pj, const uint8_t* __restrict__ mask,
         rdr = stats[2 * n + qhead + gr];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j, gc = c0 + c;
-        float pf = 0.f, ds = 0.f;
-        if (gr < tq && gc < tk) {
-          const float p =
-              expf(masked(s[i][j], mask, gr, gc, tq, tk) - mr) / lr;
-          const float f = drop.on() ? attn_factor(drop, key, h, pair, pairs,
-                                                  tq, tk, gr, gc)
-                                    : 1.f;
-          pf = p * f;
-          ds = p * (dp[i][j] * f - rdr);
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 2 * hh; e < 2 * hh + 2; ++e) {
+          const int gc = c0 + n0 + 8 * j + t2 + (e & 1);
+          float pf = 0.f, ds = 0.f;
+          if (gr < tq && gc < tk) {
+            const float p =
+                expf(masked(sc[j][e] * pj.qscale, mask, gr, gc, tq, tk) - mr) /
+                lr;
+            const float f = drop.on() ? fa[j][e] : 1.f;
+            pf = p * f;
+            ds = p * (dp[j][e] * f - rdr);
+          }
+          sc[j][e] = pf;
+          dp[j][e] = ds;
         }
-        pm[r * kLds + c] = pf;
-        dsm[r * kLds + c] = ds;
-      }
     }
-    __syncthreads();
-    dot_cols(pm, kLds, doh, adv);    // dv += (P ak / kp)^T do_h
-    dot_cols(dsm, kLds, qs, adk);    // dk += dS^T (q / 8)
-    __syncthreads();
+    const float one[2] = {1.f, 1.f};
+    store_frag_rows(pfs, sc, m0, n0, lane, one);
+    store_frag_rows(dss, dp, m0, n0, lane, one);
+    __syncthreads();   // P ak / kp and dS complete
+    float pv[4][4], pk[4][4];
+    zero44(pv);
+    zero44(pk);
+    split_mma<true, true>(pv, pfs, dohs, m0, n0, lane);   // (P ak / kp)^T do_h
+    split_mma<true, true>(pk, dss, qs, m0, n0, lane);     // dS^T q
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        adv[j][e] += pv[j][e];
+        adk[j][e] += pk[j][e];
+      }
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gc = c0 + ty + 16 * i;
-      if (gc < tk) {
-        const size_t o = ((size_t)pair * tk + gc) * kHD + h * kDk + tx + 16 * j;
-        dk[o] = adk[i][j];
-        dv[o] = adv[i][j];
-      }
-    }
+  __syncthreads();   // every warp is done with the operands
+  store_frag(pfs, adv, m0, n0, lane, 1.f);
+  store_frag(dss, adk, m0, n0, lane, pj.qscale);
+  __syncthreads();
+  const size_t o = ((size_t)pair * tk + c0) * kD + h * kDk;
+  if (splits == 1) {
+    store_rows(dv + o, kD, pfs, keys, 1.f);
+    store_rows(dk + o, kD, dss, keys, 1.f);
+  } else {
+    const size_t m = (size_t)pairs * tk * kD;
+    store_rows(dkv + (2 * split) * m + o, kD, dss, keys, 1.f);
+    store_rows(dkv + (2 * split + 1) * m + o, kD, pfs, keys, 1.f);
+  }
+}
+
+// dk, dv [P*Tk, 512] = the splits' partials [splits, 2, P*Tk, 512] summed in
+// split order (16 bytes a thread)
+__global__ void __launch_bounds__(kThreads)
+reduce_kv(const float* __restrict__ dkv, float* __restrict__ dk,
+          float* __restrict__ dv, int splits, long long m) {
+  const long long e = ((long long)blockIdx.x * kThreads + threadIdx.x) * 4;
+  if (e >= 2 * m) return;
+  const int which = e >= m;
+  const long long i = e - which * m;
+  float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < splits; ++s) {
+    const float4 x =
+        *reinterpret_cast<const float4*>(dkv + (2 * s + which) * m + i);
+    a.x += x.x;
+    a.y += x.y;
+    a.z += x.z;
+    a.w += x.w;
+  }
+  *reinterpret_cast<float4*>((which ? dv : dk) + i) = a;
 }
 
 template <typename K>
-int opt_in(K kernel, int floats) {
+int opt_in(K kernel, int bytes) {
   return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      floats * (int)sizeof(float));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
+
+// the wrapper's plan (ops/fused_attention.py::general_plan): key splits
+// of core_fwd / core_bwd_q and their key tiles each, q splits of
+// core_bwd_kv and their q tiles each, the persistent blocks of out_fwd /
+// out_bwd
+struct Plan {
+  int ksplits, kchunk, qsplits, qchunk, out_blocks;
+};
 
 template <typename T>
 int forward(const Proj& pj, const void* skw, const void* skb, const void* fcw,
             const void* xq, const void* lns, const void* lnb, const void* mask,
             void* oh, void* const* qkv, void* s, void* gate, void* out,
-            int pairs, int tq, int tk, const AttnDrop& drop, cudaStream_t st) {
-  const int tiles = (tq + kT - 1) / kT;
+            void* colsum, Partials part, int pairs, int tq, int tk,
+            const Plan& plan, const AttnDrop& drop, cudaStream_t st) {
+  const int qtiles = (tq + kT - 1) / kT;
   int err = opt_in(core_fwd, kFwdSmem);
   if (err) return err;
-  err = opt_in(out_fwd<T>, kOutSmem);
+  err = opt_in(out_fwd<T>, OutSmem<T>::kBytes);
   if (err) return err;
-  core_fwd<<<dim3(tiles, kHeads, pairs), kThreads, kFwdSmem * sizeof(float), st>>>(
-      pj, (const uint8_t*)mask, (float*)oh, (float*)qkv[0], (float*)qkv[1],
-      (float*)qkv[2], pairs, tq, tk, drop);
-  gate_kernel<T><<<pairs, kGateThreads, 0, st>>>(
-      (const float*)oh, (const T*)skw, (const T*)skb, (float*)s, (float*)gate,
-      tq);
-  out_fwd<T><<<dim3(tiles, pairs), kThreads, kOutSmem * sizeof(float), st>>>(
+  core_fwd<<<dim3(qtiles * plan.ksplits, kHeads, pairs), kThreads,
+             kFwdSmem, st>>>(
+      pj, (const uint8_t*)mask, (float*)oh, (float*)colsum, part,
+      (float*)qkv[0], (float*)qkv[1], (float*)qkv[2], pairs, tq, tk,
+      plan.ksplits, plan.kchunk, drop);
+  if (plan.ksplits > 1)
+    combine<true><<<dim3(qtiles, kHeads, pairs), kThreads, 0, st>>>(
+        part, plan.ksplits, pairs, tq, (float*)oh, (float*)colsum, nullptr);
+  gate_kernel<T><<<pairs, kHD, 0, st>>>(
+      (const float*)colsum, (const T*)skw, (const T*)skb, (float*)s,
+      (float*)gate, qtiles, tq);
+  out_fwd<T><<<plan.out_blocks, kThreads, OutSmem<T>::kBytes, st>>>(
       (const float*)oh, (const float*)gate, (const T*)fcw, (const T*)xq,
-      (const float*)lns, (const float*)lnb, (T*)out, tq, drop);
+      (const float*)lns, (const float*)lnb, (T*)out, pairs, tq, drop);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int backward(const Proj& pj, const void* skw, const void* skb, const void* fcw,
              const void* xq, const void* lns, const void* mask, const void* oh,
-             const void* g, void* const* o, int pairs, int tq, int tk,
-             const AttnDrop& drop, cudaStream_t st) {
-  // o: gate, s, dy, dy0, o, do, lnp_s, lnp_b, dgp, dgl, du, stats, dz, dk, dv
+             const void* g, void* const* o, Partials part, float* dkv,
+             int pairs, int tq, int tk, const Plan& plan, const AttnDrop& drop,
+             cudaStream_t st) {
+  // o: gate, s, dy, dy0, o, do, lnp_s, lnp_b, dgp, dgl, du, stats, dz, dk,
+  // dv, colsum
   const int qtiles = (tq + kT - 1) / kT, ktiles = (tk + kT - 1) / kT;
-  int err = opt_in(out_bwd<T>, kOutSmem);
+  const int items = (tq + kRows - 1) / kRows;
+  int err = opt_in(out_bwd<T>, OutSmem<T>::kBytes);
   if (err) return err;
   err = opt_in(core_bwd_q, kBwdQSmem);
   if (err) return err;
   err = opt_in(core_bwd_kv, kBwdKvSmem);
   if (err) return err;
-  gate_kernel<T><<<pairs, kGateThreads, 0, st>>>(
-      (const float*)oh, (const T*)skw, (const T*)skb, (float*)o[1],
-      (float*)o[0], tq);
-  out_bwd<T><<<dim3(qtiles, pairs), kThreads, kOutSmem * sizeof(float), st>>>(
+  float* stats = (float*)o[11];
+  gate_sums<<<dim3(qtiles, kHeads, pairs), kThreads, 0, st>>>(
+      (const float*)oh, (float*)o[15], pairs, tq);
+  gate_kernel<T><<<pairs, kHD, 0, st>>>(
+      (const float*)o[15], (const T*)skw, (const T*)skb, (float*)o[1],
+      (float*)o[0], qtiles, tq);
+  out_bwd<T><<<plan.out_blocks, kThreads, OutSmem<T>::kBytes, st>>>(
       (const float*)oh, (const float*)o[0], (const T*)fcw, (const T*)xq,
       (const float*)lns, (const T*)g, (float*)o[2], (float*)o[3], (float*)o[4],
-      (float*)o[5], (float*)o[6], (float*)o[7], (float*)o[8], tq, drop);
+      (float*)o[5], (float*)o[6], (float*)o[7], (float*)o[8], pairs, tq, drop);
   gate_bwd<T><<<pairs, kHD, 0, st>>>(
       (const float*)o[0], (const float*)o[8], (const T*)skw, (float*)o[9],
-      (float*)o[10], qtiles, tq);
-  core_bwd_q<<<dim3(qtiles, kHeads, pairs), kThreads,
-               kBwdQSmem * sizeof(float), st>>>(
+      (float*)o[10], items, tq);
+  core_bwd_q<<<dim3(qtiles * plan.ksplits, kHeads, pairs), kThreads,
+               kBwdQSmem, st>>>(
       pj, (const uint8_t*)mask, (const float*)oh, (const float*)o[5],
-      (const float*)o[0], (const float*)o[10], (float*)o[11], (float*)o[12],
-      pairs, tq, tk, drop);
-  core_bwd_kv<<<dim3(ktiles, kHeads, pairs), kThreads,
-                kBwdKvSmem * sizeof(float), st>>>(
+      (const float*)o[0], (const float*)o[10], stats, (float*)o[12], part,
+      pairs, tq, tk, plan.ksplits, plan.kchunk, drop);
+  if (plan.ksplits > 1)
+    combine<false><<<dim3(qtiles, kHeads, pairs), kThreads, 0, st>>>(
+        part, plan.ksplits, pairs, tq, (float*)o[12], nullptr, stats);
+  core_bwd_kv<<<dim3(ktiles * plan.qsplits, kHeads, pairs), kThreads,
+                kBwdKvSmem, st>>>(
       pj, (const uint8_t*)mask, (const float*)o[5], (const float*)o[0],
-      (const float*)o[10], (const float*)o[11], (float*)o[13], (float*)o[14],
-      pairs, tq, tk, drop);
+      (const float*)o[10], stats, (float*)o[13], (float*)o[14], dkv, pairs, tq,
+      tk, plan.qsplits, plan.qchunk, drop);
+  if (plan.qsplits > 1) {
+    const long long m = (long long)pairs * tk * kD;
+    reduce_kv<<<(unsigned)((2 * m / 4 + kThreads - 1) / kThreads), kThreads, 0,
+                st>>>(dkv, (float*)o[13], (float*)o[14], plan.qsplits, m);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -909,60 +1399,90 @@ bool bad_drop(const void* seed, const void* akeep, const void* okeep) {
   return (akeep == nullptr) != (okeep == nullptr) || (seed && akeep);
 }
 
+bool bad_plan(const Plan& p, int tq, int tk, bool need_parts,
+              bool need_dkv) {
+  const int qtiles = (tq + kT - 1) / kT, ktiles = (tk + kT - 1) / kT;
+  auto bad = [](int splits, int chunk, int tiles) {
+    return splits < 1 || chunk < 1 || (splits - 1) * chunk >= tiles ||
+           splits * chunk < tiles;
+  };
+  return bad(p.ksplits, p.kchunk, ktiles) || bad(p.qsplits, p.qchunk, qtiles) ||
+         p.out_blocks < 1 || need_parts || need_dkv;
+}
+
 }  // namespace
 
 // The forward from the projections q [P*Tq, 512], k, v [P*Tk, 512] (f32, q
 // unscaled).  oh [8, P*Tq, 64], s [P, 64] and gate [P, 512] are f32 outputs
 // (scratch at eval); out [P, Tq, 512] in the storage type.  qsv, ksv, vsv: all
-// null, or the save-qkv outputs [8, P*T, 64] f32 (q scaled).  Dropout as in
+// null, or the save-qkv outputs [8, P*T, 64] f32 (q scaled).  Scratch:
+// colsum [P, ceil(Tq / 64), 8, 64]; with key splits part_x [ksplits, 8,
+// P*Tq, 64] and part_ml [ksplits, 2, 8 * P * Tq].  Dropout as in
 // csrc/sh_attention.cu.
 extern "C" int sh_attention_general_fwd(
     int bf16_io, const void* q, const void* k, const void* v, const void* skw,
     const void* skb, const void* fcw, const void* xq, const void* lns,
     const void* lnb, const void* mask, void* oh, void* qsv, void* ksv,
-    void* vsv, void* s, void* gate, void* out, int pairs, int tq, int tk,
-    const void* seed, const void* akeep, const void* okeep, unsigned thresh,
-    float inv_keep, void* stream) {
+    void* vsv, void* s, void* gate, void* out, void* colsum, void* part_x,
+    void* part_ml, int pairs, int tq, int tk, int ksplits, int kchunk,
+    int out_blocks, const void* seed, const void* akeep, const void* okeep,
+    unsigned thresh, float inv_keep, void* stream) {
+  const Plan plan{ksplits, kchunk, 1, (tq + kT - 1) / kT, out_blocks};
   if (bad_drop(seed, akeep, okeep) || (qsv == nullptr) != (ksv == nullptr) ||
-      (qsv == nullptr) != (vsv == nullptr))
+      (qsv == nullptr) != (vsv == nullptr) || colsum == nullptr ||
+      bad_plan(plan, tq, tk, ksplits > 1 && (!part_x || !part_ml), false))
     return (int)cudaErrorInvalidValue;
   const AttnDrop d{(const int*)seed, (const float*)akeep, (const float*)okeep,
                    thresh, inv_keep};
   const Proj pj = make_proj(q, k, v, 0, pairs, tq, tk);
   void* const qkv[3] = {qsv, ksv, vsv};
+  const Partials part{(float*)part_x, (float*)part_ml};
   cudaStream_t st = (cudaStream_t)stream;
   return bf16_io ? forward<bf16>(pj, skw, skb, fcw, xq, lns, lnb, mask, oh, qkv,
-                                 s, gate, out, pairs, tq, tk, d, st)
+                                 s, gate, out, colsum, part, pairs, tq, tk,
+                                 plan, d, st)
                  : forward<float>(pj, skw, skb, fcw, xq, lns, lnb, mask, oh,
-                                  qkv, s, gate, out, pairs, tq, tk, d, st);
+                                  qkv, s, gate, out, colsum, part, pairs, tq,
+                                  tk, plan, d, st);
 }
 
 // The per-pair part of the backward.  q, k, v: the projections [P*T, 512]
 // (heads_major 0), or the forward's saved [8, P*T, 64] with q scaled
 // (heads_major 1).  Outputs, all f32: gate [P, 512] (scratch), s [P, 64], dy
 // and dy0 [P*Tq, 512] (dy0 null without dropout), o and do [P*Tq, 64], the
-// LayerNorm and dgate partials [P * ceil(Tq / 64), 512] each, dlogit
+// LayerNorm and dgate partials [P * ceil(Tq / 16), 512] each, dlogit
 // [P, 512], du [P, 64] (scratch), stats [3, 8 * P * Tq] (scratch), dz
-// [P*Tq, 512], dk and dv [P*Tk, 512].
+// [P*Tq, 512], dk and dv [P*Tk, 512].  Scratch: colsum as the forward's;
+// with key splits part_x and part_ml as the forward's; with q splits dkv
+// [qsplits, 2, P*Tk, 512].
 extern "C" int sh_attention_general_bwd(
     int bf16_io, int heads_major, const void* q, const void* k, const void* v,
     const void* skw, const void* skb, const void* fcw, const void* xq,
     const void* lns, const void* mask, const void* oh, const void* g,
     void* gate, void* s, void* dy, void* dy0, void* o, void* dout,
     void* lnp_s, void* lnp_b, void* dgp, void* dgl, void* du, void* stats,
-    void* dz, void* dk, void* dv, int pairs, int tq, int tk, const void* seed,
+    void* dz, void* dk, void* dv, void* colsum, void* part_x, void* part_ml,
+    void* dkv, int pairs, int tq, int tk, int ksplits, int kchunk,
+    int qsplits, int qchunk, int out_blocks, const void* seed,
     const void* akeep, const void* okeep, unsigned thresh, float inv_keep,
     void* stream) {
-  if (bad_drop(seed, akeep, okeep) || ((seed || akeep) && dy0 == nullptr))
+  const Plan plan{ksplits, kchunk, qsplits, qchunk, out_blocks};
+  if (bad_drop(seed, akeep, okeep) || ((seed || akeep) && dy0 == nullptr) ||
+      colsum == nullptr ||
+      bad_plan(plan, tq, tk, ksplits > 1 && (!part_x || !part_ml),
+               qsplits > 1 && !dkv))
     return (int)cudaErrorInvalidValue;
   const AttnDrop d{(const int*)seed, (const float*)akeep, (const float*)okeep,
                    thresh, inv_keep};
   const Proj pj = make_proj(q, k, v, heads_major, pairs, tq, tk);
-  void* const outs[15] = {gate, s,   dy,  dy0, o,     dout, lnp_s, lnp_b,
-                          dgp,  dgl, du,  stats, dz,  dk,   dv};
+  void* const outs[16] = {gate, s,   dy, dy0,   o,  dout, lnp_s, lnp_b,
+                          dgp,  dgl, du, stats, dz, dk,   dv,    colsum};
+  const Partials part{(float*)part_x, (float*)part_ml};
   cudaStream_t st = (cudaStream_t)stream;
   return bf16_io ? backward<bf16>(pj, skw, skb, fcw, xq, lns, mask, oh, g,
-                                  outs, pairs, tq, tk, d, st)
+                                  outs, part, (float*)dkv, pairs, tq, tk, plan,
+                                  d, st)
                  : backward<float>(pj, skw, skb, fcw, xq, lns, mask, oh, g,
-                                   outs, pairs, tq, tk, d, st);
+                                   outs, part, (float*)dkv, pairs, tq, tk,
+                                   plan, d, st);
 }

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -14,3 +16,14 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device: pass device='cpu' to run the "
                            "port on the CPU")
     return torch.device("cuda")
+
+
+@functools.lru_cache(maxsize=None)
+def _device_sms(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def device_sms(device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return _device_sms(device.index if device.index is not None
+                       else torch.cuda.current_device())

@@ -25,7 +25,9 @@ products on csrc/gemm.cu's tensor cores in bf16), and give one result:
   or, its long-sequence regime, one side <= 128 and Tq * Tk <= 192 K: the
   co-attention's 1900 x 64 and 64 x 1900): csrc/sh_attention_general.cu, 64-row
   tiles across blocks with the per-head outputs in device memory between its
-  launches.
+  launches.  `general_plan` splits the long side of a (head, pair) across
+  blocks where the grid would leave SMs idle (ops/attention_general.py
+  emulates the kernels' fixed-order sums over the splits).
 Every wrapper counts a launch of the general regime in `general_launches` /
 `general_dropout_launches`, of the short one in `launches` /
 `dropout_launches` (one per call; the products count in `_gemm.gemm`).
@@ -73,9 +75,12 @@ Training:
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
+from ait_tpu_torch.device import device_sms
 from ait_tpu_torch.ops import _build, _gemm, philox
 from ait_tpu_torch.ops.dropout_masks import (count_launch, kernel_keep,
                                              seed_args)
@@ -114,6 +119,52 @@ def kernel_regime(tq: int, tk: int):
     if fuse_short(tq, tk) or fuse_long(tq, tk):
         return "general"
     return None
+
+
+# csrc/sh_attention_general.cu's tiles: 64 query rows or keys in its core
+# kernels, 16 rows in its fc / LayerNorm kernels (out_fwd, out_bwd)
+GENERAL_TILE, GENERAL_ROWS = 64, 16
+
+
+class GeneralPlan(NamedTuple):
+    """How csrc/sh_attention_general.cu splits one call: core_fwd and
+    core_bwd_q take the key tiles in `ksplits` splits of `kchunk` tiles,
+    core_bwd_kv the query tiles in `qsplits` splits of `qchunk`; out_fwd and
+    out_bwd run `out_blocks` persistent blocks over the 16-row items."""
+    ksplits: int
+    kchunk: int
+    qsplits: int
+    qchunk: int
+    out_blocks: int
+
+
+def _split(tiles: int, blocks: int, sms: int):
+    """(splits, tiles a split) of `tiles` for a grid of `blocks` blocks
+    without splits, 2 resident an SM: the split whose waves of blocks times
+    tiles a block is least (the fewest splits among equals), no split
+    empty."""
+    best = None
+    for want in range(1, tiles + 1):
+        chunk = -(-tiles // want)
+        splits = -(-tiles // chunk)
+        cost = -(-blocks * splits // (2 * sms)) * chunk
+        if best is None or cost < best[0]:
+            best = (cost, splits, chunk)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=None)
+def general_plan(p: int, tq: int, tk: int, sms: int) -> GeneralPlan:
+    """The split plan of a general-regime call of P pairs on a card of `sms`
+    SMs.  The co-attention's 64 x 1900 (i2q) has one query tile per (head,
+    pair): its keys are split; its 1900 x 64 (q2i) has one key tile: the
+    query tiles of core_bwd_kv are split."""
+    qtiles = -(-tq // GENERAL_TILE)
+    ktiles = -(-tk // GENERAL_TILE)
+    ks, kc = _split(ktiles, qtiles * KERNEL_HEADS * p, sms)
+    qs, qc = _split(qtiles, ktiles * KERNEL_HEADS * p, sms)
+    items = p * -(-tq // GENERAL_ROWS)
+    return GeneralPlan(ks, kc, qs, qc, max(1, min(items, 2 * sms)))
 
 
 def _save_qkv_ok(tq: int, tk: int) -> bool:
@@ -222,8 +273,9 @@ _FUNCS = {"sh_attention_fwd": [_I] + [_P] * 15 + [_I] * 3 + _DROP + [_P],
           [_I] * 3 + _DROP + [_P, _P],
           "sh_attention_split_check": [_P, _P, _P, _I, _I, _I, _P]}
 _GENERAL_FUNCS = {
-    "sh_attention_general_fwd": [_I] + [_P] * 17 + [_I] * 3 + _DROP + [_P],
-    "sh_attention_general_bwd": [_I, _I] + [_P] * 26 + [_I] * 3 + _DROP + [_P]}
+    "sh_attention_general_fwd": [_I] + [_P] * 20 + [_I] * 6 + _DROP + [_P],
+    "sh_attention_general_bwd": [_I, _I] + [_P] * 30 + [_I] * 8 + _DROP +
+                                [_P]}
 
 
 def _check(name, x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s, ln_b, mask,
@@ -405,14 +457,34 @@ def _forward(x_q, args, p, tq, tk, regime, oh=None, drop=_NO_DROP,
     if oh is None:
         oh = _f32(dev, KERNEL_HEADS, p * tq, KERNEL_DK)
     s, gate = _f32(dev, p, KERNEL_DK), _f32(dev, p, KERNEL_HEADS * KERNEL_DK)
+    plan = general_plan(p, tq, tk, device_sms(dev))
+    scratch = _general_scratch(dev, p, tq, plan)
     lib = _build.load("sh_attention_general", _GENERAL_FUNCS)
     _build.check(lib.sh_attention_general_fwd(
         int(dt == torch.bfloat16), *(t.data_ptr() for t in proj),
         sk_w.data_ptr(), sk_b.data_ptr(), fc_w.data_ptr(), x_q.data_ptr(),
         ln_s.data_ptr(), ln_b.data_ptr(), mask.data_ptr(), oh.data_ptr(),
-        *qkv_ptrs, s.data_ptr(), gate.data_ptr(), out.data_ptr(), p, tq, tk,
-        *drop, _build.stream_ptr(dev)), "sh_attention_general_fwd")
+        *qkv_ptrs, s.data_ptr(), gate.data_ptr(), out.data_ptr(),
+        *_ptrs(scratch), p, tq, tk, plan.ksplits, plan.kchunk,
+        plan.out_blocks, *drop, _build.stream_ptr(dev)),
+        "sh_attention_general_fwd")
     return out, qkv
+
+
+def _general_scratch(dev, p, tq, plan):
+    """The general kernels' scratch of a call: the gate's row-sum partials
+    [P, q tiles, H, d_v], and with key splits the splits' unnormalized
+    outputs [ksplits, H, P*Tq, 64] and row statistics [ksplits, 2, H*P*Tq]
+    (None without splits)."""
+    colsum = _f32(dev, p, -(-tq // GENERAL_TILE), KERNEL_HEADS, KERNEL_DK)
+    if plan.ksplits == 1:
+        return colsum, None, None
+    return (colsum, _f32(dev, plan.ksplits, KERNEL_HEADS, p * tq, KERNEL_DK),
+            _f32(dev, plan.ksplits, 2, KERNEL_HEADS * p * tq))
+
+
+def _ptrs(tensors):
+    return [t.data_ptr() if t is not None else None for t in tensors]
 
 
 def fused_sh_attention(x_q, x_kv, wq, wk, wv, sk_w, sk_b, fc_w, ln_s, ln_b,
@@ -700,15 +772,18 @@ def _backward(x_q, args, oh, g, p, tq, tk, regime, kdrop=_NO_DROP, qkv=None):
         def f32(*shape):
             return _f32(dev, *shape)
 
-        tiles = -(-tq // 64)
+        items = -(-tq // GENERAL_ROWS)
         dy, o, s, dgl, lnp = (f32(p * tq, d), f32(p * tq, d_v), f32(p, d_v),
-                              f32(p, n_head * d_v), f32(2, p * tiles, d))
+                              f32(p, n_head * d_v), f32(2, p * items, d))
         dz, dk, dv = f32(p * tq, d), f32(p * tk, d), f32(p * tk, d)
         dy0 = f32(p * tq, d) if dropout else dy
         dy0_ptr = dy0.data_ptr() if dropout else None
         gate, dos, dgp, du, stats = (f32(p, n_head * d_v), f32(p * tq, d_v),
-                                     f32(p * tiles, n_head * d_v),
+                                     f32(p * items, n_head * d_v),
                                      f32(p, d_v), f32(3, n_head * p * tq))
+        plan = general_plan(p, tq, tk, device_sms(dev))
+        scratch = _general_scratch(dev, p, tq, plan)
+        dkv = f32(plan.qsplits, 2, p * tk, d) if plan.qsplits > 1 else None
         lib = _build.load("sh_attention_general", _GENERAL_FUNCS)
         _build.check(lib.sh_attention_general_bwd(
             int(dt == torch.bfloat16), int(qkv is not None),
@@ -718,9 +793,9 @@ def _backward(x_q, args, oh, g, p, tq, tk, regime, kdrop=_NO_DROP, qkv=None):
             g.data_ptr(), gate.data_ptr(), s.data_ptr(), dy.data_ptr(),
             dy0_ptr, o.data_ptr(), dos.data_ptr(), lnp[0].data_ptr(),
             lnp[1].data_ptr(), dgp.data_ptr(), dgl.data_ptr(), du.data_ptr(),
-            stats.data_ptr(), dz.data_ptr(), dk.data_ptr(), dv.data_ptr(), p,
-            tq, tk, *kdrop, _build.stream_ptr(dev)),
-            "sh_attention_general_bwd")
+            stats.data_ptr(), dz.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *_ptrs(scratch + (dkv,)), p, tq, tk, *plan, *kdrop,
+            _build.stream_ptr(dev)), "sh_attention_general_bwd")
         pairs_out = (dy, o, s, dgl, lnp, dz, dk, dv, dy0)
     del proj
     return bwd_products(x_q, x_kv, wq, wk, wv, pairs_out)

@@ -52,6 +52,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ait_tpu_torch.device import device_sms
 from ait_tpu_torch.ops import _build, _gemm, philox
 from ait_tpu_torch.ops.dropout_masks import count_launch, seed_args
 from ait_tpu_torch.ops.fused_attention import layer_norm_f32, vjp_of
@@ -160,17 +161,6 @@ def grid_rows(blocks, n):
     stride = blocks * LN_WARPS
     return {(b, w): range(b * LN_WARPS + w, n, stride)
             for b in range(blocks) for w in range(LN_WARPS)}
-
-
-@functools.lru_cache(maxsize=None)
-def _device_sms(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _sms(device):
-    """Streaming multiprocessors of a CUDA device."""
-    return _device_sms(device.index if device.index is not None
-                       else torch.cuda.current_device())
 
 
 def ln_param_sums(g, xhat, blocks):
@@ -322,7 +312,7 @@ def _posln_launch(x, pos, ln_s, ln_b, out, drop):
     """csrc/posln.cu `posln_fwd` on checked operands (n >= 1 rows) over
     `posln_grid`'s persistent blocks."""
     n, t = x.shape[0], pos.shape[0]
-    blocks = posln_grid(n, _sms(x.device), x.element_size())
+    blocks = posln_grid(n, device_sms(x.device), x.element_size())
     lib = _build.load("posln", _POSLN_FUNCS)
     _build.check(lib.posln_fwd(
         int(x.dtype == torch.bfloat16), x.data_ptr(), pos.data_ptr(),
@@ -363,7 +353,7 @@ def _ln_bwd(x, add, period, ln_s, g, out_dtype, mode=_LN_PLAIN,
     then the fixed-order sum of the blocks' [blocks, 2, 512] partials.  dy2
     [N, 512] f32 in the FFN mode, else None."""
     n = x.shape[0]
-    blocks = ln_bwd_grid(n, _sms(x.device), x.element_size(),
+    blocks = ln_bwd_grid(n, device_sms(x.device), x.element_size(),
                          add.element_size())
     dev = x.device
     dx = torch.empty((n, KERNEL_D), dtype=out_dtype, device=dev)

@@ -56,6 +56,14 @@
    * Philox's bound term: one Philox4x32-10 call's instructions counted in
      the posln library's SASS, at the int32 issue rate (64 a clock per SM
      on compute capability 9.0) x the SMs x nvidia-smi's SM clock.
+   * the tiled attention (csrc/sh_attention_general.cu, check_attention_
+     general) at the co-attention's two shapes and two 65-128 token shapes
+     in every mode against the plain versions; at the co-attention's
+     shapes two calls of every mode bit-equal (its sums across blocks are
+     in a fixed order), each call's kernels timed on the device by name
+     beside the wrappers' event times; HMMA in the library's SASS, its
+     kernels' registers and spills logged.  The mask dump's time at the
+     co-attention's 4 dumps is a device time too.
 3. Serves the full-width ResNet-50 flagship (random weights from a numpy
    seed, carried in through the weight bridge) with OneShotPredictor:
    batches of 8 uint8 608x800 canvases and 128x128 queries.  Every kernel's
@@ -134,6 +142,8 @@ KEEP = 0.9                # 1 - Config().model.t_dropout
 INT32_PER_CLOCK_SM = 64
 # set by main(): instructions of one Philox call, the card's int32 rate
 PHILOX = {"instructions": None, "int32_ops_s": None}
+# profiles `device_kernels` takes before it fails for want of device records
+PROFILE_ATTEMPTS = 3
 
 
 def philox_s(groups):
@@ -167,7 +177,10 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 def device_kernels(fn, iters: int = 20, warmup: int = 2):
     """[(kernel, launches a call, device ms a call)] of the kernels that
-    fn launches (torch.profiler over `iters` calls, after warm-up)."""
+    fn launches (torch.profiler over `iters` calls, after warm-up).  A
+    profile that recorded no device kernel at all (the profiler now and
+    then drops a window's device records) is taken again, up to
+    `PROFILE_ATTEMPTS` times, then fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -175,16 +188,21 @@ def device_kernels(fn, iters: int = 20, warmup: int = 2):
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return [(e.key, e.count / iters,
-             e.self_device_time_total / iters / 1e3)
-            for e in prof.key_averages()
-            if getattr(e, "device_type", None) == DeviceType.CUDA and
-            getattr(e, "self_device_time_total", 0.0) > 0]
+    for _ in range(PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.count / iters,
+                 e.self_device_time_total / iters / 1e3)
+                for e in prof.key_averages()
+                if getattr(e, "device_type", None) == DeviceType.CUDA and
+                getattr(e, "self_device_time_total", 0.0) > 0]
+        if rows:
+            return rows
+    fail(f"torch.profiler recorded no device kernel in {PROFILE_ATTEMPTS} "
+         "profiles")
 
 
 def device_ms(fn, iters: int = 20, warmup: int = 2) -> float:
@@ -1145,15 +1163,18 @@ def check_masks(torch, dev):
              "dump")
     log("mask dump: pairs 0-3 equal in a 4-pair and a 1024-pair dump")
 
-    # held and timed at the main path's shapes (the co-attention's dumps)
+    # held and timed at the main path's shapes (the co-attention's dumps):
+    # on the device (torch.profiler), and by CUDA events around the wrapper
     seed = _seed(torch, dev, 20)
-    ms = plain_ms = lib_ms = t_bytes = t_ops = 0.0
+    ms = event_ms = plain_ms = lib_ms = t_bytes = t_ops = 0.0
     for tag, heads, blocks, length in COATT_DUMPS:
         held(f"co-attention tag {tag}",
              dm.keep_mask(seed, tag, heads, blocks, length, KEEP),
              philox.keep_mask(seed, tag, heads, blocks, length, KEEP))
-        ms += cuda_ms(lambda: dm.keep_mask(seed, tag, heads, blocks, length,
-                                           KEEP), iters=20)
+        ms += device_ms(lambda: dm.keep_mask(seed, tag, heads, blocks,
+                                             length, KEEP), iters=50)
+        event_ms += cuda_ms(lambda: dm.keep_mask(seed, tag, heads, blocks,
+                                                 length, KEEP), iters=20)
         plain_ms += cuda_ms(lambda: philox.keep_mask(
             seed, tag, heads, blocks, length, KEEP), iters=3, warmup=1)
         # one PyTorch call for a Bernoulli(KEEP) mask of the same shape (it
@@ -1166,12 +1187,14 @@ def check_masks(torch, dev):
         t_ops += philox_s(n / 4) * 1e3
     t_bound = max(t_bytes, t_ops)
     by = "bytes" if t_bytes >= t_ops else "operations"
-    log(f"keep_mask_dump (the co-attention's 4 dumps per step): kernel_ms "
-        f"{ms:.4f} plain_ms {plain_ms:.3f} library_ms (torch.rand < p) "
-        f"{lib_ms:.4f} bound_ms {t_bound:.4f} ({by}; bytes {t_bytes:.4f}, "
-        f"Philox {t_ops:.4f})")
-    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": t_bound, "bound_by": by, "library_ms": lib_ms}
+    log(f"keep_mask_dump (the co-attention's 4 dumps per step): device ms "
+        f"{ms:.4f} ({t_bound / ms:.0%} of the bound; event ms {event_ms:.4f}) "
+        f"plain_ms {plain_ms:.3f} library_ms (torch.rand < p) {lib_ms:.4f} "
+        f"bound_ms {t_bound:.4f} ({by}; bytes {t_bytes:.4f}, Philox "
+        f"{t_ops:.4f})")
+    return {"max_abs_err": max(errs), "ms": ms, "event_ms": event_ms,
+            "plain_ms": plain_ms, "bound_ms": t_bound, "bound_by": by,
+            "library_ms": lib_ms}
 
 
 def _res():
@@ -1442,17 +1465,46 @@ def _saved_err(torch, got, want, dtype):
     return diff.max().item()
 
 
+def kernel_name(key):
+    """A profiler kernel key without its return type, namespaces, template
+    arguments and parameters ("out_fwd<bf16>" for the bf16 instance)."""
+    import re
+
+    name = re.sub(r"^void |\(anonymous namespace\)::", "", key)
+    tmpl = "<bf16>" if "__nv_bfloat16" in name.split("(")[0] else ""
+    return re.split(r"[<(]", name, maxsplit=1)[0].split("::")[-1] + tmpl
+
+
+def kernels_ms(fn, iters=10):
+    """{kernel name: device ms a call} of the kernels fn launches."""
+    out = {}
+    for key, _, ms in device_kernels(fn, iters):
+        name = kernel_name(key)
+        out[name] = out.get(name, 0.0) + ms
+    return out
+
+
+def same_bits(torch, name, first, again):
+    """Fail unless two calls gave bit-equal tensors."""
+    for i, (a, b) in enumerate(zip(first, again)):
+        if not torch.equal(a, b):
+            fail(f"{name}: output {i} differs between two calls")
+
+
 def check_attention_general(torch, dev):
     """csrc/sh_attention_general.cu against the plain versions: the eval
     forward, the saved-outputs forward and the backward, at keep_prob 1 and
     with dropout from a seed (the plain versions fed the masks that
     csrc/dropout.cu dumps for that seed; at the 65-128 token shapes also
-    from operand masks), f32 and bf16; timed in bf16 at the co-attention's
-    shapes."""
+    from operand masks), f32 and bf16; at the co-attention's shapes two
+    calls of every mode bit-equal (the kernels sum across blocks in a fixed
+    order); timed in bf16, by CUDA events around the wrappers and on the
+    device kernel by kernel (torch.profiler)."""
     from ait_tpu_torch.ops import dropout_masks as dm, fused_attention as fa
 
     keys = ("fwd", "saved", "bwd", "drop_fwd", "drop_bwd")
     res = {k: _res() for k in keys}
+    device = {k: {} for k in keys}
     for i, (name, p, tq, tk, kind, main) in enumerate(ATTN_GENERAL):
         if fa.kernel_regime(tq, tk) != "general":
             fail(f"{name}: {tq}x{tk} is not in the general regime")
@@ -1478,6 +1530,9 @@ def check_attention_general(torch, dev):
                 tol_bwd = BF16_BWD_REL_LONG
             args = _attn_args(torch, dev, p, tq, tk, dtype, seed=tq + tk)
             got = fa.fused_sh_attention(*args, mask)
+            if main:
+                same_bits(torch, f"sh_attention general {name} {dtype}",
+                          [got], [fa.fused_sh_attention(*args, mask)])
             err = err_of(got, fa.sh_attention_reference(*args, mask))
             if not (math.isfinite(err) and err <= tol):
                 fail(f"sh_attention general {name} {dtype}: err {err} > {tol}")
@@ -1487,6 +1542,11 @@ def check_attention_general(torch, dev):
             line = [f"eval err {err:.3e}"]
             for source, drop, plain_drop in sources:
                 out, oh = fa.fused_sh_attention_saved(*args, mask, **drop)
+                if main:
+                    same_bits(torch, f"sh_attention_saved general "
+                              f"({source}) {name} {dtype}", (out, oh),
+                              fa.fused_sh_attention_saved(*args, mask,
+                                                          **drop))
                 rout, roh = fa.sh_attention_saved_reference(*args, mask,
                                                             **plain_drop)
                 e_out = err_of(out, rout)
@@ -1496,6 +1556,11 @@ def check_attention_general(torch, dev):
                          f"{dtype}: out err {e_out}, saved err {e_oh} "
                          f"(tol {tol})")
                 grads = fa.fused_sh_attention_bwd(*args, mask, oh, g, **drop)
+                if main:
+                    same_bits(torch, f"sh_attention_bwd general ({source}) "
+                              f"{name} {dtype}", grads,
+                              fa.fused_sh_attention_bwd(*args, mask, oh, g,
+                                                        **drop))
                 want = fa.sh_attention_bwd_reference(*args, mask, roh, g,
                                                      **plain_drop)
                 e_bwd, abs_bwd = check_grads(
@@ -1520,6 +1585,8 @@ def check_attention_general(torch, dev):
                                 f"{e32:.3e} (tol {BF16_BWD_REL})")
                     del want32
                 del out, oh, rout, roh, grads, want
+            if main:
+                line.append("two calls bit-equal in every mode")
             log(f"sh_attention general {name} P={p} {tq}x{tk} {dtype} (tol "
                 f"{tol}, bwd {tol_bwd}): " + "; ".join(line))
         # timed in bf16 (args, g: the last dtype's)
@@ -1547,16 +1614,26 @@ def check_attention_general(torch, dev):
         for k, (kernel, plain) in runs.items():
             ms = cuda_ms(kernel, iters=5)
             plain_ms = cuda_ms(plain, iters=3, warmup=1)
+            per_kernel = kernels_ms(kernel)
             bkey = {"fwd": "eval", "saved": "saved", "drop_fwd": "saved"}.get(
                 k, "bwd")
             t_bound, by = bounds[k.startswith("drop")][bkey]
             log(f"sh_attention general {k} {name}: kernel_ms {ms:.3f} "
-                f"plain_ms {plain_ms:.3f} bound_ms {t_bound:.4f} ({by})")
+                f"(device {sum(per_kernel.values()):.4f}: " +
+                ", ".join(f"{n} {v:.4f}" for n, v in sorted(
+                    per_kernel.items(), key=lambda kv: -kv[1])) +
+                f") plain_ms {plain_ms:.3f} bound_ms {t_bound:.4f} ({by})")
             if main:
                 for j, v in enumerate((ms, plain_ms, t_bound)):
                     res[k][j + 1] += v
+                for n, v in per_kernel.items():
+                    device[k][n] = device[k].get(n, 0.0) + v
         del ak, ok, fed, oh, ohd
-    return {k: _finish(v, "operations") for k, v in res.items()}
+    out = {k: _finish(v, "operations") for k, v in res.items()}
+    for k in keys:   # the co-attention's two calls, on the device
+        out[k]["device_ms"] = sum(device[k].values())
+        out[k]["device_ms_by_kernel"] = device[k]
+    return out
 
 
 def check_save_qkv(torch, dev):
@@ -1758,13 +1835,17 @@ def check_tensor_core_libraries():
                 fail(f"{stem}: {name} spills ({use})")
         log(f"{stem}: {n} HGMMA instructions in the library")
         out[stem] = n
-    # the per-pair backward's per-head products: mma.sync (HMMA)
-    out["sh_attention_hmma"] = _cuobjdump("sh_attention", "-sass").count(
-        "HMMA")
-    if out["sh_attention_hmma"] <= 0:
-        fail("sh_attention: no HMMA instruction in the built library")
-    log(f"sh_attention: {out['sh_attention_hmma']} HMMA instructions in the "
-        "library")
+    # the per-pair backward's per-head products, and every product of the
+    # tiled kernels (csrc/sh_attention_general.cu): mma.sync (HMMA)
+    for stem in ("sh_attention", "sh_attention_general"):
+        out[f"{stem}_hmma"] = _cuobjdump(stem, "-sass").count("HMMA")
+        if out[f"{stem}_hmma"] <= 0:
+            fail(f"{stem}: no HMMA instruction in the built library")
+        log(f"{stem}: {out[f'{stem}_hmma']} HMMA instructions in the "
+            "library")
+    for stem in ("sh_attention_general", "dropout"):
+        for name, use in sorted(kernel_resources(stem).items()):
+            log(f"{stem}: {name[:100]}: {use}")
     return out
 
 
@@ -2510,6 +2591,9 @@ def main() -> int:
         results[key]["max_abs_err"] = max(results[key]["max_abs_err"], err)
     results["sh_attention_fwd"]["hgmma"] = hgmma["sh_attention"]
     results["sh_attention_bwd"]["hmma"] = hgmma["sh_attention_hmma"]
+    for k in ("fwd", "saved", "bwd", "drop_fwd", "drop_bwd"):
+        results[f"sh_attention_general_{k}"]["hmma"] = hgmma[
+            "sh_attention_general_hmma"]
     results["ffn_fwd"]["hgmma"] = hgmma["ffn"]
 
     cfg, params, state = make_weights(torch)

@@ -206,7 +206,8 @@ def test_mask_dump_bit_equals_plain_on_gpu(tag, cuda):
     block length that is not a multiple of 4 as well; two launches equal;
     keep rate within 0.01 of keep_prob."""
     seed = torch.tensor([-5, 99], dtype=torch.int32, device=cuda)
-    for heads, blocks, length in ((H, 64, TQ * TK), (1, 1000, 510)):
+    for heads, blocks, length in ((H, 64, TQ * TK), (1, 1000, 510),
+                                  (H, 3, 56 * 3 + 2)):
         got = pdm.keep_mask(seed, tag, heads, blocks, length, KEEP)
         again = pdm.keep_mask(seed, tag, heads, blocks, length, KEEP)
         want = philox.keep_mask(seed, tag, heads, blocks, length, KEEP)

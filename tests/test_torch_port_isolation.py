@@ -1,5 +1,6 @@
 """The port stands alone: no module of ait_tpu_torch, and none of
-chip_smoke.py, tools/port_profile.py and tools/posln_bench.py, imports JAX,
+chip_smoke.py, tools/port_profile.py, tools/posln_bench.py and
+tools/attn_general_bench.py, imports JAX,
 flax, optax or the JAX package; its entry points refuse to run quietly on the CPU when no GPU is
 there."""
 
@@ -18,7 +19,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ait_tpu")
 def _sources():
     out = [os.path.join(REPO, "chip_smoke.py"),
            os.path.join(REPO, "tools", "port_profile.py"),
-           os.path.join(REPO, "tools", "posln_bench.py")]
+           os.path.join(REPO, "tools", "posln_bench.py"),
+           os.path.join(REPO, "tools", "attn_general_bench.py")]
     for root, _, files in os.walk(os.path.join(REPO, "ait_tpu_torch")):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)

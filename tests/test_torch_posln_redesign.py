@@ -323,7 +323,7 @@ def fake_card(monkeypatch):
 
     monkeypatch.setattr(_build, "load", lambda stem, funcs: lib)
     monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
-    monkeypatch.setattr(pff, "_sms", lambda device: SMS)
+    monkeypatch.setattr(pff, "device_sms", lambda device: SMS)
     monkeypatch.setattr(_gemm, "gemm", gemm)
     monkeypatch.setattr(_gemm, "colsum", colsum)
     monkeypatch.setattr(torch, "empty", empty)
