@@ -6,11 +6,12 @@ kernel) -> ROI Align -> AIT transformer (attention, FFN and glue kernels)
 -> SKNet -> ResNet layer4 top -> match and box heads.
 
 Inputs are NHWC: image [B, H, W, 3] (a padded canvas, true extent in
-im_info), query [B, 128, 128, 3], both uint8 RGB or already normalized
-floats; im_info [B, 3] = (h, w, scale); in training gt_boxes [B, G, 5]
-(zero-padded, binary class in column 4).  Returns a DetectorOut: rois
-[B, R, 5], cls_prob [B, R, 1], bbox_pred [B, R, 4] and, in training, the
-five losses and rois_label.
+im_info) or, as the loader ships it with `tpu.host_s2d`, its space-to-depth
+form [B, H/2, W/2, 12]; query [B, 128, 128, 3]; both uint8 RGB or already
+normalized floats; im_info [B, 3] = (h, w, scale); in training gt_boxes
+[B, G, 5] (zero-padded, binary class in column 4).  Returns a DetectorOut:
+rois [B, R, 5], cls_prob [B, R, 1], bbox_pred [B, R, 4] and, in training,
+the five losses and rois_label.
 
 Training takes the TRAIN tops of the proposal layer, samples anchor and
 proposal targets with the caller's `torch.Generator` (models/targets.py),
@@ -43,20 +44,20 @@ from ait_tpu_torch.ops.anchors import shifted_anchors
 from ait_tpu_torch.ops.roi_align import roi_align
 
 # torchvision normalization constants (blob.py:42-48), applied on the
-# device to uint8 inputs
+# device to uint8 inputs (data/transforms.py holds them for the host)
 _NORM_MEAN = (0.485, 0.456, 0.406)
 _NORM_STD = (0.229, 0.224, 0.225)
-# the padding of a uint8 canvas: the mean pixel, round(mean * 255) = (124,
-# 116, 104), which the normalize above maps to ~0, as the reference pads its
-# batches with zeros in normalized space (ait_tpu/data/transforms.py
-# `place_on_canvas`); zero would normalize to (-2.12, -2.04, -1.80)
-CANVAS_FILL = tuple(int(round(m * 255.0)) for m in _NORM_MEAN)
 
 
 def _to_model_input(x, dtype):
+    """uint8 -> (x / 255 - mean) / std; a space-to-depth image carries 4
+    pixel groups of 3 channels, so the constants repeat C / 3 times."""
     if x.dtype == torch.uint8:
-        mean = torch.tensor(_NORM_MEAN, dtype=torch.float32, device=x.device)
-        std = torch.tensor(_NORM_STD, dtype=torch.float32, device=x.device)
+        reps = x.shape[-1] // 3
+        mean = torch.tensor(_NORM_MEAN * reps, dtype=torch.float32,
+                            device=x.device)
+        std = torch.tensor(_NORM_STD * reps, dtype=torch.float32,
+                           device=x.device)
         x = (x.float() / 255.0 - mean) / std
     return x.to(dtype)
 

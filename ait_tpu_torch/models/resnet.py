@@ -5,9 +5,12 @@ The bottleneck puts its stride on conv1 (1x1), the stem max pool is
 3/2/ceil, every BatchNorm is frozen; backbone = stem + layer1..3 (C=1024,
 stride 16), top = layer4 + global spatial mean (2048-d).  The stem conv is
 frozen (`requires_grad=False`), as the reference's optimizer excludes it and
-the JAX package stops its gradient (resnet.py:106-108).  The stem is the
-plain 7x7/2 convolution: the JAX package's space-to-depth rewrite of it is a
-TPU matrix-unit layout trick with the same result.
+the JAX package stops its gradient (resnet.py:106-108).  On a 3-channel
+image the stem is the plain 7x7/2 convolution.  On the loader's
+space-to-depth image ([B, H/2, W/2, 12], `tpu.host_s2d`) it is the same
+convolution regrouped, as the JAX package runs it (resnet.py:110-118): the
+7x7 kernel zero-padded to 8x8 and regrouped into 4x4 over 12 planes, stride
+1, padding (2, 1); the 4x4 kernel is derived from `conv1` at each forward.
 
 Public functions take and return NHWC tensors; inside, the convolutions run
 NCHW-shaped in the channels_last memory format.
@@ -16,6 +19,7 @@ NCHW-shaped in the channels_last memory format.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ait_tpu_torch.models.layers import (Conv, FrozenBatchNorm, max_pool_ceil,
@@ -71,8 +75,19 @@ class ResNetStage(nn.Module):
         return x
 
 
+def s2d_stem_weight(w):
+    """The 7x7/2 stem kernel [64, 3, 7, 7] as the 4x4/1 kernel over the 12
+    space-to-depth planes [64, 12, 4, 4] (plane dy*6 + dx*3 + c): padded to
+    8x8 at the top and left, then tap (2a + dy, 2b + dx) of channel c goes
+    to tap (a, b) of plane dy*6 + dx*3 + c."""
+    o = w.shape[0]
+    w8 = F.pad(w, (1, 0, 1, 0))
+    w8 = w8.reshape(o, 3, 4, 2, 4, 2)                    # o, c, a, dy, b, dx
+    return w8.permute(0, 3, 5, 1, 2, 4).reshape(o, 12, 4, 4)
+
+
 class ResNetBackbone(nn.Module):
-    """stem + layer1-3: [B, H, W, 3] -> [B, H/16, W/16, 1024] (NHWC)."""
+    """stem + layer1-3 on NHWC tensors."""
 
     def __init__(self, variant: str = "resnet50", dtype=torch.float32):
         super().__init__()
@@ -85,9 +100,19 @@ class ResNetBackbone(nn.Module):
         self.layer2 = ResNetStage(256, 128, n2, 2, dtype)
         self.layer3 = ResNetStage(512, 256, n3, 2, dtype)
 
+    def stem(self, x):
+        """The stem convolution on NCHW: [B, 3, H, W] or its space-to-depth
+        form [B, 12, H/2, W/2] -> [B, 64, H/2, W/2]."""
+        if x.shape[1] != 12:
+            return self.conv1(x)
+        conv = self.conv1
+        w4 = s2d_stem_weight(conv.weight).to(conv.dtype)
+        return F.conv2d(F.pad(x.to(conv.dtype), (2, 1, 2, 1)), w4)
+
     def forward(self, x):
-        x = to_nchw(x)
-        x = torch.relu(self.bn1(self.conv1(x)))
+        """[B, H, W, 3], or its space-to-depth form [B, H/2, W/2, 12], ->
+        [B, H/16, W/16, 1024]."""
+        x = torch.relu(self.bn1(self.stem(to_nchw(x))))
         x = max_pool_ceil(x, 3, 2)
         x = self.layer3(self.layer2(self.layer1(x)))
         return to_nhwc(x)

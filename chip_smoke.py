@@ -92,7 +92,28 @@
    max |plain|).  Then the same at model.t_dropout = 0, shorter (one
    warm-up, one timed step, the f32 comparison), so that the kernels'
    keep-1 forms keep their train launches.
-5. Prints the per-kernel JSON line, then the device JSON line last.
+5. The data path (`drive_data_path`): writes a VOC-layout devkit of 24
+   images from a numpy seed (landscape 375x500, portrait 500x375, wide
+   330x600; XML annotations and image sets, the pixels served by an
+   `imread` over the seeded arrays), loads it with `load_voc` and
+   `filter_seen`, and runs `OneShotLoader` with `Config()` unchanged (the
+   608x800 canvas, its portrait transpose and the 608x1216 bucket, uint8,
+   host space-to-depth) at B = 8 through `device_prefetch` into the
+   flagship's eval step on the kernel path and `postprocess_detections`,
+   then `evaluate_voc`.  Every batch must come on one of the three canvases
+   as [8, 304, 400, 12], [8, 400, 304, 12] or [8, 304, 608, 12], show every
+   kernel's launches per forward, arrive bit-equal to its host arrays and
+   give finite detections inside each image; the ground truth as detections
+   must score AP 1 in every class, the model's AP must be finite in [0, 1];
+   the 12-plane stem must equal the 7x7/2 stem on the same canvas (f32, TF32
+   off, within STEM_REL of max |3-plane|, the backbone's features within
+   BACKBONE_REL) and the kernel path the plain path on a batch of 2 (as in
+   3).  Then two train steps of `Config()` from `OneShotLoader(training=
+   True)` through `device_prefetch`, each with its launches and finite
+   losses.  Prints the host loader's ms a batch, the H2D ms a batch from
+   pinned and from pageable memory, eval pairs/s end to end from the raw
+   arrays, and the two stems' device ms.
+6. Prints the per-kernel JSON line, then the device JSON line last.
 
 Exits non-zero, with no result line, without a CUDA device or outside a
 checkout of the repository.  Imports nothing of JAX or ait_tpu.
@@ -102,6 +123,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -2336,7 +2358,8 @@ def compare_paths(torch, np, cfg, state, dev, req):
     # f32 kernels (<= 2e-3 each, ~1e-5 measured) feed SKNet, layer4 and the
     # heads, which may amplify by a few times
     tol = {"rois": 0.0, "cls_prob": 1e-2, "bbox_pred": 1e-2}
-    log(f"kernel path vs plain path (f32, 2 pairs): max abs diffs {diffs}")
+    log(f"kernel path vs plain path (f32, 2 pairs on "
+        f"{tuple(image.shape[1:])}): max abs diffs {diffs}")
     for k, v in diffs.items():
         if not math.isfinite(v) or v > tol[k]:
             fail(f"kernel path disagrees with the plain path on {k}: "
@@ -2378,11 +2401,12 @@ def make_train_batch(np, cfg, rng, b):
 
 def drive_train(torch, np, dev, params, cfg, steps, per_step, *, what=None,
                 accum_steps=1, optimizer="sgd", clip_norm=None, lr=None,
-                compare=True):
+                compare=True, batches=None):
     """One warm-up and `steps` timed train steps of the full-width
     flagship in bf16 at a batch of B images, under whatever policies the
     caller turned on; per_step: the launches each kernel must show per
-    step."""
+    step; batches: steps + 1 batches or more (default: synthetic requests
+    with boxes)."""
     from ait_tpu_torch import bridge
     from ait_tpu_torch.models import AITDetector
     from ait_tpu_torch.train import (lr_schedule, make_optimizer,
@@ -2400,14 +2424,18 @@ def drive_train(torch, np, dev, params, cfg, steps, per_step, *, what=None,
     trainable = {id(p) for g in opt.param_groups for p in g["params"]}
     names = {k for k, p in model.named_parameters() if id(p) in trainable}
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    rng = np.random.RandomState(1)
-    batches = [make_train_batch(np, cfg, rng, B) for _ in range(steps + 1)]
+    if batches is None:
+        rng = np.random.RandomState(1)
+        batches = [make_train_batch(np, cfg, rng, B)
+                   for _ in range(steps + 1)]
     gen = torch.Generator(device=dev).manual_seed(0)
 
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()
     times = []
-    for i, batch in enumerate(batches):
+    for i, batch in zip(range(steps + 1), batches):
+        if i == 0:
+            first = batch
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         met = step(batch, gen)
@@ -2420,8 +2448,12 @@ def drive_train(torch, np, dev, params, cfg, steps, per_step, *, what=None,
         if met["fg_cnt"] + met["bg_cnt"] != B * t.BATCH_SIZE:
             fail(f"train step {i}: {met['fg_cnt']} + {met['bg_cnt']} "
                  f"sampled rois, expected {B * t.BATCH_SIZE}")
-        log(f"train ({what}) step {i}: {met}")
-    launches = read_counts(per_step, len(batches), "steps")
+        log(f"train ({what}) step {i} on {tuple(batch['image'].shape)}: "
+            f"{met}")
+    if len(times) != steps:
+        fail(f"train ({what}): {len(times) + 1} batches for {steps + 1} "
+             "steps")
+    launches = read_counts(per_step, steps + 1, "steps")
     after = model.state_dict()
     still = sorted(k for k in names if torch.equal(before[k], after[k]))
     moved = sorted(k for k in before
@@ -2431,7 +2463,7 @@ def drive_train(torch, np, dev, params, cfg, steps, per_step, *, what=None,
     if moved:
         fail(f"frozen leaves or buffers that moved: {moved[:10]}")
     mean = sum(times) / len(times)
-    log(f"train ({what}): {len(batches)} steps of {B} images at "
+    log(f"train ({what}): {steps + 1} steps of {B} images at "
         f"{cfg.tpu.image_size[0]}x{cfg.tpu.image_size[1]}, {ROIS} rois "
         f"each; launches {launches}; {len(names)} trainable leaves moved, "
         f"{len(before) - len(names)} frozen leaves and buffers unchanged")
@@ -2441,7 +2473,7 @@ def drive_train(torch, np, dev, params, cfg, steps, per_step, *, what=None,
         f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
     del model, opt, step
     if compare:
-        compare_train_paths(torch, dev, cfg, params, batches[0])
+        compare_train_paths(torch, dev, cfg, params, first)
     return launches
 
 
@@ -2530,6 +2562,289 @@ def compare_train_paths(torch, dev, cfg, params, batch):
     if bad:
         fail(f"train step: gradients beyond {BWD_REL} of their leaf's max "
              f"|plain|: {sorted(bad.items(), key=lambda kv: -kv[1])[:10]}")
+
+# -------------------------------------------------------------- data path
+
+# a devkit's images: (height, width, count) landscape on the 608x800 canvas,
+# portrait on its transpose, and wide ones (aspect 1.8) that need the
+# 608x1216 bucket
+DATA_SHAPES = ((375, 500, 10), (500, 375, 7), (330, 600, 7))
+DATA_CANVASES = {(304, 400, 12), (400, 304, 12), (304, 608, 12)}
+# the first box of an image is of a class evaluated here (the one-shot
+# split seen=2: cow, sheep, cat, aeroplane), the second of a class trained
+# on (seen=1), the rest of either
+DATA_UNSEEN = ("cow", "sheep", "cat", "aeroplane")
+DATA_SEEN = ("dog", "person", "car", "bus")
+# f32, TF32 off: the stem's 4x4 convolution over 12 planes against the
+# 7x7/2 over 3 on the same canvas (the same 147 products summed in another
+# order) within STEM_REL of max |3-channel|; the backbone's features after
+# it within BACKBONE_REL
+STEM_REL, BACKBONE_REL = 1e-5, 1e-4
+
+
+def write_devkit(np, root):
+    """A VOC-layout devkit under root: VOC2007/Annotations/*.xml and
+    ImageSets/Main/{test,trainval}.txt, 2-4 boxes an image; no image files.
+    Returns (devkit, imread): imread serves each image's pixels, made from
+    seed 0 (noise, a flat patch in each box), so no decoder is needed."""
+    import xml.etree.ElementTree as ET
+
+    rng = np.random.RandomState(0)
+    base = os.path.join(root, "VOC2007")
+    for sub in ("Annotations", "JPEGImages", os.path.join("ImageSets",
+                                                          "Main")):
+        os.makedirs(os.path.join(base, sub), exist_ok=True)
+    pixels, names = {}, []
+    for h, w, count in DATA_SHAPES:
+        for _ in range(count):
+            name = f"{len(names):06d}"
+            im = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+            ann = ET.Element("annotation")
+            size = ET.SubElement(ann, "size")
+            for tag, v in (("width", w), ("height", h), ("depth", 3)):
+                ET.SubElement(size, tag).text = str(v)
+            n = rng.randint(2, 5)
+            for j in range(n):
+                cls = (DATA_UNSEEN[len(names) % 4] if j == 0 else
+                       DATA_SEEN[rng.randint(4)] if j == 1 else
+                       (DATA_UNSEEN + DATA_SEEN)[rng.randint(8)])
+                bw = rng.randint(w // 6, w // 2)
+                bh = rng.randint(h // 6, h // 2)
+                x1, y1 = rng.randint(1, w - bw), rng.randint(1, h - bh)
+                im[y1:y1 + bh, x1:x1 + bw] = rng.randint(0, 256, 3)
+                obj = ET.SubElement(ann, "object")
+                ET.SubElement(obj, "name").text = cls
+                ET.SubElement(obj, "difficult").text = "0"
+                bb = ET.SubElement(obj, "bndbox")
+                for tag, v in (("xmin", x1), ("ymin", y1),
+                               ("xmax", x1 + bw), ("ymax", y1 + bh)):
+                    ET.SubElement(bb, tag).text = str(v)
+            ET.ElementTree(ann).write(
+                os.path.join(base, "Annotations", name + ".xml"))
+            pixels[os.path.join(base, "JPEGImages", name + ".jpg")] = im
+            names.append(name)
+    for split in ("test", "trainval"):
+        with open(os.path.join(base, "ImageSets", "Main", split + ".txt"),
+                  "w") as f:
+            f.write("\n".join(names) + "\n")
+    return root, pixels.__getitem__
+
+
+def depth_to_space(np, x):
+    """[B, H/2, W/2, 12] -> [B, H, W, 3], the inverse of space_to_depth."""
+    b, h2, w2, _ = x.shape
+    return np.ascontiguousarray(x.reshape(b, h2, w2, 2, 2, 3).transpose(
+        0, 1, 3, 2, 4, 5)).reshape(b, 2 * h2, 2 * w2, 3)
+
+
+def check_stem(torch, np, dev, state, cfg, image12):
+    """The 12-plane stem against the 7x7/2 stem on the same canvas (f32,
+    TF32 off), then both stems' device time at B = 8 in bf16, in turns
+    (3, 12, 12, 3 planes).  Returns (ms 3-plane, ms 12-plane)."""
+    from ait_tpu_torch.models import AITDetector
+    from ait_tpu_torch.models.detector import _to_model_input
+    from ait_tpu_torch.models.layers import to_nchw
+
+    image3 = depth_to_space(np, image12)
+    times = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = AITDetector(cfg, dtype=dtype)
+        model.load_state_dict(state)
+        bb = model.backbone.to(dev).eval()
+        x3, x12 = (to_nchw(_to_model_input(torch.from_numpy(a).to(dev),
+                                           dtype)) for a in (image3, image12))
+        with torch.inference_mode():
+            if dtype == torch.float32:
+                y3, y12 = bb.stem(x3[:2]), bb.stem(x12[:2])
+                stem_err = rel_err(y12, y3)
+                f3 = bb(_to_model_input(torch.from_numpy(image3[:2]).to(dev),
+                                        dtype))
+                f12 = bb(_to_model_input(
+                    torch.from_numpy(image12[:2]).to(dev), dtype))
+                feat_err = rel_err(f12, f3)
+                log(f"data path: stem, 12 planes vs 3 (f32, TF32 off, 2 "
+                    f"canvases {image3.shape[1]}x{image3.shape[2]}): "
+                    f"{stem_err:.3e} of max |3-plane| (tol {STEM_REL}); "
+                    f"backbone features {feat_err:.3e} (tol {BACKBONE_REL})")
+                if not (stem_err <= STEM_REL and feat_err <= BACKBONE_REL):
+                    fail(f"the 12-plane stem disagrees with the 3-plane "
+                         f"stem: {stem_err}, features {feat_err}")
+                continue
+            for planes, x in ((3, x3), (12, x12), (12, x12), (3, x3)):
+                times.setdefault(planes, []).append(
+                    device_ms(lambda: bb.stem(x), iters=10))
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    log(f"data path: stem device ms, bf16, B={image12.shape[0]}, "
+        f"{image3.shape[1]}x{image3.shape[2]}: 7x7/2 over 3 planes "
+        f"{ms[3]:.4f} (runs {times[3]}), 4x4/1 over 12 planes {ms[12]:.4f} "
+        f"(runs {times[12]})")
+    return ms[3], ms[12]
+
+
+def time_h2d(torch, dev, batch):
+    """ms to copy one batch's arrays to the card: from pinned memory
+    (non_blocking) and from pageable memory; and the host ms of the copy
+    into pinned memory that device_prefetch makes first."""
+    host = {k: torch.from_numpy(v) for k, v in batch.items()}
+    t0 = time.perf_counter()
+    for _ in range(10):
+        pinned = {k: v.pin_memory() for k, v in host.items()}
+    pin_ms = (time.perf_counter() - t0) * 1e2
+    ms = {"pinned": cuda_ms(lambda: [v.to(dev, non_blocking=True)
+                                     for v in pinned.values()]),
+          "pageable": cuda_ms(lambda: [v.to(dev) for v in host.values()])}
+    nbytes = sum(v.numel() * v.element_size() for v in host.values())
+    log(f"data path: H2D of one batch ({nbytes / 2 ** 20:.2f} MiB): pinned "
+        f"{ms['pinned']:.4f} ms, pageable {ms['pageable']:.4f} ms; host copy "
+        f"into pinned memory {pin_ms:.4f} ms")
+    return ms
+
+
+def drive_data_eval(torch, np, dev, cfg, state, view, imread):
+    """The eval path from raw images: OneShotLoader (Config() unchanged:
+    608x800 and its buckets, uint8, host space-to-depth) -> device_prefetch
+    -> the flagship's eval step on the kernel path -> postprocess ->
+    all_boxes (as tools/test_net.py fills it) -> evaluate_voc.  Every batch
+    is checked: its canvas, its launches (PER_FORWARD), its detections, the
+    prefetched tensors bit-equal to the host arrays.  Then the epoch runs 3
+    times over, timed end to end.  Returns the checked pass's launches and
+    the first batch of each canvas."""
+    from ait_tpu_torch.data import OneShotLoader, device_prefetch
+    from ait_tpu_torch.data.voc import class_order, split_classes
+    from ait_tpu_torch.evaluation import evaluate_voc, postprocess_detections
+    from ait_tpu_torch.models import AITDetector
+    from ait_tpu_torch.train import make_eval_step
+
+    model = AITDetector(cfg, dtype=torch.bfloat16)
+    model.load_state_dict(state)
+    model.to(dev).eval()
+    step = make_eval_step(model)
+    t = cfg.TEST
+    inds = split_classes(2)
+
+    def epoch(loader, check, repeat=1):
+        all_boxes = {ci: {} for ci in inds}
+        launches, shapes, host, walls = None, [], [], []
+
+        def keep(batches):
+            for b in batches:
+                host.append(b)
+                yield b
+
+        t0 = time.perf_counter()
+        batches = itertools.chain.from_iterable(
+            loader.test_epoch(B) for _ in range(repeat))
+        for batch in device_prefetch(keep(batches), size=2, device=dev):
+            tb = time.perf_counter()
+            if check:
+                zero_counts()
+            out = step(batch)
+            dets, valid = postprocess_detections(
+                out["rois"], out["cls_prob"], out["bbox_pred"],
+                batch["im_info"], nms_thresh=t.NMS, score_thresh=0.0,
+                max_per_image=t.MAX_PER_IMAGE,
+                bbox_normalize_means=cfg.TRAIN.BBOX_NORMALIZE_MEANS,
+                bbox_normalize_stds=cfg.TRAIN.BBOX_NORMALIZE_STDS)
+            dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
+            walls.append((time.perf_counter() - tb) * 1e3)
+            hb = host[len(walls) - 1]
+            for i in range(len(hb["pair_index"])):
+                all_boxes[int(hb["category"][i])][
+                    int(hb["record_index"][i])] = dets[i][valid[i]]
+            if not check:
+                continue
+            n = read_counts(PER_FORWARD, 1, "forwards")
+            launches = n if launches is None else {
+                k: launches[k] + n[k] for k in n}
+            shapes.append(tuple(batch["image"].shape[1:]))
+            for k, v in batch.items():
+                if not np.array_equal(v.cpu().numpy(), hb[k]):
+                    fail(f"device_prefetch changed the batch's {k}")
+            check_dets(np, [d[m] for d, m in zip(dets, valid)],
+                       hb["im_info"], cfg)
+        wall = time.perf_counter() - t0
+        return all_boxes, launches, shapes, host, walls, wall
+
+    loader = OneShotLoader(view, cfg, training=False, imread=imread)
+    all_boxes, launches, shapes, host, walls, _ = epoch(loader, True)
+    if set(shapes) != DATA_CANVASES or \
+            any(s[0] != B for s in (b["image"].shape for b in host)):
+        fail(f"data path: batches {[b['image'].shape for b in host]}, "
+             f"expected batches of {B} on {sorted(DATA_CANVASES)}")
+    log(f"data path: {len(loader.pairs)} pairs of {len(view.records)} "
+        f"images in {len(host)} batches of {B}, canvases "
+        f"{[b['image'].shape[1:] for b in host]}; launches per forward as "
+        f"expected in every batch: {launches}")
+    res = evaluate_voc(all_boxes, view.records, inds, class_order(2))
+    if not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in res.values()):
+        fail(f"data path: VOC AP out of [0, 1]: {res}")
+    gt = {ci: {i: np.concatenate(
+        [r.boxes[r.gt_classes == ci],
+         np.ones((int((r.gt_classes == ci).sum()), 1), np.float32)], 1)
+        for i, r in enumerate(view.records)} for ci in inds}
+    res_gt = evaluate_voc(gt, view.records, inds, class_order(2))
+    if not all(abs(v - 1.0) < 1e-12 for v in res_gt.values()):
+        fail(f"data path: the ground truth as detections scores {res_gt}")
+    log(f"data path: VOC07 AP of the random-weight flagship {res}; of the "
+        f"ground truth as detections {res_gt}")
+
+    # the same epoch 3 times over, timed: raw arrays to detections
+    loader = OneShotLoader(view, cfg, training=False, imread=imread)
+    *_, walls, wall = epoch(loader, False, repeat=3)
+    pairs = 3 * len(loader.pairs)
+    log(f"data path: eval end to end (loader, prefetch, forward, "
+        f"postprocess), the epoch 3 times: {pairs} pairs in "
+        f"{wall * 1e3:.3f} ms, {pairs / wall:.2f} pairs/s; ms per batch "
+        f"from its arrival on the card to its detections on the host "
+        f"{walls}")
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader.test_epoch(B))
+    log(f"data path: host loader alone, eval: "
+        f"{(time.perf_counter() - t0) * 1e3 / n:.3f} ms a batch of {B} "
+        f"({n} batches, 8 worker threads)")
+    firsts = {}
+    for b in host:
+        firsts.setdefault(b["image"].shape[1:], b)
+    return launches, firsts
+
+
+def drive_data_path(torch, np, dev, cfg, params, state):
+    """Raw VOC-layout images in, AP out, on the kernel path; then training
+    from the loader.  Returns the launches of each path."""
+    import tempfile
+
+    from ait_tpu_torch.data import OneShotLoader, device_prefetch
+    from ait_tpu_torch.data.voc import filter_seen, load_voc
+
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as root:
+        devkit, imread = write_devkit(np, root)
+        test = filter_seen(load_voc(devkit, "2007", "test"), 2)
+        train = filter_seen(load_voc(devkit, "2007", "trainval"), 1)
+    paths = {}
+    paths["data_eval"], firsts = drive_data_eval(torch, np, dev, cfg, state,
+                                                 test, imread)
+    batch = firsts[(304, 400, 12)]
+    check_stem(torch, np, dev, state, cfg, batch["image"])
+    time_h2d(torch, dev, batch)
+    for b in firsts.values():
+        compare_paths(torch, np, cfg, state, dev,
+                      (b["image"], b["query"], b["im_info"]))
+    # two steps (Config() unchanged: t_dropout 0.1) from the train loader
+    loader = OneShotLoader(train, cfg, training=True, imread=imread)
+    epoch = loader.train_epoch(B)
+    try:
+        paths["data_train"] = drive_train(
+            torch, np, dev, params, cfg, 1, PER_STEP, what="from the loader",
+            compare=False, batches=device_prefetch(epoch, device=dev))
+    finally:
+        epoch.close()
+    t1 = time.perf_counter()
+    n = sum(1 for _, _ in zip(range(4), loader.train_epoch(B)))
+    log(f"data path: host loader alone, train: "
+        f"{(time.perf_counter() - t1) * 1e3 / n:.3f} ms a batch of {B}")
+    log(f"data path: {time.time() - t0:.1f} s")
+    return paths
 
 
 def main() -> int:
@@ -2625,6 +2940,7 @@ def main() -> int:
         what="Adam, clip_norm 1.0", optimizer="adam", clip_norm=1.0, lr=1e-4,
         compare=False)
     time_coattention(torch, np, dev, cfg, state)
+    paths.update(drive_data_path(torch, np, dev, cfg, params, state))
 
     meta = {"nms_keep_mask": ("ait_tpu_torch/csrc/nms.cu",
                               "ait_tpu/ops/nms_pallas.py:133"),

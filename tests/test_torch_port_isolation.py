@@ -1,8 +1,8 @@
 """The port stands alone: no module of ait_tpu_torch, and none of
 chip_smoke.py, tools/port_profile.py, tools/posln_bench.py and
 tools/attn_general_bench.py, imports JAX,
-flax, optax or the JAX package; its entry points refuse to run quietly on the CPU when no GPU is
-there."""
+flax, optax or the JAX package, or unpickles without a class filter; its
+entry points refuse to run quietly on the CPU when no GPU is there."""
 
 import ast
 import os
@@ -51,6 +51,33 @@ def test_no_jax_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def _unpickling_calls(path):
+    """Calls that unpickle without a class filter: pickle.load(s),
+    pickle.Unpickler(...).load() through the plain class, numpy loads that
+    allow pickles."""
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        f = node.func
+        name = ast.unparse(f)
+        if name in ("pickle.load", "pickle.loads", "pickle.Unpickler"):
+            yield f"{name} at line {node.lineno}"
+        if name.endswith(("np.load", "numpy.load")) and any(
+                k.arg == "allow_pickle" for k in node.keywords):
+            yield f"{name}(allow_pickle=...) at line {node.lineno}"
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_unfiltered_unpickling(path):
+    """The port reads no pickle through an unpickler that would build any
+    class (a JAX package cache holds ait_tpu classes): data/coco.py's
+    reference-image file goes through its builtins-and-numpy unpickler."""
+    bad = list(_unpickling_calls(path))
+    assert not bad, f"{path}: {bad}"
+
+
 def test_forbidden_match_is_exact():
     assert _forbidden("ait_tpu") and _forbidden("ait_tpu.ops.nms")
     assert _forbidden("jax.numpy") and not _forbidden("jaxtyping_free")
@@ -65,7 +92,11 @@ def test_importing_the_port_loads_no_jax():
             "ait_tpu_torch.ops.dropout_masks, ait_tpu_torch.models.dropout, "
             "ait_tpu_torch.models.targets, "
             "ait_tpu_torch.models.losses, ait_tpu_torch.train.optim, "
-            "ait_tpu_torch.train.state; "
+            "ait_tpu_torch.train.state, ait_tpu_torch.data, "
+            "ait_tpu_torch.data.voc, ait_tpu_torch.data.coco, "
+            "ait_tpu_torch.evaluation.voc_eval, "
+            "ait_tpu_torch.evaluation.voc_results, "
+            "ait_tpu_torch.evaluation.coco_eval; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'ait_tpu')]; "
             "assert not bad, bad")
