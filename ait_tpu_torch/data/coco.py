@@ -47,6 +47,9 @@ class _DataUnpickler(pickle.Unpickler):
                 ("numpy._core.multiarray", "_reconstruct"),
                 ("numpy.core.multiarray", "scalar"),
                 ("numpy._core.multiarray", "scalar"),
+                # protocol 5 pickles of arrays (pickle.HIGHEST_PROTOCOL)
+                ("numpy.core.numeric", "_frombuffer"),
+                ("numpy._core.numeric", "_frombuffer"),
                 ("builtins", "set"), ("builtins", "frozenset"),
                 ("collections", "OrderedDict")}
 
@@ -57,7 +60,9 @@ class _DataUnpickler(pickle.Unpickler):
         return super().find_class(module, name)
 
 
-def _read_data_pickle(path: str):
+def read_data_pickle(path: str):
+    """Unpickle a file of builtins and numpy arrays only (the reference's
+    data files, converted weights, detection caches)."""
     with open(path, "rb") as f:
         return _DataUnpickler(f).load()
 
@@ -127,7 +132,7 @@ def load_coco(data_path: str, year: str, image_set: str,
         reference_file = default_ref if os.path.exists(default_ref) else None
     reference = None
     if reference_file and os.path.exists(reference_file):
-        reference = _read_data_pickle(reference_file)
+        reference = read_data_pickle(reference_file)
 
     classes = tuple(["__background__"] + gt.cat_names)
     records: List[ImageRecord] = []

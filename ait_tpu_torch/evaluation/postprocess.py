@@ -26,7 +26,13 @@ def postprocess_detections(rois, cls_prob, bbox_pred, im_info, *,
     (dets [B, R, 5], valid [B, R]).
 
     When more than max_per_image survive, every score tied with the
-    max_per_image-th highest is kept (the mask marks them)."""
+    max_per_image-th highest is kept (the mask marks them).  The
+    class-specific head's 8 columns are refused: ait_tpu's postprocess
+    cannot take them either (ait_tpu/evaluation/postprocess.py:39)."""
+    if bbox_pred.shape[-1] != 4:
+        raise ValueError(
+            f"postprocess takes class-agnostic box deltas [B, R, 4], got "
+            f"{tuple(bbox_pred.shape)} (model.class_agnostic=False)")
     dev = rois.device
     means = torch.tensor(bbox_normalize_means, dtype=torch.float32,
                          device=dev)

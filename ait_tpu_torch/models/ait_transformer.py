@@ -42,11 +42,11 @@ from ait_tpu_torch.ops import fused_ffn
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, d_model, d_inner, n_head, d_k, d_v,
+    def __init__(self, d_model, d_inner, n_head, d_k, d_v, dist="softmax",
                  dtype=torch.float32):
         super().__init__()
         self.slf_attn = MultiHeadAttention(n_head, d_model, d_k, d_v,
-                                           dtype=dtype)
+                                           dist=dist, dtype=dtype)
         self.pos_ffn = PositionwiseFeedForward(d_model, d_inner, dtype)
 
     def forward(self, x, mask, drop: Optional[Dropout] = None):
@@ -54,13 +54,13 @@ class EncoderLayer(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, d_model, d_inner, n_head, d_k, d_v,
+    def __init__(self, d_model, d_inner, n_head, d_k, d_v, dist="softmax",
                  dtype=torch.float32):
         super().__init__()
         self.slf_attn = MultiHeadAttention(n_head, d_model, d_k, d_v,
-                                           dtype=dtype)
+                                           dist=dist, dtype=dtype)
         self.enc_attn = MultiHeadAttention(n_head, d_model, d_k, d_v,
-                                           dtype=dtype)
+                                           dist=dist, dtype=dtype)
         self.pos_ffn = PositionwiseFeedForward(d_model, d_inner, dtype)
 
     def forward(self, x, enc_out, slf_mask, cross_mask, repeat: int = 1,
@@ -78,7 +78,8 @@ class AITTransformer(nn.Module):
     def __init__(self, d_model: int = 512, d_inner: int = 2048,
                  n_layers: int = 1, n_head: int = 8, d_k: int = 64,
                  d_v: int = 64, n_position: int = 64,
-                 causal_mask: bool = True, channels: int = 1024,
+                 causal_mask: bool = True, dist: str = "softmax",
+                 channels: int = 1024,
                  dec_prefix_per_image: bool = True, dtype=torch.float32):
         super().__init__()
         self.d_model, self.n_layers, self.dtype = d_model, n_layers, dtype
@@ -90,9 +91,9 @@ class AITTransformer(nn.Module):
         self.dec_in_ln = Params(scale=(d_model,), bias=(d_model,))
         for i in range(n_layers):
             self.add_module(f"enc_layer{i}", EncoderLayer(
-                d_model, d_inner, n_head, d_k, d_v, dtype))
+                d_model, d_inner, n_head, d_k, d_v, dist, dtype))
             self.add_module(f"dec_layer{i}", DecoderLayer(
-                d_model, d_inner, n_head, d_k, d_v, dtype))
+                d_model, d_inner, n_head, d_k, d_v, dist, dtype))
         self.dec_trans = Conv(d_model, channels, 1, dtype=dtype)
         self.register_buffer(
             "pos", torch.from_numpy(sinusoid_table(n_position, d_model)),

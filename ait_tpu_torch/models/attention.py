@@ -49,15 +49,24 @@ _LONG_SEQ_FUSION = False
 
 
 def scaled_dot_attention(q, k, v, *, temperature, mask=None, keep=None,
-                         keep_prob=1.0):
+                         keep_prob=1.0, dist="softmax"):
     """q, k, v: [..., T, d]; mask broadcastable to [..., Tq, Tk].  Logits
-    and softmax in f32, flax-form dropout on the f32 probabilities where a
-    keep-mask is given, probabilities cast to v's dtype before P.V."""
+    in f32, masked to -1e9, then normalized in f32: softmax, or with
+    dist='division' divided by Tk (Modules.py:16-29; the masked logits are
+    divided too, as in the reference and the JAX package); flax-form
+    dropout on the f32 weights where a keep-mask is given, weights cast to
+    v's dtype before P.V."""
     attn = torch.einsum("...qd,...kd->...qk", (q / temperature).float(),
                         k.float())
     if mask is not None:
         attn = torch.where(mask, attn, -1e9)
-    attn = torch.softmax(attn, dim=-1)
+    if dist == "softmax":
+        attn = torch.softmax(attn, dim=-1)
+    elif dist == "division":
+        attn = attn / attn.shape[-1]
+    else:
+        raise ValueError(f"attention dist must be 'softmax' or 'division', "
+                         f"got {dist!r}")
     if keep is not None:
         attn = flax_dropout(attn, keep, keep_prob)
     out = torch.einsum("...qk,...kd->...qd", attn.to(v.dtype).float(),
@@ -66,14 +75,21 @@ def scaled_dot_attention(q, k, v, *, temperature, mask=None, keep=None,
 
 
 class MultiHeadAttention(nn.Module):
-    """MHA with the selective-head collapse; softmax distribution only."""
+    """MHA with the selective-head collapse.  dist='division' (attn / Tk in
+    place of the softmax) takes the plain path only: the JAX package fuses
+    the softmax alone (attention.py:220-224)."""
 
     def __init__(self, n_head: int = 8, d_model: int = 512, d_k: int = 64,
-                 d_v: int = 64, *, dtype=torch.float32):
+                 d_v: int = 64, *, dist: str = "softmax",
+                 dtype=torch.float32):
         super().__init__()
         if n_head < 2:
             raise ValueError("the selective-head gate needs n_head > 1")
+        if dist not in ("softmax", "division"):
+            raise ValueError(f"attention dist must be 'softmax' or "
+                             f"'division', got {dist!r}")
         self.n_head, self.d_model, self.d_k, self.d_v = n_head, d_model, d_k, d_v
+        self.dist = dist
         self.dtype = dtype
         self.w_qs = Params(kernel=(d_model, n_head * d_k))
         self.w_ks = Params(kernel=(d_model, n_head * d_k))
@@ -93,7 +109,7 @@ class MultiHeadAttention(nn.Module):
         dev = q.device
         fusable = fused_attention.fuse_short(lq, lk) or (
             _LONG_SEQ_FUSION and fused_attention.fuse_long(lq, lk))
-        fuse = (k is v and fusable and
+        fuse = (self.dist == "softmax" and k is v and fusable and
                 (mask is None or mask.shape[0] == 1))
         if fuse:
             if mask is None:
@@ -143,7 +159,7 @@ class MultiHeadAttention(nn.Module):
             mask = mask[:, None]                       # head axis
         out = scaled_dot_attention(qh, kh, vh, temperature=self.d_k ** 0.5,
                                    mask=mask, keep=attn_keep,
-                                   keep_prob=keep_prob)
+                                   keep_prob=keep_prob, dist=self.dist)
         # SHBlock gate (SubLayers.py:9-39)
         u = out.sum(dim=1)                             # [B, T, d_v]
         s = u.mean(dim=1)                              # [B, d_v]

@@ -10,8 +10,9 @@ im_info) or, as the loader ships it with `tpu.host_s2d`, its space-to-depth
 form [B, H/2, W/2, 12]; query [B, 128, 128, 3]; both uint8 RGB or already
 normalized floats; im_info [B, 3] = (h, w, scale); in training gt_boxes
 [B, G, 5] (zero-padded, binary class in column 4).  Returns a DetectorOut:
-rois [B, R, 5], cls_prob [B, R, 1], bbox_pred [B, R, 4] and, in training,
-the five losses and rois_label.
+rois [B, R, 5], cls_prob [B, R, 1], bbox_pred [B, R, 4] (8 with
+model.class_agnostic False, eval only, as in the JAX package) and, in
+training, the five losses and rois_label.
 
 Training takes the TRAIN tops of the proposal layer, samples anchor and
 proposal targets with the caller's `torch.Generator` (models/targets.py),
@@ -36,7 +37,7 @@ from ait_tpu_torch.models.ait_transformer import AITTransformer
 from ait_tpu_torch.models.coattention import MHACoAttention
 from ait_tpu_torch.models.dropout import Dropout
 from ait_tpu_torch.models.layers import Dense
-from ait_tpu_torch.models.resnet import ResNetBackbone, ResNetTop
+from ait_tpu_torch.models.resnet import STAGES, ResNetBackbone, ResNetTop
 from ait_tpu_torch.models.rpn import RPNHead, proposal_layer
 from ait_tpu_torch.models.sknet import SKNet
 from ait_tpu_torch.models.targets import anchor_targets, proposal_targets
@@ -82,19 +83,17 @@ class DetectorOut(NamedTuple):
 def _check_supported(cfg: Config) -> None:
     mc = cfg.model
     unsupported = {
-        "model.backbone": mc.backbone != "resnet50",
+        "model.backbone": mc.backbone not in STAGES,
         "model.coattention": mc.coattention != "mha",
-        "model.t_attn_dist": mc.t_attn_dist != "softmax",
-        "model.sk_gate": mc.sk_gate != "faithful",
-        "model.class_agnostic": not mc.class_agnostic,
         "model.with_contextual_relation": mc.with_contextual_relation,
         "POOLING_MODE": cfg.POOLING_MODE != "align",
     }
     bad = [k for k, v in unsupported.items() if v]
     if bad:
         raise NotImplementedError(
-            f"not ported yet: {', '.join(bad)} (the port covers the flagship "
-            "ResNet + MHA co-attention detector)")
+            f"not ported yet: {', '.join(bad)} (ROADMAP A14: VGG16, the "
+            "non-local co-attention, the contextual relation and ROI pool; "
+            "the port covers the ResNet + MHA co-attention detectors)")
 
 
 class AITDetector(nn.Module):
@@ -115,12 +114,14 @@ class AITDetector(nn.Module):
             d_model=mc.t_d_model, d_inner=mc.t_d_inner,
             n_layers=mc.t_n_layers, n_head=mc.t_n_head, d_k=mc.t_d_k,
             d_v=mc.t_d_v, n_position=mc.t_n_position,
-            causal_mask=mc.t_causal_mask, channels=ch,
+            causal_mask=mc.t_causal_mask, dist=mc.t_attn_dist, channels=ch,
             dec_prefix_per_image=cfg.tpu.dec_prefix_per_image, dtype=dtype)
-        self.sk = SKNet(ch, dtype=dtype)
+        self.sk = SKNet(ch, gate=mc.sk_gate, dtype=dtype)
         self.cls_score_0 = Dense(2 * 2048, 8, dtype=dtype)
         self.cls_score_1 = Dense(8, 2, dtype=dtype)
-        self.bbox_pred_head = Dense(2048, 4, dtype=dtype)
+        # class-specific regression: a box for background and foreground
+        self.bbox_pred_head = Dense(2048, 4 if mc.class_agnostic else 8,
+                                    dtype=dtype)
 
     def forward(self, image, query, im_info, gt_boxes=None, num_boxes=None,
                 *, train: bool = False,
@@ -146,6 +147,12 @@ class AITDetector(nn.Module):
         if train:
             if gt_boxes is None:
                 raise ValueError("training needs gt_boxes")
+            if not c.model.class_agnostic:
+                # ait_tpu's box loss takes 4 columns and fails on 8
+                # (ait_tpu/models/detector.py:280-282)
+                raise NotImplementedError(
+                    "training needs model.class_agnostic=True: the box loss "
+                    "takes 4 columns, the class-specific head gives 8")
             drop = Dropout(c.model.t_dropout, generator)
         image_feat = self.backbone(_to_model_input(image, self.dtype))
         if pair_image_idx is not None:
@@ -210,7 +217,7 @@ class AITDetector(nn.Module):
 
     def _head(self, non_img, non_qry, rois, drop=None):
         """(match logits [B, R, 2] f32, match probability [B, R] f32,
-        bbox_pred [B*R, 4] f32); drop: the training forward's dropout."""
+        bbox_pred [B*R, 4 or 8] f32); drop: the training forward's dropout."""
         c = self.cfg
         b, num_props = rois.shape[0], rois.shape[1]
         props = roi_align(non_img, rois[..., 1:5], out_size=c.POOLING_SIZE,

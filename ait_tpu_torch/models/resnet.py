@@ -25,7 +25,9 @@ from torch import nn
 from ait_tpu_torch.models.layers import (Conv, FrozenBatchNorm, max_pool_ceil,
                                          to_nchw, to_nhwc)
 
-STAGES = {"resnet50": (3, 4, 6, 3)}
+# blocks per stage of each variant (ait_tpu/models/resnet.py:34-38)
+STAGES = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3),
+          "resnet152": (3, 8, 36, 3)}
 
 
 class Bottleneck(nn.Module):

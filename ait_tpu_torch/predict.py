@@ -1,8 +1,13 @@
 """One-shot inference API (counterpart of ait_tpu/predict.py).
 
     predictor = OneShotPredictor(cfg, state_dict)          # on the GPU
+    predictor = OneShotPredictor.from_run("models/res50/pascal_voc/1.0.0")
     dets = predictor.predict(image_rgb_uint8, query_rgb_uint8, query_box)
     dets = predictor.predict_batch([(image, query_image, query_box), ...])
+
+`from_run` reads a run directory of the port's train CLI (its
+`config.json` and the newest checkpoint under `ckpt/`; not an orbax run of
+the JAX package); `from_converted_checkpoint` a converted params pickle.
 
 `predict` and `predict_batch` take raw RGB images (uint8, [H, W, 3], or
 grey / RGBA) and a query box (x1, y1, x2, y2) in the query image; they
@@ -19,6 +24,9 @@ coordinates.
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -32,7 +40,9 @@ from ait_tpu_torch.data.transforms import (CANVAS_FILL,  # noqa: F401
 from ait_tpu_torch.device import resolve_device
 from ait_tpu_torch.evaluation import postprocess_detections
 from ait_tpu_torch.models import AITDetector
-from ait_tpu_torch.train import make_eval_step
+from ait_tpu_torch.train import init_weights, make_eval_step
+from ait_tpu_torch.train.checkpoint import CheckpointManager
+from ait_tpu_torch.utils import printer
 
 
 class OneShotPredictor:
@@ -46,6 +56,43 @@ class OneShotPredictor:
         self.model.to(self.device).eval()
         self._eval = make_eval_step(self.model)
         self.score_thresh = score_thresh
+
+    @classmethod
+    def from_run(cls, run_dir: str, device=None,
+                 **kw) -> "OneShotPredictor":
+        """config.json and the newest checkpoint of a training run.  Without
+        a checkpoint the weights stay the random ones from seed 0, as the
+        JAX package keeps its seeded init (predict.py:60-70), with a
+        warning."""
+        cfg_path = os.path.join(run_dir, "config.json")
+        cfg = Config()
+        if os.path.exists(cfg_path):
+            with open(cfg_path) as f:
+                cfg = _config_from_json(json.load(f))
+        model = init_weights(AITDetector(cfg), 0)
+        ckpt_dir = os.path.join(run_dir, "ckpt")
+        restored = None
+        if os.path.isdir(ckpt_dir):
+            restored = CheckpointManager(ckpt_dir).restore(model)
+        if restored is None:
+            printer("WARNING: no checkpoint in ", f"{ckpt_dir}: the "
+                    "predictor keeps the random weights from seed 0",
+                    c="yellow")
+        return cls(cfg, model.state_dict(), device, **kw)
+
+    @classmethod
+    def from_converted_checkpoint(cls, pkl_path: str,
+                                  cfg: Optional[Config] = None, device=None,
+                                  **kw) -> "OneShotPredictor":
+        """Weights converted from a reference .pth
+        (tools/convert_torch_checkpoint.py), overlaid on the random ones
+        from seed 0 by `convert.load_pretrained`."""
+        from ait_tpu_torch.convert import load_pretrained
+
+        cfg = cfg or Config()
+        model = init_weights(AITDetector(cfg), 0)
+        load_pretrained(model, pkl_path)
+        return cls(cfg, model.state_dict(), device, **kw)
 
     def _tensor(self, x, dtype: Optional[torch.dtype] = None):
         t = torch.as_tensor(x)
@@ -93,3 +140,25 @@ class OneShotPredictor:
     def predict(self, image, query_image, query_box) -> np.ndarray:
         """One (target image, query image, query box) -> [N, 5] dets."""
         return self.predict_batch([(image, query_image, query_box)])[0]
+
+
+def _config_from_json(doc: dict) -> Config:
+    """Rebuild a Config from save_config's JSON (lists become tuples), as
+    ait_tpu/predict.py::_config_from_json does."""
+
+    def rebuild(template, d):
+        kw = {}
+        for f in dataclasses.fields(template):
+            if f.name not in d:
+                continue
+            cur = getattr(template, f.name)
+            v = d[f.name]
+            if dataclasses.is_dataclass(cur):
+                kw[f.name] = rebuild(cur, v)
+            elif isinstance(cur, tuple):
+                kw[f.name] = tuple(v)
+            else:
+                kw[f.name] = v
+        return dataclasses.replace(template, **kw)
+
+    return rebuild(Config(), doc)

@@ -30,6 +30,7 @@ from typing import Callable, Dict
 
 import torch
 
+from ait_tpu_torch import bridge
 from ait_tpu_torch.device import resolve_device
 from ait_tpu_torch.models.detector import AITDetector
 from ait_tpu_torch.train.optim import clip_by_global_norm_, set_lr
@@ -37,6 +38,15 @@ from ait_tpu_torch.train.optim import clip_by_global_norm_, set_lr
 LOSS_METRICS = {"loss": "total_loss", "rpn_cls": "rpn_loss_cls",
                 "rpn_box": "rpn_loss_box", "rcnn_cls": "rcnn_loss_cls",
                 "margin": "margin_loss", "rcnn_box": "rcnn_loss_bbox"}
+
+
+def init_weights(model: AITDetector, seed: int) -> AITDetector:
+    """Fill `model` with random weights from `seed` (`bridge.random_tree`:
+    the port's counterpart of init_params, state.py:39; other values than
+    flax's init) and return it."""
+    model.load_state_dict(bridge.to_state_dict(
+        model, bridge.random_tree(bridge.jax_shapes(model), seed)))
+    return model
 
 
 def grads_and_metrics(model: AITDetector, batch: Dict[str, torch.Tensor],
@@ -84,19 +94,20 @@ def grads_and_metrics(model: AITDetector, batch: Dict[str, torch.Tensor],
 
 def make_train_step(model: AITDetector, optimizer: torch.optim.Optimizer,
                     schedule: Callable[[int], float], *, device=None,
-                    accum_steps: int = 1) -> Callable:
+                    accum_steps: int = 1, start_step: int = 0) -> Callable:
     """Returns train_step(batch, generator) -> metrics.  The model moves to
     `device`: the GPU unless the caller names another.  The generator draws
     the dropout seeds and the anchor and proposal sampling of each step; the
-    schedule gives the base lr of step 0, 1, ..."""
+    schedule gives the base lr of step start_step, start_step + 1, ... (a
+    restored run passes its checkpoint's step, as the JAX package restores
+    `TrainState.step`).  `train_step.step` is the count of steps taken,
+    start_step included."""
     dev = resolve_device(device)
     model.to(dev).train()
     params = [p for g in optimizer.param_groups for p in g["params"]]
-    step = 0
 
     def train_step(batch: Dict[str, torch.Tensor],
                    generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        nonlocal step
         if not isinstance(generator, torch.Generator):
             raise TypeError("train_step needs a torch.Generator for the "
                             "dropout and the target sampling")
@@ -109,11 +120,12 @@ def make_train_step(model: AITDetector, optimizer: torch.optim.Optimizer,
         clip_norm = getattr(optimizer, "clip_norm", None)
         if clip_norm:
             clip_by_global_norm_((p.grad for p in params), clip_norm)
-        set_lr(optimizer, schedule(step))
+        set_lr(optimizer, schedule(train_step.step))
         optimizer.step()
-        step += 1
+        train_step.step += 1
         return metrics
 
+    train_step.step = int(start_step)
     return train_step
 
 

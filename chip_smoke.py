@@ -113,7 +113,29 @@
    losses.  Prints the host loader's ms a batch, the H2D ms a batch from
    pinned and from pageable memory, eval pairs/s end to end from the raw
    arrays, and the two stems' device ms.
-6. Prints the per-kernel JSON line, then the device JSON line last.
+6. The CLI phase (`drive_cli`), on the same devkit, at full width, through
+   the entry points `trainval_net.main(argv, imread=)` and
+   `test_net.main(argv, imread=)`: a checkpoint of the flagship and its SGD
+   momentum saved and restored bit-equal, and the next step on the restored
+   objects bit-equal to the same step on the saved ones; the train CLI (2
+   epochs of 5 steps, a checkpoint every 3) and again with `--r true` to
+   epoch 3, each step with `PER_STEP`'s launches, the resume at epoch
+   latest // steps_per_epoch + 1, finite losses in `metrics.jsonl`; the eval
+   CLI from that run with `--a 2`, per pass and `--fuse_shots`, in bf16 and
+   in f32 (the same pairs; on every fused batch the fused step bit-equal
+   to the per-pair step on shared image features; each pair's detections
+   bit-equal in the two CLIs wherever its image's features are, the
+   protocols running the image backbone at 8 and at 4 images), each
+   forward with `PER_FORWARD`'s launches;
+   `OneShotPredictor.from_run` equal to a predictor on the restored state;
+   res101_ls eval (cfgs/res101_ls.yml: 800x1088, its transpose and the
+   800x1600 bucket, 1000 proposals) with its launches, the kernel path
+   against the plain path on each canvas, its batch latency, device busy
+   time, peak memory and kernels' device ms; 5 res101 train steps; one
+   forward each under t_attn_dist 'division', sk_gate 'fixed' and
+   class_agnostic False (8 box columns), with their launches and the kernel
+   path against the plain path.
+7. Prints the per-kernel JSON line, then the device JSON line last.
 
 Exits non-zero, with no result line, without a CUDA device or outside a
 checkout of the repository.  Imports nothing of JAX or ait_tpu.
@@ -2847,6 +2869,601 @@ def drive_data_path(torch, np, dev, cfg, params, state):
     return paths
 
 
+# ------------------------------------------------------------ CLI phase
+
+# A20's knobs, each one eval forward at full width: the launches per
+# forward of each (division takes the plain attention path, as JAX never
+# fuses it: no attention launch and no projection on csrc/gemm.cu; the
+# class-specific head's 8 columns are refused by the postprocess, so its
+# forward runs without it: one NMS launch)
+A20_KNOBS = {"division": ({"t_attn_dist": "division"},
+                          {**PER_FORWARD, "sh_attention_fwd": 0, "gemm": 0}),
+             "sk_fixed": ({"sk_gate": "fixed"}, PER_FORWARD),
+             "class_specific": ({"class_agnostic": False},
+                                {**PER_FORWARD, "nms_keep_mask": 1})}
+# res101_ls (cfgs/res101_ls.yml): the 800x1088 canvas, its portrait
+# transpose and the 800x1600 bucket of the devkit's 330x600 images, as the
+# loader ships them (space-to-depth)
+LS_CANVASES = {(400, 544, 12), (544, 400, 12), (400, 800, 12)}
+
+
+@contextlib.contextmanager
+def recorded_batches():
+    """Record every batch the eval CLI feeds its step: [(host batch, device
+    image shape)] (test_net._prefetched, which both passes use)."""
+    from ait_tpu_torch.tools import test_net
+
+    orig = test_net._prefetched
+    seen = []
+
+    def rec(batches, dev):
+        for hb, db in orig(batches, dev):
+            seen.append((hb, tuple(db["image"].shape)))
+            yield hb, db
+
+    test_net._prefetched = rec
+    try:
+        yield seen
+    finally:
+        test_net._prefetched = orig
+
+
+def state_diff(torch, a, b):
+    """{key: max |a - b|} over two state dicts (nested optimizer states
+    flattened), after checking they hold the same keys."""
+    out = {}
+
+    def walk(x, y, key):
+        if isinstance(x, dict):
+            if sorted(x, key=str) != sorted(y, key=str):
+                fail(f"checkpoint: keys differ at {key}")
+            for k in x:
+                walk(x[k], y[k], f"{key}/{k}")
+        elif isinstance(x, (list, tuple)):
+            for i, (u, v) in enumerate(zip(x, y)):
+                walk(u, v, f"{key}/{i}")
+        elif isinstance(x, torch.Tensor):
+            out[key] = (x.double() - y.double()).abs().max().item() \
+                if x.numel() else 0.0
+        elif x != y:
+            out[key] = math.inf
+    walk(a, b, "")
+    return out
+
+
+def check_checkpoint(torch, np, dev, root, view, imread):
+    """Save -> restore of the flagship (`Config()`, bf16 compute) and its
+    SGD momentum after one step: the restored model and optimizer state
+    bit-equal to the saved ones, then one more step on each (the same
+    loader batch and step generator, torch's and cuDNN's default algorithms
+    as trainval_net runs them) bit-equal on every leaf.  Returns (save ms,
+    the mean of three restores' ms, bytes)."""
+    from ait_tpu_torch.data import OneShotLoader
+    from ait_tpu_torch.models import AITDetector
+    from ait_tpu_torch.tools.trainval_net import step_generator
+    from ait_tpu_torch.train import (init_weights, lr_schedule,
+                                     make_optimizer, make_train_step)
+    from ait_tpu_torch.train.checkpoint import CheckpointManager
+
+    cfg = train_config()
+    sched = lr_schedule(0.01, 6, 4, 0.1)
+    loader = OneShotLoader(view, cfg, training=True, imread=imread)
+    epoch = loader.train_epoch(B)
+    try:
+        batches = [next(epoch), next(epoch)]
+    finally:
+        epoch.close()
+
+    def fresh():
+        model = AITDetector(cfg, dtype=torch.bfloat16).to(dev)
+        return model, make_optimizer(cfg, model)
+
+    model = init_weights(AITDetector(cfg, dtype=torch.bfloat16),
+                         cfg.RNG_SEED).to(dev)
+    opt = make_optimizer(cfg, model)
+    step = make_train_step(model, opt, sched, device=dev)
+    step(batches[0], step_generator(cfg, 1, 0, dev))
+    mgr = CheckpointManager(os.path.join(root, "ckpt_check"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(step.step, model, opt, metadata={"epoch": 1, "session": 1})
+    save_ms = (time.perf_counter() - t0) * 1e3
+    path = os.path.join(mgr.directory, str(step.step))
+    nbytes = sum(os.path.getsize(os.path.join(path, f))
+                 for f in os.listdir(path))
+    restore_ms = []
+    for _ in range(3):
+        m2, o2 = fresh()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start, meta = mgr.restore(m2, o2)
+        torch.cuda.synchronize()
+        restore_ms.append((time.perf_counter() - t0) * 1e3)
+        bad = {k: v for d in (state_diff(torch, model.state_dict(),
+                                         m2.state_dict()),
+                              state_diff(torch, opt.state_dict(),
+                                         o2.state_dict()))
+               for k, v in d.items() if v != 0}
+        if bad or (start, meta) != (1, {"epoch": 1, "session": 1}):
+            fail(f"checkpoint: restored state differs from the saved one: "
+                 f"{sorted(bad.items())[:10]}, step {start}, meta {meta}")
+    log(f"checkpoint: {len(model.state_dict())} model entries and the SGD "
+        f"momentum of {len(opt.state_dict()['state'])} parameters restored "
+        f"bit-equal ({nbytes} bytes; save {save_ms:.3f} ms, restore "
+        f"{[round(t, 3) for t in restore_ms]} ms)")
+
+    # the last restored copy and the saved objects take the same next step
+    for m, o in ((model, opt), (m2, o2)):
+        fn = make_train_step(m, o, sched, device=dev, start_step=1)
+        met = fn(batches[1], step_generator(cfg, 1, 1, dev))
+        if not all(math.isfinite(float(met[k])) for k in LOSS_KEYS):
+            fail(f"checkpoint: non-finite losses {met}")
+    torch.cuda.synchronize()
+    diffs = {**state_diff(torch, model.state_dict(), m2.state_dict()),
+             **{"opt" + k: v for k, v in state_diff(
+                 torch, opt.state_dict(), o2.state_dict()).items()}}
+    worst = sorted(diffs.items(), key=lambda kv: -kv[1])[:5]
+    log(f"checkpoint: the step after restore vs the same step on the saved "
+        f"objects: max |delta| over {len(diffs)} leaves "
+        f"{max(diffs.values())}; worst {worst}")
+    if any(v != 0 for v in diffs.values()):
+        fail(f"checkpoint: the step after restore differs: {worst}")
+    return save_ms, sum(restore_ms) / len(restore_ms), nbytes
+
+
+def check_cli_dets(np, all_boxes, view):
+    """Every pair's detections: finite [N, 5] rows inside the image, scores
+    in (0, 1], descending."""
+    n = 0
+    for ci, recs in all_boxes.items():
+        for ri, d in recs.items():
+            rec = view.records[ri]
+            if d.ndim != 2 or d.shape[1] != 5 or not np.isfinite(d).all():
+                fail(f"CLI detections of class {ci} in record {ri}: "
+                     f"shape {d.shape} or non-finite")
+            x1, y1, x2, y2, s = d.T
+            if not ((x1 <= x2).all() and (y1 <= y2).all() and
+                    (x1 >= 0).all() and (y1 >= 0).all() and
+                    (x2 <= rec.width).all() and (y2 <= rec.height).all() and
+                    (s > 0).all() and (s <= 1).all() and
+                    (np.diff(s) <= 0).all()):
+                fail(f"CLI detections of class {ci} in record {ri} "
+                     "malformed (box order, bounds, or score order)")
+            n += len(d)
+    return n
+
+
+def eval_cli(torch, np, argv, imread, what, view, per_forward=PER_FORWARD):
+    """test_net.main(argv) with its launches counted; every forward must
+    show per_forward's launches.  Returns (results, the recorded batches,
+    launches, forwards, wall s)."""
+    from ait_tpu_torch.tools import test_net
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    with recorded_batches() as seen:
+        results = test_net.main(argv, imread=imread)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(per_forward, len(seen), "forwards")
+    for r in results:
+        if not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in r.values()):
+            fail(f"{what}: AP out of [0, 1]: {r}")
+    log(f"{what}: {len(seen)} forwards on {sorted({s for _, s in seen})}; "
+        f"launches as expected per forward: {launches}; results {results}; "
+        f"{wall:.2f} s wall")
+    return results, seen, launches, len(seen), wall
+
+
+def read_dets(output_dir, avg):
+    from ait_tpu_torch.data.coco import read_data_pickle
+
+    return read_data_pickle(os.path.join(output_dir,
+                                         f"sess1_seen2_{avg}.pkl"))
+
+
+def compare_shots(np, a, b, feats_equal):
+    """Per-pass against fused detections of one shot: the same pairs, and
+    bit-equal on every pair whose image features the two protocols computed
+    bit-equal (`feats_equal[record]`).  Returns (pairs equal bit for bit,
+    pairs held to that, pairs)."""
+    if sorted(a) != sorted(b) or any(sorted(a[c]) != sorted(b[c]) for c in a):
+        fail("fused eval: other (class, image) pairs than the per-pass eval")
+    same, held, total, bad = 0, 0, 0, []
+    for c in a:
+        for r in a[c]:
+            eq = a[c][r].shape == b[c][r].shape and np.array_equal(a[c][r],
+                                                                   b[c][r])
+            same += int(eq)
+            held += int(feats_equal[r])
+            total += 1
+            if feats_equal[r] and not eq:
+                bad.append((c, r))
+    if bad:
+        fail(f"fused eval: detections differ from the per-pass ones on the "
+             f"(class, record) pairs {bad}, whose image features are "
+             f"bit-equal in the two protocols")
+    return same, held, total
+
+
+def check_fused_protocol(torch, np, dev, cfg, state, dtype, seen_pass,
+                         seen_fused):
+    """The eval CLI's two protocols on the card.  Per pass, the image
+    backbone runs on B pairs' images; fused, on the U = B / A unique images,
+    and everything after it on the same B pair rows.  cuDNN may convolve
+    another batch size in another order, so (1) the image features of each
+    record are recomputed in both protocols' batches and compared, and (2)
+    every fused batch's step is held bit-equal to the per-pair step on the
+    expanded batch with the fused step's own image features.  Returns
+    {record: its image features bit-equal in the two protocols}."""
+    from ait_tpu_torch.models import AITDetector
+    from ait_tpu_torch.models.detector import _to_model_input
+    from ait_tpu_torch.train import make_eval_step, make_fused_eval_step
+
+    model = AITDetector(cfg, dtype=dtype)
+    model.load_state_dict(state)
+    model.to(dev).eval()
+    fused_step, pair_step = make_fused_eval_step(model), make_eval_step(model)
+
+    def feats(seen):
+        out = {}
+        for hb, shape in seen:
+            with torch.inference_mode():
+                f = model.backbone(_to_model_input(
+                    torch.as_tensor(hb["image"]).to(dev), dtype))
+            for i, r in enumerate(hb["record_index"]):
+                out.setdefault(int(r), (shape[1:], f[i]))
+        return out
+
+    fp, ff = feats(seen_pass), feats(seen_fused)
+    equal, gap = {}, {}
+    for r, (canvas, x) in fp.items():
+        y = ff[r][1]
+        equal[r] = bool(torch.equal(x, y))
+        gap[canvas] = max(gap.get(canvas, 0.0),
+                          (x.float() - y.float()).abs().max().item())
+    del fp, ff
+    for hb, shape in seen_fused:
+        batch = {k: torch.as_tensor(hb[k]).to(dev)
+                 for k in ("image", "query", "im_info")}
+        u, a = batch["query"].shape[:2]
+        idx = torch.repeat_interleave(torch.arange(u, device=dev), a)
+        fused = fused_step(batch)
+        with torch.inference_mode():
+            f = model.backbone(_to_model_input(batch["image"], dtype))
+        orig, calls = model.backbone.forward, []
+
+        def backbone(x):
+            calls.append(x.shape[0])
+            return f[idx] if len(calls) == 1 else orig(x)
+
+        model.backbone.forward = backbone
+        try:
+            per = pair_step({
+                "image": batch["image"][idx],
+                "query": batch["query"].reshape((u * a,) +
+                                                batch["query"].shape[2:]),
+                "im_info": batch["im_info"][idx]})
+        finally:
+            del model.backbone.forward
+        diffs = {k: (fused[k].float() - per[k].float()).abs().max().item()
+                 for k in ("rois", "cls_prob", "bbox_pred")}
+        if any(v != 0 for v in diffs.values()) or calls != [u * a, u * a]:
+            fail(f"the fused eval step differs from the per-pair step on "
+                 f"{shape}, {dtype}: {diffs}")
+    log(f"fused eval step vs per-pair step on the expanded batch, the image "
+        f"features shared, {dtype}: bit-equal on all {len(seen_fused)} "
+        f"batches ({sorted({s for _, s in seen_fused})}); image features "
+        f"of the {len(equal)} records, {B} images a batch (per pass) vs "
+        f"{u} (fused): {sum(equal.values())} bit-equal, max |delta| by "
+        f"canvas {gap}")
+    return equal
+
+
+def drive_cli(torch, np, dev):
+    """The train and eval CLIs on the data phase's seeded devkit, at full
+    width, through their entry points (`main(argv, imread=)`).  Returns the
+    launches of each path."""
+    import tempfile
+
+    from ait_tpu_torch.data.voc import filter_seen, load_voc
+    from ait_tpu_torch.models import AITDetector
+    from ait_tpu_torch.predict import OneShotPredictor
+    from ait_tpu_torch.tools import trainval_net
+    from ait_tpu_torch.train import init_weights
+    from ait_tpu_torch.train.checkpoint import CheckpointManager
+
+    t_phase = time.time()
+    paths = {}
+    with tempfile.TemporaryDirectory() as root:
+        devkit, imread = write_devkit(np, os.path.join(root, "VOCdevkit2007"))
+        test = filter_seen(load_voc(devkit, "2007", "test"), 2)
+        train = filter_seen(load_voc(devkit, "2007", "trainval"), 1)
+        save_ms, restore_ms, ckpt_bytes = check_checkpoint(
+            torch, np, dev, root, train, imread)
+
+        # 1. train the flagship, then resume
+        common = ["--dataset", "pascal_voc", "--data_dir", root,
+                  "--save_dir", os.path.join(root, "models")]
+        # lr: Config()'s TRAIN.LEARNING_RATE, as drive_train trains (the
+        # CLI's default 0.01 fine-tunes a pretrained backbone; from random
+        # weights it diverges within 20 steps)
+        interval = 3
+        train_argv = common + ["--net", "res50", "--bs", str(B), "--debug",
+                               "--checkpoint_interval", str(interval),
+                               "--lr", "0.001"]
+        runs = []
+        for extra in (["--epochs", "2"], ["--epochs", "3", "--r", "true"]):
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            res = trainval_net.main(train_argv + extra, imread=imread)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            steps = res["step"] - res["start_step"]
+            launches = read_counts(PER_STEP, steps, "steps")
+            runs.append((res, launches, steps, wall))
+            log(f"CLI train {extra}: {res}; {steps} steps in {wall:.2f} s; "
+                f"launches as expected per step: {launches}")
+        (first, l1, s1, _), (resumed, l2, s2, _) = runs
+        paths["cli_train"] = {k: l1[k] + l2[k] for k in l1}
+        spe = first["steps_per_epoch"]
+        want = (first["step"] // spe + 1, first["step"])
+        if (resumed["start_epoch"], resumed["start_step"]) != want or \
+                first["start_step"] != 0:
+            fail(f"CLI resume: started at (epoch, step) "
+                 f"{(resumed['start_epoch'], resumed['start_step'])}, "
+                 f"expected {want} ({spe} steps an epoch)")
+        run_dir = first["run_dir"]
+        with open(os.path.join(run_dir, "logs", "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        losses = [r for r in rows if "loss" in r]
+        perf = [r for r in rows if "perf/pairs_per_sec" in r]
+        bad = [r for r in losses
+               if not all(math.isfinite(r[k]) for k in LOSS_KEYS)]
+        if len(losses) != s1 + s2 or len(perf) != s1 + s2 or bad:
+            fail(f"CLI train: {len(losses)} loss and {len(perf)} perf rows "
+                 f"for {s1 + s2} displayed steps; non-finite losses {bad}")
+        # the meter's window runs from an epoch's first step (whose display
+        # reads 0) to the display; a save at step k (k % interval == 0)
+        # falls into the windows of the displays after it in that epoch.
+        # Users save every 10000 steps (the default): their rate is that of
+        # the windows without a save
+        free, with_save, s0 = {}, {}, None
+        for r in perf:
+            if r["perf/pairs_per_sec"] == 0:
+                s0 = r["step"]
+            elif any(k % interval == 0 for k in range(s0, r["step"])):
+                with_save[r["step"]] = r["perf/pairs_per_sec"]
+            else:
+                free[r["step"]] = r["perf/pairs_per_sec"]
+        if not free:
+            fail("CLI train: no display window without a save")
+        ckpts = CheckpointManager(os.path.join(run_dir, "ckpt")).all_steps()
+        log(f"CLI train: checkpoints {ckpts}; {len(losses)} metric rows, "
+            f"losses finite (last {losses[-1]}); pairs/s by the CLI's meter, "
+            f"windows without a save {free} (mean "
+            f"{sum(free.values()) / len(free):.2f}); windows holding a save "
+            f"(one every {interval} steps) {with_save}")
+
+        # 2. eval the flagship from that run: per pass, then shot-fused, in
+        # bf16 (the config's compute dtype) and in f32.  After the image
+        # backbone both protocols run the same B pair rows; the image
+        # backbone runs at B images per pass and at B / 2 fused, and cuDNN
+        # may convolve those batch sizes in other orders.  So each pair's
+        # detections must be bit-equal wherever its image's features are,
+        # and the fused step must equal the per-pair step on every batch
+        # once the image features are shared (check_fused_protocol)
+        run_cfg = trainval_net.build_config(trainval_net.parse_args(
+            train_argv))
+        run_model = AITDetector(run_cfg)
+        CheckpointManager(os.path.join(run_dir, "ckpt")).restore(run_model)
+        eval_argv = common + ["--net", "res50", "--bs", str(B), "--a", "2"]
+        f32 = ["--set", "tpu.compute_dtype", "float32"]
+        outs, walls = {}, {}
+        for dt, dtype, extra, per_forward in (
+                ("bf16", torch.bfloat16, [], PER_FORWARD),
+                ("f32", torch.float32, f32,
+                 {**PER_FORWARD, "gemm": 0, "gemm_fma": 3 * ATTN_FWD_GEMM})):
+            launches, seen = None, {}
+            for mode in ("pass", "fused"):
+                out = os.path.join(root, f"out_{mode}_{dt}")
+                flags = ["--output_dir", out] + (
+                    ["--fuse_shots"] if mode == "fused" else []) + extra
+                res, seen[mode], n, _, wall = eval_cli(
+                    torch, np, eval_argv + flags, imread,
+                    f"CLI eval ({dt}, {mode}, --a 2)", test, per_forward)
+                launches = n if launches is None else {
+                    k: launches[k] + n[k] for k in n}
+                outs[dt, mode], walls[dt, mode] = out, wall
+            if dt == "bf16":
+                seen_pass = seen["pass"]
+            paths["cli_eval" if dt == "bf16" else "cli_eval_f32"] = launches
+            feats_equal = check_fused_protocol(
+                torch, np, dev, run_cfg, run_model.state_dict(), dtype,
+                seen["pass"], seen["fused"])
+            for avg in range(2):
+                a = read_dets(outs[dt, "pass"], avg)
+                b = read_dets(outs[dt, "fused"], avg)
+                pairs = sum(len(v) for v in a.values())
+                check_cli_dets(np, a, test)
+                check_cli_dets(np, b, test)
+                same, held, total = compare_shots(np, a, b, feats_equal)
+                log(f"CLI eval {dt} shot {avg}: per-pass vs fused detections "
+                    f"bit-equal on {same} of {total} pairs, among them all "
+                    f"{held} pairs whose image features are bit-equal")
+        pairs *= 2
+        wp, wf = walls["bf16", "pass"], walls["bf16", "fused"]
+        log(f"CLI eval: {pairs} pairs in 2 shots; bf16 per pass {wp:.2f} s "
+            f"({pairs / wp:.2f} pairs/s from raw images, model build and "
+            f"restore included), fused {wf:.2f} s ({pairs / wf:.2f} pairs/s)")
+
+        # from_run against a predictor on the in-memory restored state
+        hb = seen_pass[0][0]
+        req = (hb["image"], hb["query"], hb["im_info"])
+        got = OneShotPredictor.from_run(run_dir).predict_prepared(*req)
+        want = OneShotPredictor(run_cfg, run_model.state_dict(),
+                                device=dev).predict_prepared(*req)
+        if len(got) != len(want) or not all(
+                np.array_equal(x, y) for x, y in zip(got, want)):
+            fail("from_run: detections differ from the restored predictor's")
+        log(f"from_run: {len(got)} pairs' detections equal to the restored "
+            f"predictor's ({sum(len(d) for d in got)} rows)")
+
+        # 3. res101_ls eval at full width (random weights), 5 res101 steps
+        ls_argv = common + ["--net", "res101", "--ls", "--bs", str(B),
+                            "--a", "1", "--version", "ls",
+                            "--output_dir", os.path.join(root, "out_ls")]
+        _, seen_ls, paths["cli_res101_ls_eval"], _, _ = eval_cli(
+            torch, np, ls_argv, imread, "CLI eval res101_ls", test)
+        shapes = {s[1:] for _, s in seen_ls}
+        if shapes != LS_CANVASES or any(s[0] != B for _, s in seen_ls):
+            fail(f"res101_ls: batches {[s for _, s in seen_ls]}, expected "
+                 f"batches of {B} on {sorted(LS_CANVASES)}")
+        check_cli_dets(np, read_dets(os.path.join(root, "out_ls"), 0), test)
+        ls_cfg = trainval_net.build_config(trainval_net.parse_args(
+            ["--net", "res101", "--ls", "--dataset", "pascal_voc"]))
+        if ls_cfg.TEST.RPN_POST_NMS_TOP_N != 1000 or \
+                ls_cfg.model.backbone != "resnet101":
+            fail(f"res101_ls: config {ls_cfg.model.backbone}, "
+                 f"{ls_cfg.TEST.RPN_POST_NMS_TOP_N} proposals")
+        ls_state = init_weights(AITDetector(ls_cfg),
+                                ls_cfg.RNG_SEED).state_dict()
+        firsts = {}
+        for b, s in seen_ls:
+            firsts.setdefault(s, b)
+        for b in firsts.values():
+            compare_paths(torch, np, ls_cfg, ls_state, dev,
+                          (b["image"], b["query"], b["im_info"]))
+        h, w = ls_cfg.tpu.image_size
+        time_res101_ls(torch, np, dev, ls_cfg, ls_state,
+                       firsts[(B, h // 2, w // 2, 12)])
+        r101 = common + ["--net", "res101", "--bs", str(B), "--debug",
+                         "--epochs", "1", "--version", "r101", "--lr",
+                         "0.001"]
+        zero_counts()
+        res = trainval_net.main(r101, imread=imread)
+        steps = res["step"] - res["start_step"]
+        paths["cli_res101_train"] = read_counts(PER_STEP, steps, "steps")
+        log(f"CLI train res101 (cfgs/res101.yml, 608x800): {steps} steps, "
+            f"launches as expected per step")
+
+    # 4. A20's knobs: one eval forward each at full width
+    for name, (knob, per_forward) in A20_KNOBS.items():
+        paths[f"a20_{name}"] = drive_a20(torch, np, dev, name, knob,
+                                         per_forward)
+    log(f"CLI phase: checkpoint save {save_ms:.3f} ms, restore "
+        f"{restore_ms:.3f} ms, {ckpt_bytes} bytes; {time.time() - t_phase:.1f}"
+        " s")
+    return paths
+
+
+def time_res101_ls(torch, np, dev, cfg, state, batch):
+    """res101_ls eval: one batch of B on the 800x1088 canvas, forward and
+    postprocess, bf16: wall ms (synchronized, after a warm-up), device busy
+    ms and the kernels' device ms (torch.profiler), peak memory."""
+    from ait_tpu_torch.evaluation import postprocess_detections
+    from ait_tpu_torch.models import AITDetector
+    from ait_tpu_torch.train import make_eval_step
+
+    model = AITDetector(cfg, dtype=torch.bfloat16)
+    model.load_state_dict(state)
+    model.to(dev).eval()
+    step = make_eval_step(model)
+    dbatch = {k: torch.as_tensor(batch[k]).to(dev)
+              for k in ("image", "query", "im_info")}
+    t = cfg.TEST
+
+    def fwd():
+        out = step(dbatch)
+        return postprocess_detections(
+            out["rois"], out["cls_prob"], out["bbox_pred"],
+            dbatch["im_info"], nms_thresh=t.NMS, score_thresh=0.0,
+            max_per_image=t.MAX_PER_IMAGE,
+            bbox_normalize_means=cfg.TRAIN.BBOX_NORMALIZE_MEANS,
+            bbox_normalize_stds=cfg.TRAIN.BBOX_NORMALIZE_STDS)
+
+    fwd()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        fwd()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    ms = kernels_ms(fwd, iters=5)
+    busy = sum(ms.values())
+    ours = {k: round(v, 4) for k, v in ms.items()
+            if k.split("<")[0] in ("nms_kernel", "sh_attn_core_kernel",
+                                   "tc_gemm_kernel", "ffn_tc_kernel",
+                                   "posln_kernel")}
+    p = B * t.RPN_POST_NMS_TOP_N
+    rows = p * 56 + B * 64               # the two glue calls' rows
+    glue_bound = rows * 512 * 4 / HBM_BYTES_S * 1e3
+    glue = sum(v for k, v in ms.items() if k.startswith("posln_kernel"))
+    log(f"res101_ls eval, a batch of {B} on {tuple(dbatch['image'].shape)} "
+        f"({p} pairs into the transformer): wall ms "
+        f"{[round(w, 3) for w in walls]}, device busy {busy:.3f} ms, peak "
+        f"memory {peak:.2f} GiB; our kernels' device ms a batch {ours}; the "
+        f"glue at {rows} rows: {glue:.4f} ms against its bound "
+        f"{glue_bound:.4f} (bytes): {glue_bound / max(glue, 1e-12):.0%}")
+
+
+def drive_a20(torch, np, dev, name, knob, per_forward):
+    """One eval forward of B requests at full width under one A20 knob,
+    with its launches; then the kernel path against the plain path on 2."""
+    from ait_tpu_torch.models import AITDetector
+    from ait_tpu_torch.train import init_weights, make_eval_step
+
+    cfg = knob_config(knob)
+    state = init_weights(AITDetector(cfg), 0).state_dict()
+    model = AITDetector(cfg, dtype=torch.bfloat16)
+    model.load_state_dict(state)
+    model.to(dev).eval()
+    step = make_eval_step(model)
+    req = make_requests(np, cfg, np.random.RandomState(0), B)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in zip(("image", "query", "im_info"), req)}
+    step(batch)                                      # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    out = step(batch)
+    if name != "class_specific":
+        from ait_tpu_torch.evaluation import postprocess_detections
+
+        t = cfg.TEST
+        dets, valid = postprocess_detections(
+            out["rois"], out["cls_prob"], out["bbox_pred"],
+            batch["im_info"], nms_thresh=t.NMS, score_thresh=0.0,
+            max_per_image=t.MAX_PER_IMAGE,
+            bbox_normalize_means=cfg.TRAIN.BBOX_NORMALIZE_MEANS,
+            bbox_normalize_stds=cfg.TRAIN.BBOX_NORMALIZE_STDS)
+        dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
+        check_dets(np, [d[m] for d, m in zip(dets, valid)], req[2], cfg)
+    torch.cuda.synchronize()
+    launches = read_counts(per_forward, 1, "forwards")
+    width = 8 if name == "class_specific" else 4
+    if tuple(out["bbox_pred"].shape) != (B, cfg.TEST.RPN_POST_NMS_TOP_N,
+                                         width) or \
+            not torch.isfinite(out["bbox_pred"]).all():
+        fail(f"A20 {name}: bbox_pred {tuple(out['bbox_pred'].shape)}")
+    log(f"A20 {name}: one forward of {B} at {cfg.tpu.image_size}, bbox_pred "
+        f"{tuple(out['bbox_pred'].shape)}; launches {launches}")
+    compare_paths(torch, np, cfg, state, dev, req)
+    return launches
+
+
+def knob_config(knob):
+    """Config() with the model fields of `knob` replaced."""
+    from ait_tpu_torch.config import Config
+
+    cfg = Config()
+    return cfg.replace(model=dataclasses.replace(cfg.model, **knob))
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "ait_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository "
@@ -2941,6 +3558,7 @@ def main() -> int:
         compare=False)
     time_coattention(torch, np, dev, cfg, state)
     paths.update(drive_data_path(torch, np, dev, cfg, params, state))
+    paths.update(drive_cli(torch, np, dev))
 
     meta = {"nms_keep_mask": ("ait_tpu_torch/csrc/nms.cu",
                               "ait_tpu/ops/nms_pallas.py:133"),

@@ -96,7 +96,9 @@ def test_importing_the_port_loads_no_jax():
             "ait_tpu_torch.data.voc, ait_tpu_torch.data.coco, "
             "ait_tpu_torch.evaluation.voc_eval, "
             "ait_tpu_torch.evaluation.voc_results, "
-            "ait_tpu_torch.evaluation.coco_eval; "
+            "ait_tpu_torch.evaluation.coco_eval, ait_tpu_torch.convert, "
+            "ait_tpu_torch.utils, ait_tpu_torch.train.checkpoint, "
+            "ait_tpu_torch.tools.trainval_net, ait_tpu_torch.tools.test_net; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'ait_tpu')]; "
             "assert not bad, bad")
