@@ -8,8 +8,9 @@ change of ait_tpu/convert.py inverted:
 * `Conv`: kernel [kh, kw, I, O] -> weight [O, I, kh, kw] (grouped convs
   carry I / groups, e.g. SKNet's [k, k, C/8, C] -> [C, C/8, k, k]);
 * `Dense`: kernel [I, O] -> weight [O, I];
-* `Params` (attention and FFN leaves, which the port computes as x @ w)
-  and `FrozenBatchNorm` {scale, bias, mean, var}: unchanged.
+* `Params` (attention and FFN leaves, which the port computes as x @ w;
+  the GroupNorm's `GroupNorm_0/{scale, bias}`; the GRU/LSTM's w_ih, w_hh,
+  b_ih, b_hh) and `FrozenBatchNorm` {scale, bias, mean, var}: unchanged.
 
 `to_state_dict` fails on any leaf left over on either side or of the wrong
 shape; `to_jax_tree` is the reverse map, with the same refusals, from the
@@ -175,15 +176,22 @@ def random_tree(shapes: dict, seed: int) -> dict:
     """A JAX-layout param tree of float32 numpy arrays from `seed`.
 
     Kernels are normal with variance 1 / fan-in, biases small normals,
-    LayerNorm and FrozenBN scales near 1, BN means near 0 and variances in
-    [0.5, 1.5], so activations stay finite through the full-width model."""
+    LayerNorm, GroupNorm and FrozenBN scales near 1, BN means near 0 and
+    variances in [0.5, 1.5], so activations stay finite through the
+    full-width model; the contextual relation's GRU/LSTM leaves (w_ih,
+    w_hh, b_ih, b_hh) uniform in +-1/sqrt(hidden), as `_RNNDirection`
+    draws them (hidden = w_hh's first dimension)."""
     rng = np.random.default_rng(seed)
     flat = _flatten(shapes)
     out = {}
     for path in sorted(flat):
         shape = tuple(flat[path])
         leaf = path[-1]
-        if leaf == "kernel":
+        if leaf in ("w_ih", "w_hh", "b_ih", "b_hh"):
+            hidden = flat[path[:-1] + ("w_hh",)][0]
+            k = 1.0 / np.sqrt(hidden)
+            a = rng.uniform(-k, k, shape)
+        elif leaf == "kernel":
             fan_in = math.prod(shape[:-1])
             a = rng.standard_normal(shape, np.float32) / np.sqrt(fan_in)
         elif leaf == "scale":

@@ -22,9 +22,13 @@ trainval_net_voc.py:153-176):
     roidb.py:91-128) with the reference's EXACT deterministic query-shot
     selection: `random.seed(img_id)`, shuffle, pick `query_position`-th
     (roibatchLoader.py:299-307) — needed for shot-averaged AP parity;
-  * a background thread + worker pool replaces the 8 DataLoader worker
-    processes; batches land as ready numpy arrays (data/prefetch.py copies
-    them to the device);
+  * a background thread replaces the 8 DataLoader worker processes: with
+    uint8 inputs (`tpu.input_uint8`, the default) it hands each batch's
+    pixel work to the C++ threads of ait_tpu_torch/native.py (the native
+    route: flip, scale, canvas, space-to-depth and the query crops, no
+    interpreter lock held), otherwise to a Python worker pool running the
+    numpy transforms; both routes give the same bytes, and batches land as
+    ready numpy arrays (data/prefetch.py copies them to the device);
   * the rng-bearing sampling draws from the same generators in the same
     order as the JAX package's loader, so the metadata is bit-identical to
     it and the pixels are those of cv2's resize (transforms.resize_linear);
@@ -42,9 +46,10 @@ from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from ait_tpu_torch import native
 from ait_tpu_torch.config import Config
 from ait_tpu_torch.data.records import DatasetView
-from ait_tpu_torch.data.transforms import (crop_query, normalize,
+from ait_tpu_torch.data.transforms import (CANVAS_FILL, crop_query, normalize,
                                            place_on_canvas, prep_image,
                                            space_to_depth, to_rgb3)
 
@@ -250,14 +255,20 @@ class OneShotLoader:
         self.rng.shuffle(order)
         return rec, exemplar, flip, boxes[ok][order], labels[ok][order]
 
-    def _train_prepared(self, draws) -> Dict[str, np.ndarray]:
-        rec, exemplar, flip, boxes, labels = draws
-        query = self._prep_query(exemplar, flip=flip)
-        image, h, w, scale = self._prep_image(rec)
+    def _gt_rows(self, boxes, labels, scale: float):
+        """(gt [max_gt, 5] float32 zero-padded, count) of a train item's
+        drawn boxes at the image's scale."""
         gt = np.concatenate([boxes * scale, labels[:, None]], axis=1)
         n = min(len(gt), self.max_gt)
         gt_pad = np.zeros((self.max_gt, 5), np.float32)
         gt_pad[:n] = gt[:n]
+        return gt_pad, n
+
+    def _train_prepared(self, draws) -> Dict[str, np.ndarray]:
+        rec, exemplar, flip, boxes, labels = draws
+        query = self._prep_query(exemplar, flip=flip)
+        image, h, w, scale = self._prep_image(rec)
+        gt_pad, n = self._gt_rows(boxes, labels, scale)
         return {
             "image": image,
             "query": query,
@@ -269,12 +280,18 @@ class OneShotLoader:
     def train_item(self, index: int) -> Dict[str, np.ndarray]:
         return self._train_prepared(self._train_draws(index))
 
-    def test_item(self, pair_index: int) -> Dict[str, np.ndarray]:
+    def _test_exemplar(self, pair_index: int):
+        """(record, exemplar) of an eval pair: the query shot at
+        query_position of the pair's seed-by-img-id order."""
         rec_idx, cls = self.pairs[pair_index]
         rec = self.view.records[rec_idx]
         pool = self.view.cat_data[cls]
         order = _shot_order(rec.img_id, len(pool))
-        exemplar = pool[order[self.query_position % len(order)]]
+        return rec, pool[order[self.query_position % len(order)]]
+
+    def test_item(self, pair_index: int) -> Dict[str, np.ndarray]:
+        rec_idx, cls = self.pairs[pair_index]
+        rec, exemplar = self._test_exemplar(pair_index)
         query = self._prep_query(exemplar, flip=False)
 
         image, h, w, scale = self._prep_image(rec)
@@ -336,6 +353,69 @@ class OneShotLoader:
             batches, lambda pi: self.fused_item(pi, shots),
             num_workers, prefetch)
 
+    # ---------------- the native route (C++ threads) -------------------
+    def _use_native(self) -> bool:
+        """Whether the epochs take the native route: uint8 inputs, as in
+        the JAX package (float inputs are normalized on the host, by the
+        numpy route).  Builds the C++ library at the first call; a failed
+        build raises."""
+        return self.uint8 and native.available()
+
+    def _native_targets(self, recs, n_threads: int):
+        """(canvases, info [N, 3] float32, scales [N] float64) of a
+        canvas-homogeneous batch's records, as _prep_image makes them."""
+        images = [self._read(r.image_path) for r in recs]
+        target = (self.cfg.TRAIN.SCALES if self.training
+                  else self.cfg.TEST.SCALES)[0]
+        return native.prep_targets(
+            images, np.array([r.flipped for r in recs], np.uint8), target,
+            self._canvas_for(recs[0]), np.array(CANVAS_FILL, np.uint8),
+            n_threads, s2d=self.host_s2d)
+
+    def _native_queries(self, exemplars, flips, n_threads: int):
+        """[N, q, q, 3] uint8: the exemplars' crops, as _prep_query makes
+        them."""
+        return native.prep_queries(
+            [self._read(e.image_path) for e in exemplars],
+            [e.box for e in exemplars], np.array(flips, np.uint8),
+            self.query_size, n_threads)
+
+    def _train_batch_native(self, idxs, n_threads: int):
+        """A train batch on the native route; the draws in order first, as
+        on the numpy route, so its metadata is the same."""
+        draws = [self._train_draws(i) for i in idxs]
+        queries = self._native_queries([d[1] for d in draws],
+                                       [d[2] for d in draws], n_threads)
+        canvases, info, scales = self._native_targets(
+            [d[0] for d in draws], n_threads)
+        gts = [self._gt_rows(d[3], d[4], float(s))
+               for d, s in zip(draws, scales)]
+        return {
+            "image": canvases,
+            "query": queries,
+            "im_info": info,
+            "gt_boxes": np.stack([g for g, _ in gts]),
+            "num_boxes": np.array([n for _, n in gts], np.int32),
+        }
+
+    def _test_batch_native(self, idxs, n_threads: int):
+        """An eval batch on the native route."""
+        recs, exemplars = zip(*(self._test_exemplar(i) for i in idxs))
+        queries = self._native_queries(exemplars, [False] * len(idxs),
+                                       n_threads)
+        canvases, info, _ = self._native_targets(recs, n_threads)
+        pairs = [self.pairs[i] for i in idxs]
+        return {
+            "image": canvases,
+            "query": queries,
+            "im_info": info,
+            "gt_boxes": np.zeros((len(idxs), self.max_gt, 5), np.float32),
+            "num_boxes": np.zeros(len(idxs), np.int32),
+            "pair_index": np.array(idxs, np.int32),
+            "record_index": np.array([ri for ri, _ in pairs], np.int32),
+            "category": np.array([c for _, c in pairs], np.int32),
+        }
+
     # ------------------------------------------------------------------
     def _collate(self, items: List[Dict[str, np.ndarray]]):
         return {k: np.stack([it[k] for it in items]) for k in items[0]}
@@ -380,7 +460,8 @@ class OneShotLoader:
         self.order_rng.shuffle(batches)
         yield from self._pipeline(
             self._host_shard(batches, batch_size), self._train_prepared,
-            num_workers, prefetch, draw=self._train_draws)
+            num_workers, prefetch, draw=self._train_draws,
+            batch_fn=self._train_batch_native if self._use_native() else None)
 
     def test_epoch(self, batch_size: int, *, num_workers: int = 8,
                    prefetch: int = 4) -> Iterator[Dict[str, np.ndarray]]:
@@ -400,12 +481,16 @@ class OneShotLoader:
                            for i in range(0, len(group), batch_size))
         yield from self._pipeline(
             self._host_shard(batches, batch_size), self.test_item,
-            num_workers, prefetch)
+            num_workers, prefetch,
+            batch_fn=self._test_batch_native if self._use_native() else None)
 
-    def _pipeline(self, batches, item_fn, num_workers, prefetch, draw=None):
+    def _pipeline(self, batches, item_fn, num_workers, prefetch, draw=None,
+                  batch_fn=None):
         """Collated batches of item_fn(draw(i)) (draw: the identity by
         default) over each batch's indices: the draws in order on one
-        thread, item_fn on `num_workers` threads."""
+        thread, item_fn on `num_workers` threads; or, on the native route,
+        batch_fn(indices, num_workers), which draws in order and runs the
+        pixel work on that many C++ threads (no Python pool)."""
         if not batches:
             return
         num_workers = max(1, num_workers)   # 0 = synchronous single worker
@@ -423,21 +508,30 @@ class OneShotLoader:
                     pass
             return False
 
+        pool = (ThreadPoolExecutor(num_workers) if batch_fn is None
+                else None)
+
+        def make(idxs):
+            if pool is None:
+                return batch_fn(idxs, num_workers)
+            if draw is not None:
+                idxs = [draw(i) for i in idxs]
+            return self._collate(list(pool.map(item_fn, idxs)))
+
         def producer():
             # any producer failure must reach the consumer — a dead
             # producer with an empty queue deadlocks q.get() forever
             try:
-                with ThreadPoolExecutor(num_workers) as pool:
-                    for idxs in batches:
-                        if draw is not None:
-                            idxs = [draw(i) for i in idxs]
-                        if stop.is_set() or not put(
-                                self._collate(list(pool.map(item_fn, idxs)))):
-                            return
+                for idxs in batches:
+                    if stop.is_set() or not put(make(idxs)):
+                        return
             except BaseException as e:  # noqa: BLE001
                 put(e)
             else:
                 put(None)
+            finally:
+                if pool is not None:
+                    pool.shutdown()
 
         t = threading.Thread(target=producer, daemon=True)
         t.start()

@@ -18,9 +18,11 @@ protocol:
 `summarize(class_index=...)` restricts the AP/AR means to the one-shot
 split's classes exactly like customCOCOeval (coco.py:485-498).
 
-The two inner loops (pairwise IoU-with-crowd and greedy matching) are the
-JAX package's numpy versions (it sends them to its native C++ library when
-that is built, with the same results).
+The two inner loops (pairwise IoU-with-crowd and greedy matching) run in
+the port's C++ (ait_tpu_torch/native.py, csrc/ait_native.cpp), as the JAX
+package sends them to its native library; `bbox_iou_xywh_reference` and
+`greedy_match_reference` are the JAX package's numpy versions, which the
+C++ equals bit for bit.
 """
 
 from __future__ import annotations
@@ -30,9 +32,26 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ait_tpu_torch import native
+
 
 def bbox_iou_xywh(dt: np.ndarray, gt: np.ndarray,
                   iscrowd: np.ndarray) -> np.ndarray:
+    """Pairwise IoU of xywh boxes; crowd gt uses union = det area (the C++
+    loop)."""
+    return native.bbox_iou_xywh(dt, gt, iscrowd)
+
+
+def greedy_match(ious: np.ndarray, gt_ignore: np.ndarray,
+                 iscrowd: np.ndarray, thrs: np.ndarray):
+    """Per-threshold greedy matching (the C++ loop): ious [D, G] with gt
+    sorted ignore-last; returns (dtm [T, D] matched gt index + 1 or 0,
+    dt_ignore [T, D])."""
+    return native.greedy_match(ious, gt_ignore, iscrowd, thrs)
+
+
+def bbox_iou_xywh_reference(dt: np.ndarray, gt: np.ndarray,
+                            iscrowd: np.ndarray) -> np.ndarray:
     """Pairwise IoU of xywh boxes; crowd gt uses union = det area.
 
     The COCO convention (no +1): inter uses raw widths/heights.
@@ -54,8 +73,8 @@ def bbox_iou_xywh(dt: np.ndarray, gt: np.ndarray,
     return np.where(union > 0, inter / np.maximum(union, 1e-12), 0.0)
 
 
-def greedy_match(ious: np.ndarray, gt_ignore: np.ndarray,
-                 iscrowd: np.ndarray, thrs: np.ndarray):
+def greedy_match_reference(ious: np.ndarray, gt_ignore: np.ndarray,
+                           iscrowd: np.ndarray, thrs: np.ndarray):
     """Per-threshold greedy matching (cocoeval evaluateImg inner loop).
 
     ious: [D, G] with gt already sorted ignore-last; returns

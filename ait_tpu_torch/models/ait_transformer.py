@@ -126,6 +126,11 @@ class AITTransformer(nn.Module):
 
         n_s, n_t = src.shape[1], trg.shape[1]
         n_enc = min(n_t, -(-n_s // 8) * 8)
+        if n_enc < n_s:
+            # the JAX package's pad fails here too (a negative pad width);
+            # torch's would crop the encoder's tokens without a word
+            raise ValueError(f"the query grid's {n_t} tokens are fewer than "
+                             f"a roi's {n_s}: the encoder would drop tokens")
         src = torch.nn.functional.pad(src, (0, 0, 0, n_enc - n_s))
         dev = src.device
         src_mask = (torch.arange(n_enc, device=dev) < n_s)[None, None, :]

@@ -1,9 +1,15 @@
 """The one-shot detector (counterpart of ait_tpu/models/detector.py::
 AITDetector).
 
-Siamese ResNet backbone -> MHA co-attention -> RPN -> proposal layer (NMS
-kernel) -> ROI Align -> AIT transformer (attention, FFN and glue kernels)
--> SKNet -> ResNet layer4 top -> match and box heads.
+Siamese backbone (ResNet, or VGG16 with `model.backbone` "vgg16") ->
+co-attention (MHA, the VOC flavor, or the COCO non-local one with
+`model.coattention` "nonlocal") -> RPN -> proposal layer (NMS kernel) ->
+ROI Align (or ROI pool, `POOLING_MODE` "pool") -> AIT transformer
+(attention, FFN and glue kernels) -> SKNet -> top (ResNet layer4, or
+VGG16's fc6/fc7, 4096 wide) -> match and box heads.  With
+`model.with_contextual_relation` (ResNet only) the query's stage features
+give a per-channel gate (`ContextualRelation`) that scales both head
+vectors.
 
 Inputs are NHWC: image [B, H, W, 3] (a padded canvas, true extent in
 im_info) or, as the loader ships it with `tpu.host_s2d`, its space-to-depth
@@ -21,7 +27,9 @@ Dropout at model.t_dropout (the co-attention's two attentions, and every
 glue, attention and FFN of the transformer, inside their kernels) draws from
 the same generator: one `Dropout` (models/dropout.py) goes down the forward,
 and the sites draw their seeds from it in call order (co-attention, then,
-after the target sampling, the transformer).  Eval draws nothing.
+after the target sampling, the transformer, then VGG16's top, whose two
+dropouts run at 0.5 in training whatever model.t_dropout is).  Eval draws
+nothing.
 """
 
 from __future__ import annotations
@@ -34,15 +42,19 @@ from torch import nn
 from ait_tpu_torch.config import Config
 from ait_tpu_torch.models import losses as L
 from ait_tpu_torch.models.ait_transformer import AITTransformer
-from ait_tpu_torch.models.coattention import MHACoAttention
+from ait_tpu_torch.models.coattention import (MHACoAttention,
+                                              NonLocalCoAttention)
 from ait_tpu_torch.models.dropout import Dropout
 from ait_tpu_torch.models.layers import Dense
-from ait_tpu_torch.models.resnet import STAGES, ResNetBackbone, ResNetTop
+from ait_tpu_torch.models.resnet import (STAGES, ContextualRelation,
+                                         ResNetBackbone, ResNetTop)
 from ait_tpu_torch.models.rpn import RPNHead, proposal_layer
 from ait_tpu_torch.models.sknet import SKNet
 from ait_tpu_torch.models.targets import anchor_targets, proposal_targets
+from ait_tpu_torch.models.vgg import VGGBackbone, VGGTop
 from ait_tpu_torch.ops.anchors import shifted_anchors
 from ait_tpu_torch.ops.roi_align import roi_align
+from ait_tpu_torch.ops.roi_pool import roi_pool
 
 # torchvision normalization constants (blob.py:42-48), applied on the
 # device to uint8 inputs (data/transforms.py holds them for the host)
@@ -81,19 +93,25 @@ class DetectorOut(NamedTuple):
 
 
 def _check_supported(cfg: Config) -> None:
-    mc = cfg.model
-    unsupported = {
-        "model.backbone": mc.backbone not in STAGES,
-        "model.coattention": mc.coattention != "mha",
-        "model.with_contextual_relation": mc.with_contextual_relation,
-        "POOLING_MODE": cfg.POOLING_MODE != "align",
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
+    """The model paths the port refuses: the parallel families (ROADMAP
+    A15), and values no detector takes."""
+    parallel = [k for k in ("tp_size", "sp_size")
+                if getattr(cfg.tpu, k) > 1]
+    if parallel:
         raise NotImplementedError(
-            f"not ported yet: {', '.join(bad)} (ROADMAP A14: VGG16, the "
-            "non-local co-attention, the contextual relation and ROI pool; "
-            "the port covers the ResNet + MHA co-attention detectors)")
+            f"tpu.{', tpu.'.join(parallel)} > 1: the parallel families "
+            "(tensor and sequence parallelism) are not ported yet (ROADMAP "
+            "A15)")
+    mc = cfg.model
+    if mc.backbone not in STAGES and mc.backbone != "vgg16":
+        raise ValueError(f"model.backbone {mc.backbone}")
+    if mc.coattention not in ("mha", "nonlocal"):
+        raise ValueError(f"model.coattention {mc.coattention}")
+    if cfg.POOLING_MODE not in ("align", "pool"):
+        raise ValueError(f"POOLING_MODE {cfg.POOLING_MODE}")
+    if mc.with_contextual_relation and mc.backbone not in STAGES:
+        raise ValueError("the contextual relation needs stage taps: ResNet "
+                         "backbones only (as the reference)")
 
 
 class AITDetector(nn.Module):
@@ -104,10 +122,23 @@ class AITDetector(nn.Module):
         self.dtype = dtype
         mc = cfg.model
         ch = mc.channels
-        self.backbone = ResNetBackbone(mc.backbone, dtype=dtype)
-        self.top = ResNetTop(mc.backbone, dtype=dtype)
-        self.coattention = MHACoAttention(ch, mc.t_n_head, mc.t_d_k,
-                                          mc.t_d_v, dtype=dtype)
+        if mc.backbone == "vgg16":
+            self.backbone = VGGBackbone(dtype=dtype)
+            # fc6 flattens the transformer's output, the query's feature
+            # grid (query_size / 16 a side) at `channels`
+            side = cfg.TRAIN.query_size // cfg.FEAT_STRIDE[0]
+            self.top = VGGTop(side * side * ch, dtype=dtype)
+            top_dim = 4096
+        else:
+            self.backbone = ResNetBackbone(mc.backbone, dtype=dtype)
+            self.top = ResNetTop(mc.backbone, dtype=dtype)
+            top_dim = 2048
+        if mc.coattention == "nonlocal":
+            self.coattention = NonLocalCoAttention(
+                ch, mc.coatt_normalization, dtype=dtype)
+        else:
+            self.coattention = MHACoAttention(ch, mc.t_n_head, mc.t_d_k,
+                                              mc.t_d_v, dtype=dtype)
         self.rpn = RPNHead(ch, len(cfg.ANCHOR_SCALES) *
                            len(cfg.ANCHOR_RATIOS), dtype=dtype)
         self.transformer = AITTransformer(
@@ -117,10 +148,16 @@ class AITDetector(nn.Module):
             causal_mask=mc.t_causal_mask, dist=mc.t_attn_dist, channels=ch,
             dec_prefix_per_image=cfg.tpu.dec_prefix_per_image, dtype=dtype)
         self.sk = SKNet(ch, gate=mc.sk_gate, dtype=dtype)
-        self.cls_score_0 = Dense(2 * 2048, 8, dtype=dtype)
+        if mc.with_contextual_relation:
+            self.contextual = ContextualRelation(
+                channels=2048, reduction=mc.rnn_reduction,
+                rnn_layers=mc.rnn_layers, bidirectional=mc.rnn_bidirectional,
+                method=mc.rnn_method, dtype=dtype)
+        # the heads take the top's width: 2048 (ResNet), 4096 (VGG16)
+        self.cls_score_0 = Dense(2 * top_dim, 8, dtype=dtype)
         self.cls_score_1 = Dense(8, 2, dtype=dtype)
         # class-specific regression: a box for background and foreground
-        self.bbox_pred_head = Dense(2048, 4 if mc.class_agnostic else 8,
+        self.bbox_pred_head = Dense(top_dim, 4 if mc.class_agnostic else 8,
                                     dtype=dtype)
 
     def forward(self, image, query, im_info, gt_boxes=None, num_boxes=None,
@@ -157,7 +194,13 @@ class AITDetector(nn.Module):
         image_feat = self.backbone(_to_model_input(image, self.dtype))
         if pair_image_idx is not None:
             image_feat = image_feat[pair_image_idx]
-        query_feat = self.backbone(_to_model_input(query, self.dtype))
+        query_scale = None
+        if c.model.with_contextual_relation:
+            query_feat, stages = self.backbone(
+                _to_model_input(query, self.dtype), return_stages=True)
+            query_scale = self.contextual(stages)        # [B, 2048] f32
+        else:
+            query_feat = self.backbone(_to_model_input(query, self.dtype))
         non_img, non_qry = self.coattention(image_feat, query_feat, drop)
 
         rpn_out = self.rpn(non_img)
@@ -172,7 +215,7 @@ class AITDetector(nn.Module):
             post_nms_topk=tc.RPN_POST_NMS_TOP_N,
             nms_thresh=tc.RPN_NMS_THRESH)
         if not train:
-            return self.head(non_img, non_qry, rois)
+            return self.head(non_img, non_qry, rois, query_scale)
 
         t = c.TRAIN
         at = anchor_targets(
@@ -198,7 +241,7 @@ class AITDetector(nn.Module):
             bbox_normalize_stds=t.BBOX_NORMALIZE_STDS,
             bbox_inside_weights=t.BBOX_INSIDE_WEIGHTS, generator=generator)
         score, score_prob, bbox_pred = self._head(non_img, non_qry, pt.rois,
-                                                  drop)
+                                                  query_scale, drop)
         labels = pt.labels
         rcnn_loss_cls = L.masked_cross_entropy(
             score.reshape(-1, 2), labels.reshape(-1),
@@ -215,20 +258,36 @@ class AITDetector(nn.Module):
                            rpn_loss_box, rcnn_loss_cls, margin_loss,
                            rcnn_loss_bbox, labels)
 
-    def _head(self, non_img, non_qry, rois, drop=None):
+    def _head(self, non_img, non_qry, rois, query_scale=None, drop=None):
         """(match logits [B, R, 2] f32, match probability [B, R] f32,
-        bbox_pred [B*R, 4 or 8] f32); drop: the training forward's dropout."""
+        bbox_pred [B*R, 4 or 8] f32); query_scale: the contextual gate
+        [B, 2048] f32 or None; drop: the training forward's dropout."""
         c = self.cfg
         b, num_props = rois.shape[0], rois.shape[1]
-        props = roi_align(non_img, rois[..., 1:5], out_size=c.POOLING_SIZE,
-                          spatial_scale=1.0 / c.FEAT_STRIDE[0],
-                          sampling_ratio=c.tpu.roi_sampling_ratio)
+        if c.POOLING_MODE == "pool":
+            props = roi_pool(non_img, rois[..., 1:5], out_size=c.POOLING_SIZE,
+                             spatial_scale=1.0 / c.FEAT_STRIDE[0])
+        else:
+            props = roi_align(non_img, rois[..., 1:5],
+                              out_size=c.POOLING_SIZE,
+                              spatial_scale=1.0 / c.FEAT_STRIDE[0],
+                              sampling_ratio=c.tpu.roi_sampling_ratio)
         props = props.reshape((b * num_props,) + props.shape[2:])
 
         props = self.transformer(props, non_qry, drop)
         props, qfeat = self.sk(props, non_qry)
-        props_vec = self.top(props)                       # [B*R, 2048]
-        query_vec = self.top(qfeat)                       # [B, 2048]
+        if isinstance(self.top, VGGTop):
+            props_vec = self.top(props, drop)             # [B*R, 4096]
+            query_vec = self.top(qfeat, drop)             # [B, 4096]
+        else:
+            props_vec = self.top(props)                   # [B*R, 2048]
+            query_vec = self.top(qfeat)                   # [B, 2048]
+        if query_scale is not None:
+            # both streams scaled by the query's gate (detector.py:253-260)
+            s = query_scale.to(props_vec.dtype)
+            props_vec = (props_vec.reshape(b, num_props, -1) *
+                         s[:, None, :]).reshape(props_vec.shape)
+            query_vec = query_vec * s
 
         bbox_pred = self.bbox_pred_head(props_vec).float()
         d = props_vec.shape[-1]
@@ -238,10 +297,12 @@ class AITDetector(nn.Module):
         score = self.cls_score_1(self.cls_score_0(stack)).float()
         return score, torch.softmax(score, dim=-1)[..., 1], bbox_pred
 
-    def head(self, non_img, non_qry, rois) -> DetectorOut:
-        """ROI Align -> AIT transformer -> SKNet -> top -> match/box heads,
-        from the co-attended features and the proposal layer's rois."""
+    def head(self, non_img, non_qry, rois, query_scale=None) -> DetectorOut:
+        """ROI Align (or pool) -> AIT transformer -> SKNet -> top ->
+        match/box heads, from the co-attended features, the proposal
+        layer's rois and, with the contextual relation, the query's gate."""
         b, num_props = rois.shape[0], rois.shape[1]
-        _, score_prob, bbox_pred = self._head(non_img, non_qry, rois)
+        _, score_prob, bbox_pred = self._head(non_img, non_qry, rois,
+                                              query_scale)
         return DetectorOut(rois, score_prob.reshape(b, num_props, 1),
                            bbox_pred.reshape(b, num_props, -1))

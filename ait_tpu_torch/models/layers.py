@@ -65,10 +65,19 @@ class Dense(nn.Module):
                         self.bias.to(self.dtype))
 
 
+# The eval-time program of models.resnet.fold_frozen_bn (counterpart of
+# ait_tpu/models/layers.py:21): with each BN's scale folded into its conv's
+# kernel, every FrozenBatchNorm's w is 1, so with this set it adds only its
+# bias.  Off by default, as in JAX; never set it with unfolded weights (the
+# scale would be ignored).
+BN_BIAS_ONLY = False
+
+
 class FrozenBatchNorm(nn.Module):
     """BatchNorm frozen for the whole run: a constant per-channel affine on
     NCHW tensors, x * w + b with w = scale * rsqrt(var + eps) and
-    b = bias - mean * w computed in f32, then cast to x's dtype."""
+    b = bias - mean * w computed in f32, then cast to x's dtype (x + b
+    under BN_BIAS_ONLY)."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -80,8 +89,37 @@ class FrozenBatchNorm(nn.Module):
     def forward(self, x):
         w = self.scale * torch.rsqrt(self.var + self.eps)
         b = self.bias - self.mean * w
+        if BN_BIAS_ONLY:
+            return x + b.to(x.dtype)[None, :, None, None]
         return (x * w.to(x.dtype)[None, :, None, None] +
                 b.to(x.dtype)[None, :, None, None])
+
+
+class ZeroInitGroupNorm(nn.Module):
+    """flax's GroupNorm as the non-local co-attention uses it
+    (ait_tpu/models/layers.py:101-119): 32 groups over the channels of an
+    NHWC tensor, eps 1e-5, statistics in f32 (var = E[x^2] - E[x]^2,
+    clipped at 0), the affine (scale, bias, zero-initialised so the residual
+    branch starts as the identity) in f32.  Like flax, the output is f32
+    whatever x's dtype.  The params sit under `GroupNorm_0`, flax's path."""
+
+    groups, eps = 32, 1e-5
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.GroupNorm_0 = Params(scale=(features,), bias=(features,))
+
+    def forward(self, x):
+        *lead, c = x.shape
+        g = x.float().reshape(lead[0], -1, self.groups, c // self.groups)
+        mean = g.mean(dim=(1, 3), keepdim=True)
+        var = ((g * g).mean(dim=(1, 3), keepdim=True) -
+               mean * mean).clamp_min(0.0)
+        p = self.GroupNorm_0
+        mul = torch.rsqrt(var + self.eps) * p.scale.reshape(
+            self.groups, c // self.groups)
+        y = (g - mean) * mul + p.bias.reshape(self.groups, c // self.groups)
+        return y.reshape(*lead, c)
 
 
 def max_pool_ceil(x, window: int, stride: int):

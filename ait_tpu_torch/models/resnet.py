@@ -14,16 +14,22 @@ convolution regrouped, as the JAX package runs it (resnet.py:110-118): the
 
 Public functions take and return NHWC tensors; inside, the convolutions run
 NCHW-shaped in the channels_last memory format.
+
+Also here: `ContextualRelation`, the optional GRU/LSTM branch over the
+query's stage features (resnet.py:149-238), and `fold_frozen_bn`, the
+eval-time fold of every FrozenBN into its conv (resnet.py:264-304).
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ait_tpu_torch.models.layers import (Conv, FrozenBatchNorm, max_pool_ceil,
-                                         to_nchw, to_nhwc)
+from ait_tpu_torch.models.layers import (Conv, Dense, FrozenBatchNorm, Params,
+                                         max_pool_ceil, to_nchw, to_nhwc)
 
 # blocks per stage of each variant (ait_tpu/models/resnet.py:34-38)
 STAGES = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3),
@@ -111,13 +117,99 @@ class ResNetBackbone(nn.Module):
         w4 = s2d_stem_weight(conv.weight).to(conv.dtype)
         return F.conv2d(F.pad(x.to(conv.dtype), (2, 1, 2, 1)), w4)
 
-    def forward(self, x):
+    def forward(self, x, return_stages: bool = False):
         """[B, H, W, 3], or its space-to-depth form [B, H/2, W/2, 12], ->
-        [B, H/16, W/16, 1024]."""
+        [B, H/16, W/16, 1024]; with return_stages also (layer1, layer2,
+        layer3)'s outputs, NHWC."""
         x = torch.relu(self.bn1(self.stem(to_nchw(x))))
         x = max_pool_ceil(x, 3, 2)
-        x = self.layer3(self.layer2(self.layer1(x)))
-        return to_nhwc(x)
+        x1 = self.layer1(x)
+        x2 = self.layer2(x1)
+        x3 = to_nhwc(self.layer3(x2))
+        if return_stages:
+            return x3, (to_nhwc(x1), to_nhwc(x2), x3)
+        return x3
+
+
+class _RNNDirection(Params):
+    """One direction of a torch-layout GRU (gates r, z, n) or LSTM (i, f, g,
+    o) over a short sequence, float32 (resnet.py:149-195); the leaves in the
+    JAX layout: w_ih [D, G*H], w_hh [H, G*H], b_ih, b_hh [G*H]."""
+
+    def __init__(self, d: int, hidden: int, method: str = "GRU",
+                 reverse: bool = False):
+        g = 3 if method == "GRU" else 4
+        super().__init__(w_ih=(d, g * hidden), w_hh=(hidden, g * hidden),
+                         b_ih=(g * hidden,), b_hh=(g * hidden,))
+        if method not in ("GRU", "LSTM"):
+            raise ValueError(f"rnn method {method}")
+        self.hidden, self.method, self.reverse = hidden, method, reverse
+
+    def forward(self, xs):                        # [B, S, D] float32
+        b, steps = xs.shape[0], xs.shape[1]
+        h = xs.new_zeros(b, self.hidden)
+        c = xs.new_zeros(b, self.hidden)
+        outs = [None] * steps
+        order = range(steps - 1, -1, -1) if self.reverse else range(steps)
+        for t in order:
+            gi = xs[:, t, :] @ self.w_ih + self.b_ih
+            gh = h @ self.w_hh + self.b_hh
+            if self.method == "GRU":
+                ir, iz, in_ = gi.chunk(3, dim=-1)
+                hr, hz, hn = gh.chunk(3, dim=-1)
+                r = torch.sigmoid(ir + hr)
+                z = torch.sigmoid(iz + hz)
+                n = torch.tanh(in_ + r * hn)
+                h = (1.0 - z) * n + z * h
+            else:
+                i, f, g_, o = (gi + gh).chunk(4, dim=-1)
+                c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g_)
+                h = torch.sigmoid(o) * torch.tanh(c)
+            outs[t] = h
+        return torch.stack(outs, dim=1)           # [B, S, H]
+
+
+class ContextualRelation(nn.Module):
+    """The recurrent excitation branch (resnet.py:198-238): each stage
+    feature 1x1-conv embedded to `channels` and spatially averaged, the
+    three as a sequence through a (bidirectional) GRU or LSTM of hidden size
+    channels // reduction in f32; the last step through fc + sigmoid gives a
+    per-channel scale [B, channels] f32."""
+
+    def __init__(self, channels: int = 2048, reduction: int = 16,
+                 rnn_layers: int = 1, bidirectional: bool = True,
+                 method: str = "GRU", dtype=torch.float32):
+        super().__init__()
+        # layer1..3's outputs of every bottleneck ResNet
+        for i, cin in enumerate((256, 512, 1024)):
+            self.add_module(f"trans{i + 1}", Conv(cin, channels, 1,
+                                                  dtype=dtype))
+        hidden = channels // reduction
+        d = channels
+        for layer in range(rnn_layers):
+            self.add_module(f"l{layer}_fw",
+                            _RNNDirection(d, hidden, method))
+            if bidirectional:
+                self.add_module(f"l{layer}_bw",
+                                _RNNDirection(d, hidden, method, True))
+            d = hidden * (2 if bidirectional else 1)
+        self.fc = Dense(d, channels)
+        self.rnn_layers, self.bidirectional = rnn_layers, bidirectional
+
+    def forward(self, stages):
+        seq = []
+        for i, x in enumerate(stages):
+            y = getattr(self, f"trans{i + 1}")(to_nchw(x))
+            seq.append(y.mean(dim=(2, 3)))
+        out = torch.stack(seq, dim=1).float()              # [B, 3, C]
+        for layer in range(self.rnn_layers):
+            fw = getattr(self, f"l{layer}_fw")(out)
+            if self.bidirectional:
+                bw = getattr(self, f"l{layer}_bw")(out)
+                out = torch.cat([fw, bw], dim=-1)
+            else:
+                out = fw
+        return torch.sigmoid(self.fc(out[:, -1, :]))       # [B, C] f32
 
 
 class ResNetTop(nn.Module):
@@ -129,3 +221,42 @@ class ResNetTop(nn.Module):
 
     def forward(self, x):
         return self.layer4(to_nchw(x)).mean(dim=(2, 3))
+
+
+# ---------------------------------------------------------------------------
+# Eval-time constant folding
+# ---------------------------------------------------------------------------
+
+_BN_OF_CONV = {"conv1": "bn1", "conv2": "bn2", "conv3": "bn3",
+               "downsample_conv": "downsample_bn"}
+
+
+def fold_frozen_bn(state_dict: Dict[str, torch.Tensor],
+                   eps: float = 1e-5) -> Dict[str, torch.Tensor]:
+    """A copy of a detector's state_dict with every FrozenBatchNorm folded
+    into its conv (resnet.py:268-304), on the host in f32: each paired
+    conv's weight [O, I, kh, kw] scaled by w = scale * rsqrt(var + eps) per
+    output channel, the BN rewritten to scale 1, var 1 - eps (so
+    rsqrt((1 - eps) + eps) = 1 in f32), mean 0, bias b - m * w.  The module
+    code is unchanged; with layers.BN_BIAS_ONLY set the program then adds
+    only the biases.  Eval only: a folded kernel trains on another
+    parameterisation."""
+    out = {k: v.detach().cpu().float().clone() if v.is_floating_point()
+           else v.clone() for k, v in state_dict.items()}
+    for key in state_dict:
+        for ck, bk in _BN_OF_CONV.items():
+            suffix = f"{ck}.weight"
+            if key != suffix and not key.endswith("." + suffix):
+                continue
+            prefix = key[:-len(suffix)]
+            if prefix + bk + ".var" not in out:
+                continue
+            scale, var = out[prefix + bk + ".scale"], out[prefix + bk + ".var"]
+            mean, bias = out[prefix + bk + ".mean"], out[prefix + bk + ".bias"]
+            w = scale * torch.rsqrt(var + eps)
+            out[key] = out[key] * w[:, None, None, None]
+            out[prefix + bk + ".scale"] = torch.ones_like(scale)
+            out[prefix + bk + ".var"] = torch.full_like(var, 1.0 - eps)
+            out[prefix + bk + ".mean"] = torch.zeros_like(mean)
+            out[prefix + bk + ".bias"] = bias - mean * w
+    return out

@@ -1,4 +1,5 @@
-"""Builds the port's CUDA sources at first use and loads them with ctypes.
+"""Builds the port's CUDA and host C++ sources at first use and loads them
+with ctypes.
 
 Each `ait_tpu_torch/csrc/<stem>.cu` compiles on its own, with nvcc, into a
 shared library with a plain C interface (no PyTorch headers, so a build
@@ -7,10 +8,21 @@ takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC [per-source flags] -o _build/<stem>-<hash>.so
 
-The library lands in `ait_tpu_torch/_build/` under a name that carries the
-hash of the source, the shared headers (`csrc/*.cuh`) and the flags, so an
-edited source is rebuilt and a stale library is never loaded.  `build_all`
-starts one nvcc per source at once and waits for all of them.
+Each host source `csrc/<stem>.cpp` (the batch loader and the COCO eval
+loops, `ait_tpu_torch/native.py`) compiles with the host compiler:
+
+    g++ -O3 -std=c++17 -shared -fPIC -pthread -ffp-contract=off
+        -o _build/<stem>-<hash>.so
+
+(no contraction into FMA, no -ffast-math, no -march=native: their float
+arithmetic must round as numpy's does).  The library lands in
+`ait_tpu_torch/_build/` under a name that carries the hash of the source,
+the shared headers (`csrc/*.cuh`, for a CUDA source) and the flags, so an
+edited source is rebuilt and a stale library is never loaded; it is written
+under a temporary name and moved into place, so processes that build at
+once each load a whole library.  `build_all` starts one compiler per source
+at once and waits for all of them; a failed build raises with the
+compiler's output.
 
 Every C entry point takes its pointers and the CUDA stream as `void*`,
 launches on that stream, and returns `cudaGetLastError()`; `check` turns a
@@ -38,6 +50,8 @@ BASE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the NMS predicate must round every multiply and add on its own, exactly as
 # the JAX package's XLA and Mosaic versions do: no contraction into FMA
 EXTRA_FLAGS: Dict[str, Sequence[str]] = {"nms": ("--fmad=false",)}
+HOST_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
+              "-ffp-contract=off")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -55,14 +69,34 @@ def nvcc() -> str:
     return path
 
 
+def host_compiler() -> str:
+    found = shutil.which(os.environ.get("CXX", "g++"))
+    if not found:
+        raise RuntimeError("no host C++ compiler (g++) found: the port's "
+                           "host sources csrc/*.cpp are built with it")
+    return found
+
+
+def _is_host(stem: str) -> bool:
+    return os.path.exists(os.path.join(CSRC, stem + ".cpp"))
+
+
 def _flags(stem: str) -> List[str]:
+    if _is_host(stem):
+        return list(HOST_FLAGS)
     return list(BASE_FLAGS) + list(EXTRA_FLAGS.get(stem, ()))
+
+
+def _sources(stem: str) -> List[str]:
+    if _is_host(stem):
+        return [stem + ".cpp"]
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    return [stem + ".cu"] + headers
 
 
 def library_path(stem: str) -> str:
     h = hashlib.sha256()
-    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
-    for name in [stem + ".cu"] + headers:
+    for name in _sources(stem):
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(f.read())
     h.update(" ".join(_flags(stem)).encode())
@@ -70,18 +104,25 @@ def library_path(stem: str) -> str:
 
 
 def _start(stem: str):
-    """Start nvcc for one source; returns (popen, tmp path, final path), or
-    None when the library for this exact source is already built."""
+    """Start the compiler for one source; returns (popen, tmp path, final
+    path), or None when the library for this exact source is already
+    built."""
     out = library_path(stem)
     if os.path.exists(out):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc()] + _flags(stem) + ["-o", tmp,
-                                     os.path.join(CSRC, stem + ".cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+    compiler = host_compiler() if _is_host(stem) else nvcc()
+    cmd = [compiler] + _flags(stem) + [
+        "-o", tmp, os.path.join(CSRC, _sources(stem)[0])]
+    try:
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+    except OSError as e:
+        os.unlink(tmp)
+        raise RuntimeError(f"{cmd[0]} could not run for csrc/"
+                           f"{_sources(stem)[0]}: {e}") from e
     return proc, tmp, out
 
 
@@ -92,17 +133,22 @@ def _finish(stem: str, started) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for csrc/{stem}.cu "
+        raise RuntimeError(f"{os.path.basename(proc.args[0])} failed for "
+                           f"csrc/{_sources(stem)[0]} "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)
 
 
 def build_all(stems: Iterable[str]) -> None:
-    """Compile the given sources in parallel, one nvcc each."""
+    """Compile the given sources in parallel, one compiler each."""
     stems = list(stems)
     with _LOCK:
-        started = [(s, _start(s)) for s in stems]
-        errors = []
+        started, errors = [], []
+        for stem in stems:
+            try:
+                started.append((stem, _start(stem)))
+            except RuntimeError as e:
+                errors.append(str(e))
         for stem, st in started:
             try:
                 _finish(stem, st)
@@ -113,7 +159,7 @@ def build_all(stems: Iterable[str]) -> None:
 
 
 def load(stem: str, functions: Dict[str, Sequence]) -> ctypes.CDLL:
-    """The loaded library of csrc/<stem>.cu, built first if needed.
+    """The loaded library of csrc/<stem>.cu (or .cpp), built first if needed.
 
     functions: C entry name -> ctypes argtypes; each returns an int
     (cudaError_t)."""

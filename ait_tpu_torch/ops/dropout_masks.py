@@ -14,6 +14,10 @@ are its layouts:
 * `ffn_keep_mask` and `posln_keep_mask`: [N, D] (tags 3 and 4, a block per
   row).
 
+`top_keep_mask` ([N, 4096], tag 5, a block per row) is the VGG16 top's
+flax-form dropout at 0.5 (models/vgg.py), which the JAX package draws with
+`jax.random.bernoulli`.
+
 They check the in-kernel dropout of the fused kernels, and the co-attention's
 plain path draws its dropout masks with them (models/attention.py).
 `check_seed`, `kernel_keep`, `seed_args` and `count_launch` are the seed and
@@ -28,7 +32,8 @@ import ctypes
 import torch
 
 from ait_tpu_torch.ops import _build, philox
-from ait_tpu_torch.ops.philox import TAG_ATTN, TAG_FFN, TAG_GLUE, TAG_OUT
+from ait_tpu_torch.ops.philox import (TAG_ATTN, TAG_FFN, TAG_GLUE, TAG_OUT,
+                                      TAG_TOP)
 
 _FUNCS = {"keep_mask_dump": [ctypes.c_void_p] + [ctypes.c_int] * 4 +
           [ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p]}
@@ -105,3 +110,8 @@ def ffn_keep_mask(seed, n, d, *, keep_prob=0.9):
 def posln_keep_mask(seed, n, d, *, keep_prob=0.9):
     """The input glue dropout's keep-mask [N, D] f32."""
     return keep_mask(seed, TAG_GLUE, 1, n, d, keep_prob).view(n, d)
+
+
+def top_keep_mask(seed, n, d, *, keep_prob=0.5):
+    """The VGG16 top's dropout keep-mask [N, D] f32 (fc6's and fc7's)."""
+    return keep_mask(seed, TAG_TOP, 1, n, d, keep_prob).view(n, d)

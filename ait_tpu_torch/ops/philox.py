@@ -34,6 +34,7 @@ from __future__ import annotations
 import torch
 
 TAG_ATTN, TAG_OUT, TAG_FFN, TAG_GLUE = 1, 2, 3, 4
+TAG_TOP = 5                      # VGGTop's two dropouts (models/vgg.py)
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85

@@ -18,10 +18,12 @@ The model's architecture knobs come from the run's `config.json` where it
 exists (POOLING_MODE and the whole `model` block, as the JAX CLI adopts
 them), its weights from `--checkpoint_path` (a `ckpt/` directory of the
 port's train CLI), from `<save_dir>/<net>/<dataset>/<version>/ckpt`, or
-from `--pretrained` (a converted params pickle); without any, the random
-weights from RNG_SEED, with a warning.  Refused up front: COCO and VGG16
-(ROADMAP A14; the COCO branch below runs once a COCO model builds),
-`tpu.sp_size` > 1 (A15), and `--vis` (A13b: its drawing needs cv2).
+from `--pretrained` (a converted params pickle,
+`python -m ait_tpu_torch.tools.convert_torch_checkpoint`); without any, the
+random weights from RNG_SEED, with a warning.  `--dataset coco` evaluates
+with the COCO protocol (evaluation/coco_eval.py, AP50 as the headline).
+Refused up front: `tpu.tp_size` or `tpu.sp_size` > 1 (A15), and `--vis`
+(A13b: its drawing needs cv2).
 """
 
 from __future__ import annotations

@@ -20,9 +20,10 @@ would have drawn at that step.  The run directory is
 steps and at each epoch's end; `--r true` restores the newest and resumes
 at epoch latest // steps_per_epoch + 1, as the JAX CLI does.
 
-Refused up front, naming the ROADMAP item: `--dataset coco` (its non-local
-co-attention) and `--net vgg16` (A14), `tpu.tp_size` or `tpu.sp_size` > 1
-(A15).
+Every recipe trains: `--dataset coco` (the non-local co-attention, anchor
+scales (4, 8, 16, 32), 50 boxes a image) and `--net vgg16` (its global-norm
+clip at 10).  Refused up front, naming the ROADMAP item: `tpu.tp_size` or
+`tpu.sp_size` > 1 (A15).
 """
 
 from __future__ import annotations
@@ -133,11 +134,6 @@ def build_config(args) -> Config:
 def check_scope(args, cfg: Config) -> None:
     """Refuse, before any data or model work, what the port does not run
     yet, naming the ROADMAP item that brings it."""
-    if args.dataset == "coco":
-        raise SystemExit("--dataset coco trains the non-local co-attention, "
-                         "not ported yet (ROADMAP A14)")
-    if args.net == "vgg16":
-        raise SystemExit("--net vgg16 is not ported yet (ROADMAP A14)")
     for knob in ("tp_size", "sp_size"):
         if int(getattr(cfg.tpu, knob)) > 1:
             raise SystemExit(f"tpu.{knob} > 1: the parallel families are "

@@ -135,7 +135,28 @@
    forward each under t_attn_dist 'division', sk_gate 'fixed' and
    class_agnostic False (8 box columns), with their launches and the kernel
    path against the plain path.
-7. Prints the per-kernel JSON line, then the device JSON line last.
+   Since slice 12 the data phase first holds the loader's native route
+   (csrc/ait_loader.cpp on C++ threads) against its numpy route, every key
+   of every eval and train batch bit-equal at 1, 2 and 8 threads, and times
+   both (the host loader's ms a batch, eval pairs/s from raw images, 3
+   runs each); the CLI phase also trains and evaluates `--dataset coco` on
+   a COCO-layout tree written from a seed (the COCO eval loops of
+   csrc/ait_native.cpp bit-equal to numpy's, the stats equal), trains
+   `--net vgg16`, and evaluates a reference-layout `.pth` of the flagship
+   run's weights converted by `python -m
+   ait_tpu_torch.tools.convert_torch_checkpoint` (detections bit-equal to
+   the run's own).
+7. Slice 12's model paths: the eval-time FrozenBN fold (`drive_fold`: the
+   flagship at B = 8 with BN statistics randomised from a seed, folded
+   with and without BN_BIAS_ONLY against unfolded in f32, the backbone's
+   and eval's device ms in bf16), and every recipe (`drive_recipes`): the
+   COCO model (non-local co-attention, 'division' and 'softmax'), VGG16
+   (cfgs/vgg16.yml; VGGTop's 0.5 masks against the plain Philox stream,
+   conv1_*/conv2_* unchanged by its train steps), ROI pool and the
+   contextual relation (GRU, LSTM): eval forwards with their launches and
+   the kernel path against the plain path, the COCO and VGG16 models 3
+   train steps each with the f32 kernel-vs-plain step.
+8. Prints the per-kernel JSON line, then the device JSON line last.
 
 Exits non-zero, with no result line, without a CUDA device or outside a
 checkout of the repository.  Imports nothing of JAX or ait_tpu.
@@ -2486,8 +2507,8 @@ def drive_train(torch, np, dev, params, cfg, steps, per_step, *, what=None,
         fail(f"frozen leaves or buffers that moved: {moved[:10]}")
     mean = sum(times) / len(times)
     log(f"train ({what}): {steps + 1} steps of {B} images at "
-        f"{cfg.tpu.image_size[0]}x{cfg.tpu.image_size[1]}, {ROIS} rois "
-        f"each; launches {launches}; {len(names)} trainable leaves moved, "
+        f"{cfg.tpu.image_size[0]}x{cfg.tpu.image_size[1]}, {t.BATCH_SIZE} "
+        f"rois each; launches {launches}; {len(names)} trainable leaves moved, "
         f"{len(before) - len(names)} frozen leaves and buffers unchanged")
     log(f"train ({what}): ms per step of {B} (after one warm-up): "
         f"{[round(x, 3) for x in times]}, mean {mean:.3f}, pairs/s "
@@ -2810,24 +2831,94 @@ def drive_data_eval(torch, np, dev, cfg, state, view, imread):
     log(f"data path: VOC07 AP of the random-weight flagship {res}; of the "
         f"ground truth as detections {res_gt}")
 
-    # the same epoch 3 times over, timed: raw arrays to detections
-    loader = OneShotLoader(view, cfg, training=False, imread=imread)
-    *_, walls, wall = epoch(loader, False, repeat=3)
-    pairs = 3 * len(loader.pairs)
-    log(f"data path: eval end to end (loader, prefetch, forward, "
-        f"postprocess), the epoch 3 times: {pairs} pairs in "
-        f"{wall * 1e3:.3f} ms, {pairs / wall:.2f} pairs/s; ms per batch "
-        f"from its arrival on the card to its detections on the host "
-        f"{walls}")
-    t0 = time.perf_counter()
-    n = sum(1 for _ in loader.test_epoch(B))
-    log(f"data path: host loader alone, eval: "
-        f"{(time.perf_counter() - t0) * 1e3 / n:.3f} ms a batch of {B} "
-        f"({n} batches, 8 worker threads)")
+    # the epoch timed from raw arrays to detections, 3 runs on each of the
+    # loader's routes in turns; then the host loader alone
+    rates = {"native": [], "numpy": []}
+    for _ in range(3):
+        for route in rates:
+            with loader_route(route == "native"):
+                loader = OneShotLoader(view, cfg, training=False,
+                                       imread=imread)
+                *_, walls, wall = epoch(loader, False)
+            rates[route].append(round(len(loader.pairs) / wall, 2))
+            log(f"data path: eval end to end on the {route} route (loader, "
+                f"prefetch, forward, postprocess): {len(loader.pairs)} "
+                f"pairs in {wall * 1e3:.3f} ms; ms per batch from its "
+                f"arrival on the card to its detections on the host {walls}")
+    log(f"data path: eval pairs/s from raw images, 3 runs: native route "
+        f"{rates['native']}, numpy route {rates['numpy']}")
+    host_ms = {"native": [], "numpy": []}
+    for _ in range(3):
+        for route in host_ms:
+            with loader_route(route == "native"):
+                loader = OneShotLoader(view, cfg, training=False,
+                                       imread=imread)
+                t0 = time.perf_counter()
+                n = sum(1 for _ in loader.test_epoch(B))
+            host_ms[route].append(round(
+                (time.perf_counter() - t0) * 1e3 / n, 3))
+    log(f"data path: host loader alone, eval, ms a batch of {B} ({n} "
+        f"batches, 8 threads), 3 runs: native route {host_ms['native']}, "
+        f"numpy route {host_ms['numpy']}")
     firsts = {}
     for b in host:
         firsts.setdefault(b["image"].shape[1:], b)
     return launches, firsts
+
+
+@contextlib.contextmanager
+def loader_route(native):
+    """The loader's route as the tests switch it: `_use_native` as it is
+    (the native C++ route for uint8 inputs), or patched to the numpy
+    route."""
+    from ait_tpu_torch.data.loader import OneShotLoader
+
+    saved = OneShotLoader._use_native
+    if not native:
+        OneShotLoader._use_native = lambda self: False
+    try:
+        yield
+    finally:
+        OneShotLoader._use_native = saved
+
+
+def check_loader_routes(np, cfg, test, train, imread):
+    """The native route against the numpy route: every key of every eval
+    and train batch of an epoch bit-equal, at 1, 2 and 8 threads."""
+    import copy
+
+    from ait_tpu_torch.data import OneShotLoader
+
+    if not OneShotLoader(copy.deepcopy(test), cfg, training=False,
+                         imread=imread)._use_native():
+        fail("loader: uint8 inputs do not take the native route")
+    counts = []
+    for threads in (1, 2, 8):
+        for training, view in ((False, test), (True, train)):
+            runs = []
+            for native in (True, False):
+                with loader_route(native):
+                    ld = OneShotLoader(copy.deepcopy(view), cfg,
+                                       training=training, seed=0,
+                                       imread=imread)
+                    epoch = ld.train_epoch if training else ld.test_epoch
+                    runs.append(list(epoch(B, num_workers=threads)))
+            nat, ref = runs
+            if len(nat) != len(ref) or not nat:
+                fail(f"loader routes: {len(nat)} native and {len(ref)} "
+                     f"numpy batches")
+            for a, b in zip(nat, ref):
+                for k in b:
+                    if k not in a or a[k].dtype != b[k].dtype or \
+                            not np.array_equal(a[k], b[k]):
+                        what = "train" if training else "eval"
+                        fail(f"loader routes ({what}, {threads} threads): "
+                             f"the native route's {k} differs from the "
+                             f"numpy route's")
+            counts.append(len(nat))
+    log(f"loader routes: native equal to numpy, bit for bit, on every key "
+        f"of {sum(counts)} batches (eval and train epochs at 1, 2 and 8 "
+        f"threads)")
 
 
 def drive_data_path(torch, np, dev, cfg, params, state):
@@ -2844,6 +2935,7 @@ def drive_data_path(torch, np, dev, cfg, params, state):
         test = filter_seen(load_voc(devkit, "2007", "test"), 2)
         train = filter_seen(load_voc(devkit, "2007", "trainval"), 1)
     paths = {}
+    check_loader_routes(np, cfg, test, train, imread)
     paths["data_eval"], firsts = drive_data_eval(torch, np, dev, cfg, state,
                                                  test, imread)
     batch = firsts[(304, 400, 12)]
@@ -2861,10 +2953,12 @@ def drive_data_path(torch, np, dev, cfg, params, state):
             compare=False, batches=device_prefetch(epoch, device=dev))
     finally:
         epoch.close()
-    t1 = time.perf_counter()
-    n = sum(1 for _, _ in zip(range(4), loader.train_epoch(B)))
-    log(f"data path: host loader alone, train: "
-        f"{(time.perf_counter() - t1) * 1e3 / n:.3f} ms a batch of {B}")
+    for route in ("native", "numpy"):
+        with loader_route(route == "native"):
+            t1 = time.perf_counter()
+            n = sum(1 for _, _ in zip(range(4), loader.train_epoch(B)))
+        log(f"data path: host loader alone, train, {route} route: "
+            f"{(time.perf_counter() - t1) * 1e3 / n:.3f} ms a batch of {B}")
     log(f"data path: {time.time() - t0:.1f} s")
     return paths
 
@@ -3161,6 +3255,111 @@ def check_fused_protocol(torch, np, dev, cfg, state, dtype, seen_pass,
     return equal
 
 
+def write_coco_devkit(np, root):
+    """A COCO-layout tree under root: coco/annotations/instances_val2017.json
+    (80 categories, ids 1..80) over the data phase's image sizes, 2-4
+    boxes an image, the first of an evaluated class of the default split
+    (seen 2, group 1: class % 4 == 1), the second of a trained one; no
+    image files.  Returns (the view's path, imread) as write_devkit."""
+    rng = np.random.RandomState(5)
+    ann_dir = os.path.join(root, "coco", "annotations")
+    img_dir = os.path.join(root, "coco", "images", "val2017")
+    os.makedirs(ann_dir, exist_ok=True)
+    pixels, images, anns = {}, [], []
+    for h, w, count in DATA_SHAPES:
+        for _ in range(count):
+            img_id = len(images) + 1
+            fn = f"{img_id:012d}.jpg"
+            im = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+            images.append({"id": img_id, "width": w, "height": h,
+                           "file_name": fn})
+            for j in range(rng.randint(2, 5)):
+                cls = (4 * rng.randint(20) + 1 if j == 0 else
+                       4 * rng.randint(20) + 2 if j == 1 else
+                       rng.randint(1, 81))
+                bw, bh = rng.randint(w // 6, w // 2), rng.randint(h // 6,
+                                                                  h // 2)
+                x1, y1 = rng.randint(1, w - bw), rng.randint(1, h - bh)
+                im[y1:y1 + bh, x1:x1 + bw] = rng.randint(0, 256, 3)
+                anns.append({"id": len(anns) + 1, "image_id": img_id,
+                             "category_id": int(cls),
+                             "bbox": [float(x1), float(y1), float(bw),
+                                      float(bh)],
+                             "area": float(bw * bh), "iscrowd": 0})
+            pixels[os.path.join(img_dir, fn)] = im
+    with open(os.path.join(ann_dir, "instances_val2017.json"), "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": c, "name": f"c{c}"}
+                                  for c in range(1, 81)]}, f)
+    return os.path.join(root, "coco"), pixels.__getitem__
+
+
+def check_coco_loops(np, view, all_boxes):
+    """The COCO eval loops of the native route (csrc/ait_native.cpp)
+    against the numpy versions, on the CLI's own detections and on the
+    ground truth's boxes jittered from a seed (3 a box, random scores: a
+    model from random weights may detect nothing): the IoUs and matches
+    bit-equal, detection by detection, and the evaluation's stats equal."""
+    from ait_tpu_torch.evaluation import coco_eval
+
+    gt = view.coco_gt
+    rec_to_img = {i: r.img_id for i, r in enumerate(view.records)}
+    dets = coco_eval.dets_to_coco_results(all_boxes, rec_to_img,
+                                          gt.class_ind_to_cat_id)
+    n_cli = len(dets)
+    rng = np.random.RandomState(6)
+    images = set(rec_to_img.values())
+    for ann in gt.annotations:
+        if ann["image_id"] in images:
+            for _ in range(3):
+                box = np.asarray(ann["bbox"]) + rng.uniform(-6, 6, 4)
+                dets.append({"image_id": ann["image_id"],
+                             "category_id": ann["category_id"],
+                             "bbox": [float(v) for v in box],
+                             "score": float(rng.rand())})
+    thrs = np.linspace(0.5, 0.95, 10)
+    pairs = 0
+    for d in dets[:n_cli + 200]:
+        g = [a for a in gt.annotations if a["image_id"] == d["image_id"]]
+        if not g:
+            continue
+        dt = np.asarray([d["bbox"]], np.float64)
+        gb = np.asarray([a["bbox"] for a in g], np.float64)
+        crowd = np.asarray([a["iscrowd"] for a in g], np.uint8)
+        ious = coco_eval.bbox_iou_xywh(dt, gb, crowd)
+        if not np.array_equal(ious, coco_eval.bbox_iou_xywh_reference(
+                dt, gb, crowd)):
+            fail("COCO eval: the native IoUs differ from numpy's")
+        ign = np.zeros(len(g), np.uint8)
+        got = coco_eval.greedy_match(ious, ign, crowd, thrs)
+        want = coco_eval.greedy_match_reference(ious, ign, crowd, thrs)
+        if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+            fail("COCO eval: the native matches differ from numpy's")
+        pairs += 1
+
+    def stats():
+        ev = coco_eval.COCODetEval(gt, dets,
+                                   img_ids=[r.img_id for r in view.records])
+        ev.evaluate()
+        ev.accumulate()
+        return np.asarray(ev.summarize(verbose=False))
+
+    native = stats()
+    saved = coco_eval.bbox_iou_xywh, coco_eval.greedy_match
+    coco_eval.bbox_iou_xywh = coco_eval.bbox_iou_xywh_reference
+    coco_eval.greedy_match = coco_eval.greedy_match_reference
+    try:
+        plain = stats()
+    finally:
+        coco_eval.bbox_iou_xywh, coco_eval.greedy_match = saved
+    if not np.array_equal(native, plain) or not pairs or native[0] <= 0:
+        fail(f"COCO eval: stats differ, native {native}, numpy {plain} "
+             f"({pairs} detections compared)")
+    log(f"COCO eval loops: native IoUs and matches bit-equal to numpy's "
+        f"on {pairs} detections; stats equal on {len(dets)} detections "
+        f"({n_cli} the CLI's): {native.tolist()}")
+
+
 def drive_cli(torch, np, dev):
     """The train and eval CLIs on the data phase's seeded devkit, at full
     width, through their entry points (`main(argv, imread=)`).  Returns the
@@ -3349,14 +3548,115 @@ def drive_cli(torch, np, dev):
         log(f"CLI train res101 (cfgs/res101.yml, 608x800): {steps} steps, "
             f"launches as expected per step")
 
+        # 4. the other recipes: --dataset coco trains a few steps on a
+        # COCO-layout tree written from a seed and evaluates that run;
+        # --net vgg16 trains a few steps
+        paths.update(cli_recipes(torch, np, root, common, imread))
+
+        # 5. the flagship run's weights as a reference .pth, converted by
+        # the tool, evaluated with --pretrained: the run's own detections
+        pre_out = os.path.join(root, "out_pretrained")
+        pkl = write_released_pth(torch, root, run_model)
+        pre_argv = ["--dataset", "pascal_voc", "--data_dir", root,
+                    "--save_dir", os.path.join(root, "no_runs"), "--net",
+                    "res50", "--bs", str(B), "--a", "2", "--output_dir",
+                    pre_out, "--pretrained", pkl]
+        _, _, paths["cli_pretrained_eval"], _, _ = eval_cli(
+            torch, np, pre_argv, imread, "CLI eval from the converted .pth",
+            test)
+        for avg in range(2):
+            a = read_dets(outs["bf16", "pass"], avg)
+            b = read_dets(pre_out, avg)
+            if sorted(a) != sorted(b) or any(
+                    sorted(a[c]) != sorted(b[c]) or not all(
+                        np.array_equal(a[c][r], b[c][r]) for r in a[c])
+                    for c in a):
+                fail(f"converted .pth: shot {avg}'s detections differ from "
+                     f"the run's own")
+        log("converted .pth: test_net --pretrained gives the run's own "
+            "detections, bit for bit, on both shots")
+
     # 4. A20's knobs: one eval forward each at full width
     for name, (knob, per_forward) in A20_KNOBS.items():
-        paths[f"a20_{name}"] = drive_a20(torch, np, dev, name, knob,
-                                         per_forward)
+        paths[f"a20_{name}"] = drive_eval_config(
+            torch, np, dev, f"A20 {name}", knob_config(knob), per_forward)
     log(f"CLI phase: checkpoint save {save_ms:.3f} ms, restore "
         f"{restore_ms:.3f} ms, {ckpt_bytes} bytes; {time.time() - t_phase:.1f}"
         " s")
     return paths
+
+
+def cli_recipes(torch, np, root, common, imread):
+    """`--dataset coco` through both CLIs (train, then eval of that run,
+    with the COCO eval loops native against numpy) and `--net vgg16`
+    through the train CLI.  Returns the launches of each path."""
+    from ait_tpu_torch.data import coco as coco_data
+    from ait_tpu_torch.tools import trainval_net
+
+    paths = {}
+    coco_dir, coco_read = write_coco_devkit(np, root)
+
+    def read(path):
+        return (coco_read if path.startswith(coco_dir) else imread)(path)
+
+    coco = ["--dataset", "coco", "--coco_set", "2017_val", "--net", "res50",
+            "--data_dir", root, "--save_dir", os.path.join(root, "models"),
+            "--version", "coco", "--bs", str(B)]
+    for name, argv, per_step in (
+            ("coco", coco, COCO_PER_STEP),
+            ("vgg16", common + ["--net", "vgg16", "--bs", str(B),
+                                "--version", "vgg16"], VGG_PER_STEP)):
+        zero_counts()
+        t0 = time.perf_counter()
+        res = trainval_net.main(argv + ["--debug", "--epochs", "1", "--lr",
+                                        "0.001"], imread=read)
+        torch.cuda.synchronize()
+        steps = res["step"] - res["start_step"]
+        paths[f"cli_{name}_train"] = read_counts(per_step, steps, "steps")
+        with open(os.path.join(res["run_dir"], "logs",
+                               "metrics.jsonl")) as f:
+            losses = [json.loads(ln) for ln in f if '"loss"' in ln]
+        if not losses or not all(math.isfinite(r[k]) for r in losses
+                                 for k in LOSS_KEYS):
+            fail(f"CLI train {name}: losses {losses}")
+        log(f"CLI train {name}: {steps} steps in "
+            f"{time.perf_counter() - t0:.2f} s, launches as expected per "
+            f"step, losses finite (last {losses[-1]})")
+    view = coco_data.filter_seen(coco_data.load_coco(coco_dir, "2017",
+                                                     "val"), 2, 1)
+    out = os.path.join(root, "out_coco")
+    _, _, paths["cli_coco_eval"], _, _ = eval_cli(
+        torch, np, coco + ["--a", "1", "--output_dir", out], read,
+        "CLI eval coco", view)
+    dets = read_dets(out, 0)
+    check_cli_dets(np, dets, view)
+    check_coco_loops(np, view, dets)
+    return paths
+
+
+def write_released_pth(torch, root, model):
+    """The model's weights as a released reference checkpoint (the
+    reference's names and layouts, DataParallel's `module.` prefix),
+    converted by `python -m ait_tpu_torch.tools.convert_torch_checkpoint`.
+    Returns the pickle's path."""
+    from ait_tpu_torch import bridge
+    from ait_tpu_torch.convert import reference_state_dict
+
+    pth = os.path.join(root, "released.pth")
+    pkl = os.path.join(root, "released.pkl")
+    sd = reference_state_dict(bridge.to_jax_tree(model, model.state_dict()))
+    torch.save({"session": 1, "epoch": 1, "pooling_mode": "align",
+                "class_agnostic": True,
+                "model": {"module." + k: v for k, v in sd.items()}}, pth)
+    proc = subprocess.run(
+        [sys.executable, "-m", "ait_tpu_torch.tools.convert_torch_checkpoint",
+         "--input", pth, "--output", pkl], cwd=HERE, capture_output=True,
+        text=True, timeout=600)
+    if proc.returncode:
+        fail(f"convert_torch_checkpoint: exit {proc.returncode}\n"
+             f"{proc.stdout}\n{proc.stderr}")
+    log(f"converted .pth: {proc.stdout.strip()}")
+    return pkl
 
 
 def time_res101_ls(torch, np, dev, cfg, state, batch):
@@ -3412,14 +3712,18 @@ def time_res101_ls(torch, np, dev, cfg, state, batch):
         f"{glue_bound:.4f} (bytes): {glue_bound / max(glue, 1e-12):.0%}")
 
 
-def drive_a20(torch, np, dev, name, knob, per_forward):
-    """One eval forward of B requests at full width under one A20 knob,
-    with its launches; then the kernel path against the plain path on 2."""
+def drive_eval_config(torch, np, dev, name, cfg, per_forward, batches=1,
+                      state=None):
+    """`batches` timed eval forwards of B requests at full width under
+    `cfg` (random weights from seed 0 unless `state`), after a warm-up,
+    with their launches; then the kernel path against the plain path on
+    2.  Returns the launches."""
+    from ait_tpu_torch.evaluation import postprocess_detections
     from ait_tpu_torch.models import AITDetector
     from ait_tpu_torch.train import init_weights, make_eval_step
 
-    cfg = knob_config(knob)
-    state = init_weights(AITDetector(cfg), 0).state_dict()
+    if state is None:
+        state = init_weights(AITDetector(cfg), 0).state_dict()
     model = AITDetector(cfg, dtype=torch.bfloat16)
     model.load_state_dict(state)
     model.to(dev).eval()
@@ -3427,33 +3731,266 @@ def drive_a20(torch, np, dev, name, knob, per_forward):
     req = make_requests(np, cfg, np.random.RandomState(0), B)
     batch = {k: torch.from_numpy(v).to(dev)
              for k, v in zip(("image", "query", "im_info"), req)}
+    width = 4 if cfg.model.class_agnostic else 8
     step(batch)                                      # warm-up
     torch.cuda.synchronize()
     zero_counts()
-    out = step(batch)
-    if name != "class_specific":
-        from ait_tpu_torch.evaluation import postprocess_detections
-
-        t = cfg.TEST
-        dets, valid = postprocess_detections(
-            out["rois"], out["cls_prob"], out["bbox_pred"],
-            batch["im_info"], nms_thresh=t.NMS, score_thresh=0.0,
-            max_per_image=t.MAX_PER_IMAGE,
-            bbox_normalize_means=cfg.TRAIN.BBOX_NORMALIZE_MEANS,
-            bbox_normalize_stds=cfg.TRAIN.BBOX_NORMALIZE_STDS)
-        dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
-        check_dets(np, [d[m] for d, m in zip(dets, valid)], req[2], cfg)
-    torch.cuda.synchronize()
-    launches = read_counts(per_forward, 1, "forwards")
-    width = 8 if name == "class_specific" else 4
+    times = []
+    for _ in range(batches):
+        t0 = time.perf_counter()
+        out = step(batch)
+        if width == 4:       # the postprocess takes the 4-wide head only
+            t = cfg.TEST
+            dets, valid = postprocess_detections(
+                out["rois"], out["cls_prob"], out["bbox_pred"],
+                batch["im_info"], nms_thresh=t.NMS, score_thresh=0.0,
+                max_per_image=t.MAX_PER_IMAGE,
+                bbox_normalize_means=cfg.TRAIN.BBOX_NORMALIZE_MEANS,
+                bbox_normalize_stds=cfg.TRAIN.BBOX_NORMALIZE_STDS)
+            dets, valid = dets.cpu().numpy(), valid.cpu().numpy()
+            check_dets(np, [d[m] for d, m in zip(dets, valid)], req[2], cfg)
+        torch.cuda.synchronize()
+        times.append(round((time.perf_counter() - t0) * 1e3, 3))
+    launches = read_counts(per_forward, batches, "forwards")
     if tuple(out["bbox_pred"].shape) != (B, cfg.TEST.RPN_POST_NMS_TOP_N,
                                          width) or \
             not torch.isfinite(out["bbox_pred"]).all():
-        fail(f"A20 {name}: bbox_pred {tuple(out['bbox_pred'].shape)}")
-    log(f"A20 {name}: one forward of {B} at {cfg.tpu.image_size}, bbox_pred "
-        f"{tuple(out['bbox_pred'].shape)}; launches {launches}")
+        fail(f"{name}: bbox_pred {tuple(out['bbox_pred'].shape)}")
+    log(f"{name}: {batches} forward(s) of {B} at {cfg.tpu.image_size}, "
+        f"bbox_pred {tuple(out['bbox_pred'].shape)}, ms a batch (forward "
+        f"and postprocess, after a warm-up) {times}; launches {launches}")
     compare_paths(torch, np, cfg, state, dev, req)
     return launches
+
+
+# ------------------------------------------------------------- slice 12
+
+# launches per train step of the recipes: the non-local co-attention draws
+# no dropout (no co-attention mask dumps); VGG16's top draws its 4 masks at
+# 0.5 (fc6 and fc7, rois then query) with the dump kernel, beside the MHA
+# co-attention's 4
+COCO_PER_STEP = {**PER_STEP, "keep_mask_dump": 0}
+VGG_PER_STEP = {**PER_STEP, "keep_mask_dump": 8}
+# the fold: folded against unfolded (f32, TF32 off) within FOLD_REL of max
+# |unfolded| for the backbone's and the top's features
+# (tests/test_bn_fold.py's bound), the head on the same rois within
+# FOLD_HEAD_REL (the transformer, SKNet and the heads after features that
+# differ by f32 roundoff)
+FOLD_REL, FOLD_HEAD_REL = 2e-4, 1e-3
+
+
+def recipe_config(argv):
+    """The config the train CLI builds for `argv` (--dataset, --net)."""
+    from ait_tpu_torch.tools import trainval_net
+
+    return trainval_net.build_config(trainval_net.parse_args(argv))
+
+
+def randomize_bn(torch, np, state, seed):
+    """Nontrivial FrozenBN statistics from a seed (tests/test_bn_fold.py's
+    ranges): under identity statistics the fold changes nothing."""
+    rng = np.random.RandomState(seed)
+    out = dict(state)
+    for k, v in state.items():
+        mod, leaf = (["", ""] + k.split("."))[-2:]
+        if not (mod.startswith("bn") or mod == "downsample_bn"):
+            continue
+        shape = tuple(v.shape)
+        val = {"scale": 0.5 + rng.rand(*shape),
+               "bias": rng.randn(*shape) * 0.3,
+               "mean": rng.randn(*shape) * 0.2,
+               "var": 0.3 + rng.rand(*shape)}[leaf]
+        out[k] = torch.from_numpy(val.astype(np.float32))
+    return out
+
+
+@contextlib.contextmanager
+def bn_bias_only(on):
+    from ait_tpu_torch.models import layers
+
+    saved = layers.BN_BIAS_ONLY
+    layers.BN_BIAS_ONLY = on
+    try:
+        yield
+    finally:
+        layers.BN_BIAS_ONLY = saved
+
+
+def drive_fold(torch, np, dev, cfg, state):
+    """The eval-time FrozenBN fold on the flagship at B = 8, 608x800, with
+    BN statistics randomised from a seed.  f32, TF32 off: folded (with and
+    without BN_BIAS_ONLY) against unfolded, the image and query backbone
+    features and the top's within FOLD_REL of max |unfolded|, the head on
+    the unfolded rois within FOLD_HEAD_REL, and cls_prob within
+    FOLD_HEAD_REL wherever a forward's rois are bit-equal to the unfolded
+    ones.  bf16: the backbone's device ms at B = 8 and one eval forward's
+    device busy ms, unfolded and folded + BN_BIAS_ONLY in turns, 3 runs
+    each.  Returns the folded program's launches of one forward."""
+    from ait_tpu_torch.models import AITDetector
+    from ait_tpu_torch.models.detector import _to_model_input
+    from ait_tpu_torch.models.resnet import fold_frozen_bn
+    from ait_tpu_torch.train import make_eval_step
+
+    state = randomize_bn(torch, np, state, 0)
+    folded = fold_frozen_bn(state)
+    req = make_requests(np, cfg, np.random.RandomState(3), B)
+    image, query, info = (torch.from_numpy(a).to(dev) for a in req)
+    g = torch.Generator().manual_seed(4)
+    top_in = torch.randn(B, 8, 8, 1024, generator=g).to(dev) * 0.2
+
+    def run(sd, bias_only, rois=None):
+        model = AITDetector(cfg, dtype=torch.float32)
+        model.load_state_dict(sd)
+        model.to(dev).eval()
+        with bn_bias_only(bias_only), torch.inference_mode():
+            out = model(image, query, info)
+            img = model.backbone(_to_model_input(image, torch.float32))
+            qry = model.backbone(_to_model_input(query, torch.float32))
+            top = model.top(top_in)
+            ni, nq = model.coattention(img, qry)
+            head = model.head(ni, nq, out.rois if rois is None else rois)
+        return out, {"image features": img, "query features": qry,
+                     "top": top}, head
+
+    ref, feats, href = run(state, False)
+    for bias_only in (False, True):
+        out, got, head = run(folded, bias_only, ref.rois)
+        errs = {k: rel_err(got[k], feats[k]) for k in feats}
+        herr = {k: rel_err(getattr(head, k), getattr(href, k))
+                for k in ("cls_prob", "bbox_pred")}
+        same = [i for i in range(B) if torch.equal(out.rois[i], ref.rois[i])]
+        perr = max((rel_err(out.cls_prob[i], ref.cls_prob[i]) for i in same),
+                   default=0.0)
+        log(f"fold (f32, TF32 off, BN_BIAS_ONLY {bias_only}): folded vs "
+            f"unfolded {errs} of max |unfolded| (tol {FOLD_REL}); the head "
+            f"on the unfolded rois {herr} (tol {FOLD_HEAD_REL}); rois "
+            f"bit-equal on {len(same)} of {B} images, cls_prob there "
+            f"{perr:.3e} (tol {FOLD_HEAD_REL})")
+        if not (all(v <= FOLD_REL for v in errs.values()) and
+                all(v <= FOLD_HEAD_REL for v in herr.values()) and
+                perr <= FOLD_HEAD_REL):
+            fail(f"fold: folded disagrees with unfolded: {errs} {herr} "
+                 f"{perr}")
+
+    model = AITDetector(cfg, dtype=torch.bfloat16).to(dev).eval()
+    step = make_eval_step(model)
+    batch = {"image": image, "query": query, "im_info": info}
+    x = _to_model_input(image, torch.bfloat16)
+    times = {"unfolded": [], "folded": []}
+    for name in ("unfolded", "folded", "folded", "unfolded", "unfolded",
+                 "folded"):
+        model.load_state_dict(folded if name == "folded" else state)
+        with bn_bias_only(name == "folded"), torch.inference_mode():
+            backbone = device_ms(lambda: model.backbone(x), iters=5)
+            busy = sum(kernels_ms(lambda: step(batch), iters=3).values())
+        times[name].append((round(backbone, 4), round(busy, 4)))
+    with bn_bias_only(True):
+        zero_counts()
+        step(batch)
+        torch.cuda.synchronize()
+        # the forward without its postprocess: one NMS
+        launches = read_counts({**PER_FORWARD, "nms_keep_mask": 1}, 1,
+                               "forwards")
+    log(f"fold (bf16, B={B}, {tuple(image.shape[1:])}): (backbone device "
+        f"ms, eval forward device busy ms) per run: unfolded "
+        f"{times['unfolded']}, folded + BN_BIAS_ONLY {times['folded']}")
+    return launches
+
+
+def check_top_masks(torch, dev, rows):
+    """VGGTop's dropout masks (the dump kernel at keep 0.5, [rows, 4096]
+    and [B, 4096]) bit-equal to the plain Philox stream on the same seed,
+    two launches bit-equal, keep rate within 0.01 of 0.5; their device
+    ms."""
+    from ait_tpu_torch.ops import dropout_masks as dm, philox
+
+    seed = torch.tensor([1234567, -7654321], dtype=torch.int32)
+    dseed = seed.to(dev)
+    for n in (rows, B):
+        got = dm.top_keep_mask(dseed, n, 4096)
+        again = dm.top_keep_mask(dseed, n, 4096)
+        want = philox.keep_mask(seed, philox.TAG_TOP, 1, n, 4096,
+                                0.5).view(n, 4096)
+        rate = got.mean().item()
+        if not (torch.equal(got.cpu(), want) and torch.equal(got, again)
+                and abs(rate - 0.5) <= 0.01):
+            fail(f"VGGTop masks [{n}, 4096]: kernel vs plain Philox "
+                 f"{torch.equal(got.cpu(), want)}, repeat "
+                 f"{torch.equal(got, again)}, keep rate {rate}")
+        ms = device_ms(lambda: dm.top_keep_mask(dseed, n, 4096))
+        bound = n * 4096 * 4 / HBM_BYTES_S * 1e3
+        log(f"VGGTop masks [{n}, 4096] (keep 0.5): bit-equal to the plain "
+            f"Philox stream and across launches, keep rate {rate:.5f}; "
+            f"{ms:.4f} device ms, bound {bound:.4f} (bytes)")
+
+
+def drive_recipes(torch, np, dev):
+    """Every model path a recipe names, at full width, random weights from
+    seed 0: the COCO model (`--dataset coco`: the non-local co-attention,
+    anchor scales (4, 8, 16, 32), 50 boxes an image; ResNet-50) with
+    'division' (3 timed eval batches, 3 train steps at Config()'s t_dropout
+    0.1, kernel path against plain path in eval and in an f32 step) and
+    one forward with 'softmax'; VGG16 (`--net vgg16`, cfgs/vgg16.yml,
+    channels 512: eval, 3 train steps, conv1_*/conv2_* bit-unchanged,
+    VGGTop's masks); ROI pool; the contextual relation (GRU bidirectional,
+    then a 2-layer LSTM).  Returns the launches of each path."""
+    from ait_tpu_torch import bridge
+    from ait_tpu_torch.models import AITDetector
+
+    t0 = time.time()
+    paths = {}
+    coco = recipe_config(["--dataset", "coco", "--net", "res50"])
+    if (coco.model.coattention, tuple(coco.ANCHOR_SCALES),
+            coco.MAX_NUM_GT_BOXES) != ("nonlocal", (4, 8, 16, 32), 50):
+        fail(f"the COCO recipe: {coco.model.coattention}, "
+             f"{coco.ANCHOR_SCALES}, {coco.MAX_NUM_GT_BOXES}")
+    paths["coco_eval"] = drive_eval_config(torch, np, dev, "COCO model",
+                                           coco, PER_FORWARD, batches=3)
+    softmax = coco.replace(model=dataclasses.replace(
+        coco.model, coatt_normalization="softmax"))
+    paths["coco_softmax_eval"] = drive_eval_config(
+        torch, np, dev, "COCO model, softmax", softmax, PER_FORWARD)
+    params = bridge.random_tree(bridge.jax_shapes(AITDetector(coco)), 0)
+    paths["coco_train"] = drive_train(torch, np, dev, params, coco, STEPS,
+                                      COCO_PER_STEP, what="the COCO model")
+
+    vgg = recipe_config(["--dataset", "pascal_voc", "--net", "vgg16"])
+    if (vgg.model.backbone, vgg.model.channels) != ("vgg16", 512):
+        fail(f"the VGG16 recipe: {vgg.model.backbone}, {vgg.model.channels}")
+    paths["vgg16_eval"] = drive_eval_config(torch, np, dev, "VGG16", vgg,
+                                            PER_FORWARD, batches=3)
+    check_top_masks(torch, dev, B * vgg.TRAIN.BATCH_SIZE)
+    params = bridge.random_tree(bridge.jax_shapes(AITDetector(vgg)), 0)
+    frozen = {f"backbone.{c}.{leaf}" for c in ("conv1_1", "conv1_2",
+                                               "conv2_1", "conv2_2")
+              for leaf in ("weight", "bias")}
+    model = AITDetector(vgg)
+    if {k for k, p in model.named_parameters()
+            if not p.requires_grad} != frozen:
+        fail("VGG16: conv1_*/conv2_* are not the frozen parameters")
+    # drive_train fails on any frozen leaf that moves: conv1_*/conv2_*
+    paths["vgg16_train"] = drive_train(torch, np, dev, params, vgg, STEPS,
+                                       VGG_PER_STEP, what="VGG16")
+
+    paths["roi_pool_eval"] = drive_eval_config(
+        torch, np, dev, "ROI pool", top_config(POOLING_MODE="pool"),
+        PER_FORWARD)
+    for name, knob in (("gru", {}), ("lstm", {"rnn_method": "LSTM",
+                                              "rnn_layers": 2,
+                                              "rnn_bidirectional": False})):
+        cfg = knob_config({"with_contextual_relation": True, **knob})
+        paths[f"contextual_{name}_eval"] = drive_eval_config(
+            torch, np, dev, f"contextual relation ({name})", cfg,
+            PER_FORWARD)
+    log(f"recipes: {time.time() - t0:.1f} s")
+    return paths
+
+
+def top_config(**top):
+    """Config() with top-level fields replaced."""
+    from ait_tpu_torch.config import Config
+
+    return Config().replace(**top)
 
 
 def knob_config(knob):
@@ -3490,7 +4027,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.time()
     sources = ["nms", "sh_attention", "sh_attention_general", "ffn", "posln",
-               "gemm", "dropout"]
+               "gemm", "dropout", "ait_loader", "ait_native"]
     _build.build_all(sources)
     log(f"built {sources} in {time.time() - t0:.1f} s")
     check_posln_library(torch)
@@ -3558,6 +4095,8 @@ def main() -> int:
         compare=False)
     time_coattention(torch, np, dev, cfg, state)
     paths.update(drive_data_path(torch, np, dev, cfg, params, state))
+    paths["fold_eval"] = drive_fold(torch, np, dev, cfg, state)
+    paths.update(drive_recipes(torch, np, dev))
     paths.update(drive_cli(torch, np, dev))
 
     meta = {"nms_keep_mask": ("ait_tpu_torch/csrc/nms.cu",

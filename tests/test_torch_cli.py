@@ -11,7 +11,8 @@
   rounding of the image backbone at another batch), with
   `--write_results` and from `--with_cache_file`; `from_run` against a
   predictor built from the restored state; the refusals of what the port
-  does not run yet.
+  does not run yet (the parallel families, the overlays); every recipe,
+  `--dataset coco` and `--net vgg16`, through both CLIs.
 """
 
 import dataclasses
@@ -24,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from fixtures import make_voc_devkit
+from fixtures import make_coco_devkit, make_voc_devkit
 from ait_tpu_torch.data import OneShotLoader
 from ait_tpu_torch.data.coco import read_data_pickle
 from ait_tpu_torch.data.voc import filter_seen, load_voc
@@ -246,12 +247,8 @@ def test_from_run_without_checkpoint_keeps_seeded_weights(runs, tmp_path,
 
 
 @pytest.mark.parametrize("cli,argv,item", [
-    ("train", ["--dataset", "coco"], "A14"),
-    ("train", ["--net", "vgg16"], "A14"),
     ("train", ["--set", "tpu.tp_size", "2"], "A15"),
     ("train", ["--set", "tpu.sp_size", "2"], "A15"),
-    ("eval", ["--dataset", "coco"], "A14"),
-    ("eval", ["--net", "vgg16"], "A14"),
     ("eval", ["--set", "tpu.sp_size", "2"], "A15"),
     ("eval", ["--vis"], "A13b"),
 ])
@@ -261,3 +258,60 @@ def test_refusals_name_the_roadmap_item(tmp_path, cli, argv, item):
         mod.main(["--device", "cpu", "--data_dir", str(tmp_path / "none"),
                   "--save_dir", str(tmp_path / "models"), *argv])
     assert not (tmp_path / "models").exists()
+
+
+@pytest.fixture(scope="module")
+def recipe_root(tmp_path_factory):
+    """A VOC devkit (trainval, test) and a COCO tree (2017 val) from the
+    fixtures' seeds."""
+    root = tmp_path_factory.mktemp("cli_recipes")
+    for split in ("trainval", "test"):
+        make_voc_devkit(str(root / "VOCdevkit2007"), image_set=split)
+    make_coco_devkit(str(root))
+    return root
+
+
+# VGG16 at 64x64 queries and 3x3 rois: fc6 flattens the 4x4 query grid
+VGG_TINY = ["TRAIN.query_size", "64", "POOLING_SIZE", "3"]
+
+
+@pytest.mark.parametrize("cli", ["train", "eval"])
+@pytest.mark.parametrize("recipe", ["coco", "vgg16"])
+def test_every_recipe_trains_and_evaluates(recipe_root, tmp_path, cli,
+                                           recipe):
+    """`--dataset coco` (the non-local co-attention, COCO's anchors and
+    box cap) and `--net vgg16` (cfgs/vgg16.yml) run through both CLIs: a
+    few train steps with finite losses in metrics.jsonl, or an eval pass
+    to its AP line."""
+    data = (["--dataset", "coco", "--coco_set", "2017_val", "--net", "res50"]
+            if recipe == "coco" else
+            ["--dataset", "pascal_voc", "--net", "vgg16"])
+    argv = data + ["--data_dir", str(recipe_root), "--nw", "0",
+                   "--save_dir", str(tmp_path / "models"), "--device", "cpu",
+                   "--seen", "1", "--bs", "2"]
+    tiny = TINY + (VGG_TINY if recipe == "vgg16" else [])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "torch.utils.tensorboard", None)
+        if cli == "train":
+            out = trainval_net.main(argv + [
+                "--epochs", "1", "--debug", "--disp_interval", "1",
+                "--checkpoint_interval", "100"] + tiny)
+        else:
+            out = test_net.main(argv + [
+                "--a", "1", "--debug", "--output_dir",
+                str(tmp_path / "out")] + tiny)
+    if cli == "train":
+        assert out["step"] >= 1
+        with open(os.path.join(out["run_dir"], "config.json")) as f:
+            saved = json.load(f)
+        assert saved["model"]["coattention"] == (
+            "nonlocal" if recipe == "coco" else "mha")
+        assert saved["model"]["backbone"] == (
+            "vgg16" if recipe == "vgg16" else "resnet50")
+        with open(os.path.join(out["run_dir"], "logs", "metrics.jsonl")) as f:
+            rows = [json.loads(ln) for ln in f]
+        losses = [r for r in rows if "loss" in r]
+        assert losses and all(np.isfinite(r["loss"]) for r in losses)
+    else:
+        key = "AP50" if recipe == "coco" else "mAP"
+        assert len(out) == 1 and 0.0 <= out[0][key] <= 1.0

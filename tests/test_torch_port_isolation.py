@@ -98,12 +98,28 @@ def test_importing_the_port_loads_no_jax():
             "ait_tpu_torch.evaluation.voc_results, "
             "ait_tpu_torch.evaluation.coco_eval, ait_tpu_torch.convert, "
             "ait_tpu_torch.utils, ait_tpu_torch.train.checkpoint, "
-            "ait_tpu_torch.tools.trainval_net, ait_tpu_torch.tools.test_net; "
+            "ait_tpu_torch.tools.trainval_net, ait_tpu_torch.tools.test_net, "
+            "ait_tpu_torch.native, ait_tpu_torch.models.vgg, "
+            "ait_tpu_torch.ops.roi_pool, "
+            "ait_tpu_torch.tools.convert_torch_checkpoint; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'ait_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
+
+
+def test_native_route_loads_its_own_library():
+    """The port's host C++ is its own build (csrc/ait_loader.cpp,
+    csrc/ait_native.cpp into ait_tpu_torch/_build/), never the JAX
+    package's native/libait_native.so."""
+    code = ("from ait_tpu_torch import native; native.available(); "
+            "maps = open('/proc/self/maps').read(); "
+            "assert 'libait_native' not in maps; "
+            "assert 'ait_tpu_torch/_build/ait_loader-' in maps, maps; "
+            "assert 'ait_tpu_torch/_build/ait_native-' in maps, maps")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=300)
 
 
 def test_train_step_without_device_raises_when_no_gpu(monkeypatch):
