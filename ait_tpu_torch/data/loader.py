@@ -101,8 +101,8 @@ class OneShotLoader:
         # 1/process_count slice of each global batch.  Item-level sampling
         # (query class/shot, flips, gt shuffle) is host-local, so its rng is
         # decorrelated by process_index; at process_count == 1 both seeds
-        # reduce to the single-host values.  Nothing in the port sets
-        # process_count > 1 yet: the multi-host trainer (ROADMAP A15) will.
+        # reduce to the single-host values.  Under torchrun the CLIs set
+        # them to the data rank and the data size (tools/trainval_net.py).
         self.process_index = int(process_index)
         self.process_count = int(process_count)
         base_seed = cfg.RNG_SEED if seed is None else seed

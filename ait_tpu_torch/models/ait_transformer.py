@@ -19,7 +19,10 @@ ait_tpu/models/ait_transformer.py).
   masks.  In training without it the query is repeated up front, as the
   reference does, and every proposal draws its own prefix masks
   (ait_transformer.py:146-154);
-* the output goes back to the query grid and through a 1x1 conv to 1024.
+* the output goes back to the query grid and through a 1x1 conv to 1024;
+* with tp_size > 1 every attention and FFN of the layers splits its heads
+  and hidden units over the tp group (models/attention.py); the glue is
+  not split and keeps its kernel, as in the JAX package.
 
 In training every site draws from the forward's `Dropout` in the JAX
 module's order (glue, then each layer's attentions and FFN).  Feature maps
@@ -43,11 +46,12 @@ from ait_tpu_torch.ops import fused_ffn
 
 class EncoderLayer(nn.Module):
     def __init__(self, d_model, d_inner, n_head, d_k, d_v, dist="softmax",
-                 dtype=torch.float32):
+                 dtype=torch.float32, tp_size=1, tp_group=None):
         super().__init__()
+        tp = dict(tp_size=tp_size, tp_group=tp_group)
         self.slf_attn = MultiHeadAttention(n_head, d_model, d_k, d_v,
-                                           dist=dist, dtype=dtype)
-        self.pos_ffn = PositionwiseFeedForward(d_model, d_inner, dtype)
+                                           dist=dist, dtype=dtype, **tp)
+        self.pos_ffn = PositionwiseFeedForward(d_model, d_inner, dtype, **tp)
 
     def forward(self, x, mask, drop: Optional[Dropout] = None):
         return self.pos_ffn(self.slf_attn(x, x, x, mask, drop=drop), drop)
@@ -55,13 +59,14 @@ class EncoderLayer(nn.Module):
 
 class DecoderLayer(nn.Module):
     def __init__(self, d_model, d_inner, n_head, d_k, d_v, dist="softmax",
-                 dtype=torch.float32):
+                 dtype=torch.float32, tp_size=1, tp_group=None):
         super().__init__()
+        tp = dict(tp_size=tp_size, tp_group=tp_group)
         self.slf_attn = MultiHeadAttention(n_head, d_model, d_k, d_v,
-                                           dist=dist, dtype=dtype)
+                                           dist=dist, dtype=dtype, **tp)
         self.enc_attn = MultiHeadAttention(n_head, d_model, d_k, d_v,
-                                           dist=dist, dtype=dtype)
-        self.pos_ffn = PositionwiseFeedForward(d_model, d_inner, dtype)
+                                           dist=dist, dtype=dtype, **tp)
+        self.pos_ffn = PositionwiseFeedForward(d_model, d_inner, dtype, **tp)
 
     def forward(self, x, enc_out, slf_mask, cross_mask, repeat: int = 1,
                 drop: Optional[Dropout] = None):
@@ -80,8 +85,10 @@ class AITTransformer(nn.Module):
                  d_v: int = 64, n_position: int = 64,
                  causal_mask: bool = True, dist: str = "softmax",
                  channels: int = 1024,
-                 dec_prefix_per_image: bool = True, dtype=torch.float32):
+                 dec_prefix_per_image: bool = True, dtype=torch.float32,
+                 tp_size: int = 1, tp_group=None):
         super().__init__()
+        tp = dict(tp_size=tp_size, tp_group=tp_group)
         self.d_model, self.n_layers, self.dtype = d_model, n_layers, dtype
         self.causal_mask = causal_mask
         self.dec_prefix_per_image = dec_prefix_per_image
@@ -91,9 +98,9 @@ class AITTransformer(nn.Module):
         self.dec_in_ln = Params(scale=(d_model,), bias=(d_model,))
         for i in range(n_layers):
             self.add_module(f"enc_layer{i}", EncoderLayer(
-                d_model, d_inner, n_head, d_k, d_v, dist, dtype))
+                d_model, d_inner, n_head, d_k, d_v, dist, dtype, **tp))
             self.add_module(f"dec_layer{i}", DecoderLayer(
-                d_model, d_inner, n_head, d_k, d_v, dist, dtype))
+                d_model, d_inner, n_head, d_k, d_v, dist, dtype, **tp))
         self.dec_trans = Conv(d_model, channels, 1, dtype=dtype)
         self.register_buffer(
             "pos", torch.from_numpy(sinusoid_table(n_position, d_model)),

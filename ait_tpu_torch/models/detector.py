@@ -55,6 +55,7 @@ from ait_tpu_torch.models.vgg import VGGBackbone, VGGTop
 from ait_tpu_torch.ops.anchors import shifted_anchors
 from ait_tpu_torch.ops.roi_align import roi_align
 from ait_tpu_torch.ops.roi_pool import roi_pool
+from ait_tpu_torch.parallel.mesh import axis_size
 
 # torchvision normalization constants (blob.py:42-48), applied on the
 # device to uint8 inputs (data/transforms.py holds them for the host)
@@ -92,16 +93,32 @@ class DetectorOut(NamedTuple):
                 self.margin_loss + self.rcnn_loss_bbox)
 
 
+def check_tp_size(cfg: Config) -> None:
+    """tpu.tp_size must divide the heads and the FFN's hidden width (the
+    JAX CLI's check, tools/trainval_net.py:178-183)."""
+    tp = int(cfg.tpu.tp_size)
+    if tp > 1 and (cfg.model.t_n_head % tp or cfg.model.t_d_inner % tp):
+        raise ValueError(
+            f"tpu.tp_size {tp} must divide t_n_head ({cfg.model.t_n_head}) "
+            f"and t_d_inner ({cfg.model.t_d_inner})")
+
+
+def _mesh_group(cfg: Config, mesh, knob: str, axis: str):
+    """The process group of `axis` for tpu.<knob> > 1, checked against the
+    mesh; None at 1."""
+    size = int(getattr(cfg.tpu, knob))
+    if size <= 1:
+        return None
+    if mesh is None or axis_size(mesh, axis) != size:
+        raise ValueError(f"tpu.{knob} {size}: the detector needs the mesh "
+                         f"(parallel.make_mesh) with a '{axis}' axis of "
+                         f"{size} ranks")
+    return mesh.get_group(axis)
+
+
 def _check_supported(cfg: Config) -> None:
-    """The model paths the port refuses: the parallel families (ROADMAP
-    A15), and values no detector takes."""
-    parallel = [k for k in ("tp_size", "sp_size")
-                if getattr(cfg.tpu, k) > 1]
-    if parallel:
-        raise NotImplementedError(
-            f"tpu.{', tpu.'.join(parallel)} > 1: the parallel families "
-            "(tensor and sequence parallelism) are not ported yet (ROADMAP "
-            "A15)")
+    """Values no detector takes."""
+    check_tp_size(cfg)
     mc = cfg.model
     if mc.backbone not in STAGES and mc.backbone != "vgg16":
         raise ValueError(f"model.backbone {mc.backbone}")
@@ -115,12 +132,23 @@ def _check_supported(cfg: Config) -> None:
 
 
 class AITDetector(nn.Module):
-    def __init__(self, cfg: Config, dtype=torch.float32):
+    """cfg.tpu.tp_size > 1 or sp_size > 1 needs `mesh` (parallel/mesh.py),
+    with a tp_axis or sp_axis of that size: the attention heads split over
+    the one, the co-attention's image tokens over the other (inference
+    only).  The parameters are laid out alike at every tp and sp size, so
+    one state_dict loads into any of them (the JAX CLIs initialize a tp = 1
+    twin, since their axis exists only inside shard_map; the port needs
+    none)."""
+
+    def __init__(self, cfg: Config, dtype=torch.float32, mesh=None):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
         self.dtype = dtype
         mc = cfg.model
+        tp_group = _mesh_group(cfg, mesh, "tp_size", cfg.tpu.tp_axis)
+        self.sp_group = _mesh_group(cfg, mesh, "sp_size", cfg.tpu.sp_axis)
+        tp = dict(tp_size=int(cfg.tpu.tp_size), tp_group=tp_group)
         ch = mc.channels
         if mc.backbone == "vgg16":
             self.backbone = VGGBackbone(dtype=dtype)
@@ -135,10 +163,12 @@ class AITDetector(nn.Module):
             top_dim = 2048
         if mc.coattention == "nonlocal":
             self.coattention = NonLocalCoAttention(
-                ch, mc.coatt_normalization, dtype=dtype)
+                ch, mc.coatt_normalization, dtype=dtype,
+                sp_group=self.sp_group)
         else:
             self.coattention = MHACoAttention(ch, mc.t_n_head, mc.t_d_k,
-                                              mc.t_d_v, dtype=dtype)
+                                              mc.t_d_v, dtype=dtype,
+                                              sp_group=self.sp_group, **tp)
         self.rpn = RPNHead(ch, len(cfg.ANCHOR_SCALES) *
                            len(cfg.ANCHOR_RATIOS), dtype=dtype)
         self.transformer = AITTransformer(
@@ -146,7 +176,8 @@ class AITDetector(nn.Module):
             n_layers=mc.t_n_layers, n_head=mc.t_n_head, d_k=mc.t_d_k,
             d_v=mc.t_d_v, n_position=mc.t_n_position,
             causal_mask=mc.t_causal_mask, dist=mc.t_attn_dist, channels=ch,
-            dec_prefix_per_image=cfg.tpu.dec_prefix_per_image, dtype=dtype)
+            dec_prefix_per_image=cfg.tpu.dec_prefix_per_image, dtype=dtype,
+            **tp)
         self.sk = SKNet(ch, gate=mc.sk_gate, dtype=dtype)
         if mc.with_contextual_relation:
             self.contextual = ContextualRelation(
@@ -182,6 +213,9 @@ class AITDetector(nn.Module):
             raise ValueError(f"image batch {image.shape[0]} != query batch {b}")
         drop = None
         if train:
+            if self.sp_group is not None:
+                raise ValueError("sequence parallelism (tpu.sp_size > 1) is "
+                                 "an inference-path feature")
             if gt_boxes is None:
                 raise ValueError("training needs gt_boxes")
             if not c.model.class_agnostic:

@@ -69,6 +69,11 @@ class OneShotPredictor:
         if os.path.exists(cfg_path):
             with open(cfg_path) as f:
                 cfg = _config_from_json(json.load(f))
+        # one process serves: a run trained over a mesh (tpu.tp_size > 1)
+        # loads into the one-process model, whose parameters are laid out
+        # alike
+        cfg = cfg.replace(tpu=dataclasses.replace(cfg.tpu, tp_size=1,
+                                                  sp_size=1))
         model = init_weights(AITDetector(cfg), 0)
         ckpt_dir = os.path.join(run_dir, "ckpt")
         restored = None

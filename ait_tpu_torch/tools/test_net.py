@@ -22,8 +22,16 @@ from `--pretrained` (a converted params pickle,
 `python -m ait_tpu_torch.tools.convert_torch_checkpoint`); without any, the
 random weights from RNG_SEED, with a warning.  `--dataset coco` evaluates
 with the COCO protocol (evaluation/coco_eval.py, AP50 as the headline).
-Refused up front: `tpu.tp_size` or `tpu.sp_size` > 1 (A15), and `--vis`
-(A13b: its drawing needs cv2).
+Refused up front: `--vis` (A13b: its drawing needs cv2).
+
+Under torchrun (`torchrun --nproc_per_node N -m
+ait_tpu_torch.tools.test_net ... [--set tpu.sp_size S]`) the ranks form a
+(data x seq) mesh of (N / S) x S: each data rank evaluates its slice of
+every batch (the loader's `process_index`), the co-attention's image tokens
+split over the seq ranks (parallel/sp.py), the detections of all ranks are
+merged (`allgather_object`, `merge_all_boxes`) and rank 0 writes the
+detections file and experiment.info; every rank computes the AP.
+`--fuse_shots` runs in one process only.
 """
 
 from __future__ import annotations
@@ -52,8 +60,11 @@ from ait_tpu_torch.evaluation import (comp_id_tag, evaluate_voc,
 from ait_tpu_torch.evaluation.coco_eval import (COCODetEval,
                                                 dets_to_coco_results)
 from ait_tpu_torch.models import AITDetector
-from ait_tpu_torch.tools.trainval_net import (build_config, check_scope,
-                                              compute_dtype)
+from ait_tpu_torch.parallel import multihost
+from ait_tpu_torch.parallel.mesh import axis_index
+from ait_tpu_torch.parallel.sharded import make_sharded_eval_step
+from ait_tpu_torch.tools.trainval_net import (build_config, compute_dtype,
+                                              make_run_mesh, parallel_layout)
 from ait_tpu_torch.train import (init_weights, make_eval_step,
                                  make_fused_eval_step)
 from ait_tpu_torch.train.checkpoint import CheckpointManager
@@ -220,11 +231,17 @@ def main(argv=None, *,
     query-shot pass."""
     args = parse_args(argv)
     cfg = build_config(args)
-    check_scope(args, cfg)
     if args.visualization:
         raise SystemExit("--vis: the detection overlays are not ported yet "
                          "(ROADMAP A13b)")
-    dev = resolve_device(args.device)
+    dev = multihost.maybe_init_distributed(printer, args.device) or \
+        resolve_device(args.device)
+    rank, world = multihost.world()
+    sp = int(cfg.tpu.sp_size)
+    dp = parallel_layout(cfg, "sp_size", world, args.batch_size)
+    if args.fuse_shots and world > 1:
+        raise SystemExit("--fuse_shots is a single-process path; drop it "
+                         "or run one process")
     # adopt train-time architecture knobs saved next to the checkpoint
     # (the reference restores POOLING_MODE from its ckpt dict,
     # test_net_voc.py:277-278)
@@ -248,8 +265,9 @@ def main(argv=None, *,
     printer(f"{len(view.records)} eval images, "
             f"{len(view.allowed_classes)} classes under test")
 
-    model = init_weights(AITDetector(cfg, dtype=compute_dtype(cfg)),
-                         cfg.RNG_SEED)
+    mesh = make_run_mesh(cfg.tpu.sp_axis, dp, sp)
+    model = init_weights(AITDetector(cfg, dtype=compute_dtype(cfg),
+                                     mesh=mesh), cfg.RNG_SEED)
     ckpt_dir = args.checkpoint_path or os.path.join(run_dir, "ckpt")
     ckpt_step = 0
     if args.pretrained:
@@ -267,7 +285,8 @@ def main(argv=None, *,
         printer("WARNING: no checkpoint dir, evaluating random init",
                 c="yellow")
     model.to(dev).eval()
-    eval_step = make_eval_step(model)
+    eval_step = (make_eval_step(model) if mesh is None
+                 else make_sharded_eval_step(model, mesh))
 
     # the reference thresholds at 0.0 (0.05 only under --vis,
     # test_net_voc.py:311-313)
@@ -281,13 +300,17 @@ def main(argv=None, *,
             bbox_normalize_stds=cfg.TRAIN.BBOX_NORMALIZE_STDS)
 
     os.makedirs(args.output_dir, exist_ok=True)
-    loader = OneShotLoader(view, cfg, training=False, imread=imread)
+    loader = OneShotLoader(view, cfg, training=False, imread=imread,
+                           process_index=(0 if mesh is None else
+                                          axis_index(mesh, "data")),
+                           process_count=dp)
 
     # run tag side-channel (the reference writes it at startup,
     # test_net_voc.py:223-225; the VOC writer reads it back as comp-id)
     comp_id = comp_id_tag(args.checksession, ckpt_step, args.version)
-    write_experiment_info(comp_id, os.path.join(args.output_dir,
-                                                "experiment.info"))
+    if rank == 0:
+        write_experiment_info(comp_id, os.path.join(args.output_dir,
+                                                    "experiment.info"))
 
     fused_boxes = None
     if args.fuse_shots and not (args.average > 1
@@ -318,8 +341,13 @@ def main(argv=None, *,
                 printer(f"Query-shot pass {avg + 1}/{args.average}")
                 all_boxes = run_pass(loader, eval_step, post, args,
                                      view.allowed_classes, dev)
-            with open(det_file, "wb") as f:
-                pickle.dump(all_boxes, f, pickle.HIGHEST_PROTOCOL)
+                # each data rank evaluated its own pairs: merge, so that
+                # every rank holds (and rank 0 caches) the whole pass
+                all_boxes = multihost.merge_all_boxes(
+                    multihost.allgather_object(all_boxes))
+            if rank == 0:
+                with open(det_file, "wb") as f:
+                    pickle.dump(all_boxes, f, pickle.HIGHEST_PROTOCOL)
 
         if args.dataset == "coco":
             gt = view.coco_gt
@@ -334,7 +362,7 @@ def main(argv=None, *,
             stats = ev.summarize(class_index=class_index)
             results.append({"AP50": float(stats[1]), "AP": float(stats[0])})
         else:
-            if args.write_results:
+            if args.write_results and rank == 0:
                 paths = write_voc_results_files(
                     all_boxes, view.records, view.classes,
                     os.path.join(args.data_dir, "VOCdevkit2007"), "2007",

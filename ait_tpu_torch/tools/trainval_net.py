@@ -9,9 +9,26 @@ same `Config` as the JAX CLI's for the same flags: the recipe
 `cfgs/{net}[_{g}][_ls].yml`, the dataset's anchor scales and box cap, the
 backbone, the co-attention flavour and `class_agnostic`, then `--set`.
 
-One run on one device: `OneShotLoader(training=True)` -> `device_prefetch`
--> `make_train_step`.  The step's generator is seeded from
-(RNG_SEED + session, step), the port's counterpart of
+One process a device.  Alone, the run is `OneShotLoader(training=True)` ->
+`device_prefetch` -> `make_train_step`.  Under torchrun,
+
+    torchrun --nproc_per_node N -m ait_tpu_torch.tools.trainval_net ... \
+        [--set tpu.tp_size T]
+
+every rank joins the process group (`parallel.maybe_init_distributed`:
+NCCL on its card, gloo with `--device cpu`), the ranks form a (data x model)
+mesh of (N / T) x T, the loader feeds each data rank its slice of every
+batch (`process_index` = data rank, `process_count` = data size), and
+`parallel.make_sharded_train_step` takes the step: one mean of the
+gradients over the data ranks, the heads and FFN units split over the model
+ranks.  Only rank 0 writes config.json, the metrics and the checkpoints
+(all ranks wait for each save, then all restore).  A world size that the
+batch, `--grad_accum` and tp cannot split is refused up front with the
+sizes that would work: a torchrun rank cannot sit idle in a collective,
+where the JAX CLI leaves devices idle (tools/trainval_net.py:232-254).
+
+The step's generator is seeded from (RNG_SEED + session, step), the port's
+counterpart of
 `fold_in(rng, state.step)`, so a resumed run draws what the first run
 would have drawn at that step.  The run directory is
 `<save_dir>/<net>/<dataset>/<version>/`: `config.json` (`save_config`),
@@ -22,8 +39,8 @@ at epoch latest // steps_per_epoch + 1, as the JAX CLI does.
 
 Every recipe trains: `--dataset coco` (the non-local co-attention, anchor
 scales (4, 8, 16, 32), 50 boxes a image) and `--net vgg16` (its global-norm
-clip at 10).  Refused up front, naming the ROADMAP item: `tpu.tp_size` or
-`tpu.sp_size` > 1 (A15).
+clip at 10).  `tpu.sp_size` > 1 is refused: sequence parallelism is an
+inference-path feature (the eval CLI runs it).
 """
 
 from __future__ import annotations
@@ -35,6 +52,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ait_tpu_torch.config import Config
 from ait_tpu_torch.convert import load_pretrained
@@ -43,6 +61,10 @@ from ait_tpu_torch.data import coco as coco_data
 from ait_tpu_torch.data import voc as voc_data
 from ait_tpu_torch.device import resolve_device
 from ait_tpu_torch.models import AITDetector
+from ait_tpu_torch.models.detector import check_tp_size
+from ait_tpu_torch.parallel import multihost
+from ait_tpu_torch.parallel.mesh import axis_index, make_mesh, replicate
+from ait_tpu_torch.parallel.sharded import make_sharded_train_step
 from ait_tpu_torch.train import (init_weights, lr_schedule, make_optimizer,
                                  make_train_step)
 from ait_tpu_torch.train.checkpoint import CheckpointManager, save_config
@@ -131,13 +153,42 @@ def build_config(args) -> Config:
     return cfg
 
 
-def check_scope(args, cfg: Config) -> None:
-    """Refuse, before any data or model work, what the port does not run
-    yet, naming the ROADMAP item that brings it."""
-    for knob in ("tp_size", "sp_size"):
-        if int(getattr(cfg.tpu, knob)) > 1:
-            raise SystemExit(f"tpu.{knob} > 1: the parallel families are "
-                             "not ported yet (ROADMAP A15)")
+def parallel_layout(cfg: Config, knob: str, world: int, batch_size: int,
+                    accum: int = 1) -> int:
+    """The data size of a world of `world` ranks with tpu.<knob> (tp_size or
+    sp_size) ranks to a data rank; refuses (SystemExit), before any data or
+    model work, a size the heads, the world or the batch cannot take."""
+    size = int(getattr(cfg.tpu, knob))
+    if knob == "tp_size":
+        try:
+            check_tp_size(cfg)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
+    if world % size:
+        raise SystemExit(f"tpu.{knob} {size}: needs a world size divisible "
+                         f"by it, have {world}")
+    dp = world // size
+    if batch_size % (dp * accum):
+        fits = [d * size for d in range(1, batch_size + 1)
+                if batch_size % (d * accum) == 0]
+        raise SystemExit(
+            f"world size {world}: batch {batch_size} does not split into "
+            f"{dp} data ranks x {accum} microbatches (tpu.{knob} {size}); "
+            f"world sizes that split it: {fits}")
+    return dp
+
+
+def make_run_mesh(axis: str, dp: int, size: int):
+    """The (data x axis) mesh of an initialized world, 'data' alone at
+    size 1; None without a process group."""
+    if not dist.is_initialized():
+        return None
+    if size > 1:
+        mesh = make_mesh(dp * size, axes=("data", axis), shape=(dp, size))
+    else:
+        mesh = make_mesh(dp)
+    printer(f"Mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))}")
+    return mesh
 
 
 def build_view(args, cfg):
@@ -188,26 +239,39 @@ def main(argv=None, *,
     an epoch, its first epoch and step, and its last step."""
     args = parse_args(argv)
     cfg = build_config(args)
-    check_scope(args, cfg)
+    if int(cfg.tpu.sp_size) > 1:
+        raise SystemExit("tpu.sp_size > 1: sequence parallelism is an "
+                         "inference-path feature (the eval CLI runs it)")
     if args.batch_size % args.grad_accum != 0:
         raise SystemExit(
             f"--grad_accum {args.grad_accum}: batch {args.batch_size} "
             "must be divisible by the microbatch count")
-    dev = resolve_device(args.device)
+    dev = multihost.maybe_init_distributed(printer, args.device) or \
+        resolve_device(args.device)
+    rank, world = multihost.world()
+    tp = int(cfg.tpu.tp_size)
+    dp = parallel_layout(cfg, "tp_size", world, args.batch_size,
+                         args.grad_accum)
     np.random.seed(cfg.RNG_SEED)
+    mesh = make_run_mesh(cfg.tpu.tp_axis, dp, tp)
+    data_rank = 0 if mesh is None else axis_index(mesh, "data")
 
     view = build_view(args, cfg)
     printer(f"{len(view.records)} roidb entries (pre-augment)")
-    loader = OneShotLoader(view, cfg, training=True, imread=imread)
+    loader = OneShotLoader(view, cfg, training=True, imread=imread,
+                           process_index=data_rank, process_count=dp)
     printer(f"{len(loader)} training records after flip+filter")
 
     output_dir = run_dir(args)
     os.makedirs(output_dir, exist_ok=True)
-    save_config(output_dir, cfg)
-    writer = MetricWriter(os.path.join(output_dir, "logs"))
+    # one config and one metrics stream a run: rank 0 writes them
+    writer = None
+    if rank == 0:
+        save_config(output_dir, cfg)
+        writer = MetricWriter(os.path.join(output_dir, "logs"))
 
-    model = init_weights(AITDetector(cfg, dtype=compute_dtype(cfg)),
-                         cfg.RNG_SEED)
+    model = init_weights(AITDetector(cfg, dtype=compute_dtype(cfg),
+                                     mesh=mesh), cfg.RNG_SEED)
     if args.pretrained:
         n = load_pretrained(model, args.pretrained)
         printer(f"Loaded {n} pretrained arrays from ", args.pretrained)
@@ -221,6 +285,16 @@ def main(argv=None, *,
                          clip_norm=10.0 if args.net == "vgg16" else None)
 
     ckpt = CheckpointManager(os.path.join(output_dir, "ckpt"))
+
+    def save(step, epoch, force=False):
+        # rank 0 writes (a save removes the temporary directories it finds,
+        # so concurrent writers would remove each other's); all ranks wait
+        if rank == 0:
+            ckpt.save(step, model, opt, metadata={
+                "epoch": epoch, "session": args.session}, force=force)
+        if mesh is not None:
+            dist.barrier()
+
     start_epoch, start_step = args.start_epoch, 0
     if args.resume:
         restored = ckpt.restore(model, opt)
@@ -228,13 +302,21 @@ def main(argv=None, *,
             start_step = restored[0]
             start_epoch = start_step // steps_per_epoch + 1
             printer(f"Resumed from step {start_step} -> epoch {start_epoch}")
+    if mesh is not None:
+        replicate(model, mesh)
 
     accum = args.grad_accum
     if accum > 1:
         printer(f"Gradient accumulation: {accum} microbatches of "
-                f"{args.batch_size // accum} per step")
-    step_fn = make_train_step(model, opt, sched, device=dev,
-                              accum_steps=accum, start_step=start_step)
+                f"{args.batch_size // (dp * accum)} per step and data rank")
+    if mesh is None:
+        step_fn = make_train_step(model, opt, sched, device=dev,
+                                  accum_steps=accum, start_step=start_step)
+    else:
+        step_fn = make_sharded_train_step(
+            model, opt, sched, mesh, accum_steps=accum, device=dev,
+            tp_axis=cfg.tpu.tp_axis if tp > 1 else None,
+            start_step=start_step)
 
     meters = {k: AverageMeter() for k in LOSS_KEYS}
     thru = ThroughputMeter()
@@ -254,7 +336,8 @@ def main(argv=None, *,
                         cfg, args.session, step_fn.step, dev))
                     thru.tick(args.batch_size)
                     step = step_fn.step
-                    if (it + 1) % args.disp_interval == 0 or args.debug:
+                    if rank == 0 and ((it + 1) % args.disp_interval == 0
+                                      or args.debug):
                         metrics = {k: float(v) for k, v in metrics.items()}
                         for k, m in meters.items():
                             m.update(metrics[k])
@@ -277,18 +360,16 @@ def main(argv=None, *,
                                             "pairs_per_sec": pps},
                                      prefix="perf")
                     if step % args.checkpoint_interval == 0:
-                        ckpt.save(step, model, opt, metadata={
-                            "epoch": epoch, "session": args.session})
+                        save(step, epoch)
             finally:
                 epoch_batches.close()
             step = step_fn.step
-            ckpt.save(step, model, opt,
-                      metadata={"epoch": epoch, "session": args.session},
-                      force=True)
+            save(step, epoch, force=True)
             printer(f"Saved checkpoint at epoch {epoch}, step {step}")
     finally:
         ckpt.wait()
-        writer.close()
+        if writer is not None:
+            writer.close()
     printer("Training done.")
     return {"run_dir": output_dir, "steps_per_epoch": steps_per_epoch,
             "start_epoch": start_epoch, "start_step": start_step,

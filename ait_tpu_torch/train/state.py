@@ -92,6 +92,26 @@ def grads_and_metrics(model: AITDetector, batch: Dict[str, torch.Tensor],
             for k, v in total.items()}
 
 
+def check_generator(generator) -> None:
+    if not isinstance(generator, torch.Generator):
+        raise TypeError("train_step needs a torch.Generator for the "
+                        "dropout and the target sampling")
+
+
+def apply_update(optimizer: torch.optim.Optimizer, params, lr: float) -> None:
+    """The update of a step from the accumulated .grad: zeros for the
+    members without one (weight decay applies to every group member), the
+    optimizer's global-norm clip where it has one, then one step at `lr`."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    clip_norm = getattr(optimizer, "clip_norm", None)
+    if clip_norm:
+        clip_by_global_norm_((p.grad for p in params), clip_norm)
+    set_lr(optimizer, lr)
+    optimizer.step()
+
+
 def make_train_step(model: AITDetector, optimizer: torch.optim.Optimizer,
                     schedule: Callable[[int], float], *, device=None,
                     accum_steps: int = 1, start_step: int = 0) -> Callable:
@@ -108,20 +128,11 @@ def make_train_step(model: AITDetector, optimizer: torch.optim.Optimizer,
 
     def train_step(batch: Dict[str, torch.Tensor],
                    generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        if not isinstance(generator, torch.Generator):
-            raise TypeError("train_step needs a torch.Generator for the "
-                            "dropout and the target sampling")
+        check_generator(generator)
         optimizer.zero_grad(set_to_none=True)
         batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
         metrics = grads_and_metrics(model, batch, generator, accum_steps)
-        for p in params:          # weight decay applies to every group member
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        clip_norm = getattr(optimizer, "clip_norm", None)
-        if clip_norm:
-            clip_by_global_norm_((p.grad for p in params), clip_norm)
-        set_lr(optimizer, schedule(train_step.step))
-        optimizer.step()
+        apply_update(optimizer, params, schedule(train_step.step))
         train_step.step += 1
         return metrics
 

@@ -156,7 +156,26 @@
    contextual relation (GRU, LSTM): eval forwards with their launches and
    the kernel path against the plain path, the COCO and VGG16 models 3
    train steps each with the f32 kernel-vs-plain step.
-8. Prints the per-kernel JSON line, then the device JSON line last.
+8. The parallel phase (slice 13, `drive_parallel`), at full width.  NCCL
+   at world 1 in this process: `make_sharded_train_step` on a one-rank
+   'data' mesh against `make_train_step`, `Config()` at B = 8, one warm-up
+   and 2 timed steps each from the same weights and generator, the losses
+   and every parameter after each step bit-equal, PER_STEP's launches; the
+   sharded eval step bit-equal to `make_eval_step` with PER_FORWARD's;
+   `fused_pmean` of one step's gradients timed alone beside its bound.
+   Then two ranks on the one card, gloo with CUDA tensors, through
+   `parallel.launch.run_local` (killed at its timeout): dp2 (B = 8, 4 a
+   rank, f32: the ranks' parameters bitwise equal, the reduced gradients
+   within 1e-6 of the halves' mean computed on rank 0, fg/bg counts
+   summed), tp2 (data 1 x model 2: the step against the world-1 step, f32
+   at t_dropout 0 and 0.1 within 1e-4, then bf16 logged), sp2 (data 1 x
+   seq 2 on the 608x800 canvas, MHA and non-local co-attention: eval
+   against unsharded, the co-attention within 2e-5, the shared rois'
+   detections within 1e-3), pp2 (two flagship-width EncoderLayers as GPipe
+   stages, 8 microbatches, against the layers in turn: 2e-5 forward, 1e-4
+   gradients); each with its launches per rank.  Two ranks on one card
+   prove the paths with the kernels live; they measure no scaling.
+9. Prints the per-kernel JSON line, then the device JSON line last.
 
 Exits non-zero, with no result line, without a CUDA device or outside a
 checkout of the repository.  Imports nothing of JAX or ait_tpu.
@@ -4001,6 +4020,564 @@ def knob_config(knob):
     return cfg.replace(model=dataclasses.replace(cfg.model, **knob))
 
 
+# ------------------------------------------------------------ parallel phase
+
+# the legs of the parallel phase: the f32 comparisons at PAR_B images, the
+# GPipe leg's microbatches and their shape (rois x tokens x d_model)
+PAR_B = 2
+PP_M, PP_MICRO = 8, (32, 56, 512)
+# launches per rank and step of a tp train step: the attentions and FFNs run
+# plain torch under tp (as the JAX package runs them plain XLA), so NMS, the
+# glue and, with dropout, the mask dumps launch (two for each of the five
+# attentions, one for each of the two FFNs)
+_NONE = dict.fromkeys(PER_STEP, 0)
+PER_STEP_TP = {**_NONE, "nms_keep_mask": 1, "posln_drop_fwd": 2,
+               "posln_drop_bwd": 2, "keep_mask_dump": 5 * 2 + 2}
+PER_STEP_TP_NO_DROPOUT = {**_NONE, "nms_keep_mask": 1, "posln_fwd": 2,
+                          "posln_bwd": 2}
+# an eval step alone: PER_FORWARD without the postprocess's NMS
+PER_EVAL_STEP = {**PER_FORWARD, "nms_keep_mask": 1}
+# a GPipe rank over 2 encoder-layer stages and PP_M microbatches: M + S - 1
+# ticks, each one layer's forward (with saved outputs) and backward
+PP_TICKS = PP_M + 2 - 1
+PER_PP_RANK = {**_NONE, "sh_attention_saved": PP_TICKS,
+               "sh_attention_bwd": PP_TICKS, "ffn_fwd": PP_TICKS,
+               "ffn_bwd": PP_TICKS, "ln_bwd_ffn": PP_TICKS,
+               "gemm": PP_TICKS * (ATTN_FWD_GEMM + ATTN_BWD_GEMM + 6),
+               "gemm_fma": PP_TICKS}
+
+
+def f32_launches(expected):
+    """The launches of a path in float32: csrc/gemm.cu runs every f32 x f32
+    product on its FMA tiles."""
+    return {**expected, "gemm": 0,
+            "gemm_fma": expected["gemm"] + expected["gemm_fma"]}
+
+
+def counts_now():
+    return {k: getattr(fn, attr)
+            for k, (fn, attr) in kernel_wrappers().items()}
+
+
+def check_counts(got, expected, runs, what):
+    bad = {k: (got[k], n * runs) for k, n in expected.items()
+           if got[k] != n * runs}
+    if bad:
+        fail(f"{what}: launches (got, expected) {bad}")
+    return got
+
+
+def model_of(torch, cfg, params, dtype, dev, mesh=None):
+    from ait_tpu_torch import bridge
+    from ait_tpu_torch.models import AITDetector
+
+    model = AITDetector(cfg, dtype=dtype, mesh=mesh)
+    model.load_state_dict(bridge.to_state_dict(model, params))
+    return model.to(dev)
+
+
+def on_device(torch, batch, dev):
+    return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+
+def leaf_rel(torch, got, want, floor=0.0):
+    """{name: max |got - want| / max(max |want|, floor)}."""
+    out = {}
+    for k, w in want.items():
+        scale = max(w.double().abs().max().item(), floor) or 1.0
+        out[k] = (got[k].double() - w.double()).abs().max().item() / scale
+    return out
+
+
+def allclose_excess(torch, got, want, rtol, floor):
+    """{name: max(|got - want| - rtol |want|) / max(floor, max |want|)}:
+    at most atol holds numpy's allclose(got, want, rtol, atol x scale), the
+    form of tests/test_tp.py:135-142."""
+    out = {}
+    for k, w in want.items():
+        w = w.double()
+        scale = max(w.abs().max().item(), floor)
+        out[k] = ((got[k].double() - w).abs() - rtol * w.abs()).max().item() \
+            / scale
+    return out
+
+
+def digest(torch, model):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in model.state_dict().values():
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def drive_parallel_nccl1(torch, np, dev, params):
+    """Part 1 of the parallel phase, in this process: NCCL at world 1.
+    make_sharded_train_step on a one-rank 'data' mesh against
+    make_train_step, `Config()` unchanged at B = 8, from the same weights,
+    batches and generator state: one warm-up and 2 timed steps each, the
+    losses and every parameter after each step bit-equal, PER_STEP's
+    launches; the sharded eval step against make_eval_step bit-equal with
+    PER_EVAL_STEP's launches; fused_pmean of one step's gradients and metrics
+    timed alone (its bytes, device ms and event ms beside its bound: the
+    flatten and unflatten copies, each reading and writing every byte
+    once, over the card's memory rate)."""
+    import torch.distributed as dist
+
+    from ait_tpu_torch.parallel import (launch, make_mesh,
+                                        make_sharded_eval_step,
+                                        make_sharded_train_step)
+    from ait_tpu_torch.parallel.sharded import fused_pmean
+    from ait_tpu_torch.train import (lr_schedule, make_eval_step,
+                                     make_optimizer, make_train_step)
+
+    torch.cuda.set_device(torch.cuda.current_device())
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{launch.free_port()}", rank=0,
+        world_size=1)
+    try:
+        mesh = make_mesh(1)
+        cfg = train_config()
+        rng = np.random.RandomState(4)
+        batches = [make_train_batch(np, cfg, rng, B) for _ in range(3)]
+        runs, paths = {}, {}
+        for sharded in (True, False):
+            model = model_of(torch, cfg, params, torch.bfloat16, dev)
+            opt = make_optimizer(cfg, model)
+            sched = lr_schedule(cfg.TRAIN.LEARNING_RATE, 1000, 5,
+                                cfg.TRAIN.GAMMA)
+            step = (make_sharded_train_step(model, opt, sched, mesh,
+                                            device=dev) if sharded
+                    else make_train_step(model, opt, sched, device=dev))
+            gen = torch.Generator(device=dev).manual_seed(5)
+            zero_counts()
+            mets, states, times = [], [], []
+            for batch in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                met = step(batch, gen)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                mets.append({k: v.clone() for k, v in met.items()})
+                states.append([v.clone() for v in model.state_dict().values()])
+            what = "sharded" if sharded else "plain"
+            paths[what] = check_counts(counts_now(), PER_STEP, len(batches),
+                                       f"{what} train step (NCCL world 1)")
+            runs[sharded] = (mets, states, times[1:], model)
+        (ma, sa, ta, a), (mb, sb, tb, b) = runs[True], runs[False]
+        for i in range(len(batches)):
+            if not all(torch.equal(ma[i][k], mb[i][k]) for k in mb[i]):
+                fail(f"NCCL world 1: step {i}'s metrics differ from "
+                     f"make_train_step's: {ma[i]} vs {mb[i]}")
+            if not all(torch.equal(x, y) for x, y in zip(sa[i], sb[i])):
+                fail(f"NCCL world 1: the parameters after step {i} differ "
+                     "from make_train_step's")
+        log(f"parallel (NCCL world 1): {len(batches)} sharded train steps "
+            f"bit-equal to make_train_step (losses and {len(sb[0])} state "
+            f"entries after each); ms a step after one warm-up: sharded "
+            f"{[round(t, 3) for t in ta]}, plain {[round(t, 3) for t in tb]}")
+
+        # the gradients and metrics of one step, as a data size > 1 reduces
+        grads = [p.grad for p in a.parameters() if p.grad is not None]
+        leaves = grads + [v.float().reshape(()) for v in ma[-1].values()]
+        nbytes = sum(t.numel() * t.element_size() for t in leaves)
+        group = dist.group.WORLD
+        pmean_dev = device_ms(lambda: fused_pmean(leaves, group))
+        pmean_ev = cuda_ms(lambda: fused_pmean(leaves, group))
+        pmean_bound = 4 * nbytes / HBM_BYTES_S * 1e3
+        log(f"parallel (NCCL world 1): fused_pmean over {len(leaves)} "
+            f"tensors, {nbytes} bytes in one all_reduce (float32): device "
+            f"{pmean_dev:.4f} ms, event {pmean_ev:.4f} ms, bound "
+            f"{pmean_bound:.4f} ms (bytes: flatten + unflatten copies, "
+            f"{4 * nbytes} bytes over {HBM_BYTES_S:.3g} B/s)")
+
+        a.eval()
+        b.eval()
+        req = make_requests(np, cfg, np.random.RandomState(6), B)
+        batch = on_device(torch, dict(zip(("image", "query", "im_info"),
+                                          req)), dev)
+        zero_counts()
+        got = make_sharded_eval_step(a, mesh)(batch)
+        paths["eval"] = check_counts(counts_now(), PER_EVAL_STEP, 1,
+                                     "sharded eval step (NCCL world 1)")
+        want = make_eval_step(b)(batch)
+        if not all(torch.equal(got[k], want[k]) for k in want):
+            fail("NCCL world 1: the sharded eval step differs from "
+                 "make_eval_step")
+        log("parallel (NCCL world 1): the sharded eval step bit-equal to "
+            "make_eval_step")
+    finally:
+        dist.destroy_process_group()
+    return ({"dp_nccl1_train": paths["sharded"], "dp_nccl1_eval":
+             paths["eval"]},
+            {"sharded_ms": ta, "plain_ms": tb, "pmean_bytes": nbytes,
+             "pmean_device_ms": pmean_dev, "pmean_event_ms": pmean_ev,
+             "pmean_bound_ms": pmean_bound})
+
+
+def leg_dp2(torch, np, dev, params, rank, world):
+    """dp2: `Config()` at B = 8, 4 images a rank, f32 (TF32 off).  One
+    sharded step; every rank's parameters bitwise equal after it; on rank
+    0, the reduced gradients against the mean of grads_and_metrics on each
+    half under that half's derived generator (within 1e-6 of each leaf's
+    max |plain|), fg_cnt and bg_cnt the halves' sums; then a second step for
+    the launches and the time."""
+    from ait_tpu_torch.parallel import (make_mesh, make_sharded_train_step,
+                                        shard_batch)
+    from ait_tpu_torch.parallel.multihost import allgather_object
+    from ait_tpu_torch.parallel.sharded import shard_generator
+    from ait_tpu_torch.train import (grads_and_metrics, lr_schedule,
+                                     make_optimizer)
+
+    cfg = train_config()
+    mesh = make_mesh(world)
+    model = model_of(torch, cfg, params, torch.float32, dev)
+    opt = make_optimizer(cfg, model)
+    step = make_sharded_train_step(model, opt, lr_schedule(1e-3, 1000, 5, 0.1),
+                                   mesh, device=dev)
+    rng = np.random.RandomState(7)
+    batches = [on_device(torch, make_train_batch(np, cfg, rng, B), dev)
+               for _ in range(2)]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    start = gen.get_state()
+    zero_counts()
+    met = {k: float(v) for k, v in step(shard_batch(batches[0], mesh),
+                                        gen).items()}
+    digests = allgather_object(digest(torch, model))
+    if len(set(digests)) != 1:
+        fail("dp2: the ranks' parameters differ after the step")
+    res = {"metrics": met}
+    if rank == 0:
+        got = {k: p.grad.clone() for k, p in model.named_parameters()
+               if p.grad is not None}
+        ref = model_of(torch, cfg, params, torch.float32, dev).train()
+        halves = []
+        for i in range(world):
+            ref.zero_grad(set_to_none=True)
+            g = torch.Generator(device=dev)
+            g.set_state(start)
+            rows = B // world
+            m = grads_and_metrics(ref, {k: v[i * rows:(i + 1) * rows]
+                                        for k, v in batches[0].items()},
+                                  shard_generator(g, i))
+            halves.append(({k: p.grad.clone()
+                            for k, p in ref.named_parameters()
+                            if p.grad is not None},
+                           {k: float(v) for k, v in m.items()}))
+        if sorted(got) != sorted(halves[0][0]):
+            fail("dp2: the step's gradients and the halves' are of other "
+                 "leaves")
+        want = {k: sum(h[0][k] for h in halves) / world for k in got}
+        errs = leaf_rel(torch, got, want)
+        worst = max(errs, key=errs.get)
+        if errs[worst] > 1e-6:
+            fail(f"dp2: reduced gradient {worst} off the halves' mean by "
+                 f"{errs[worst]:.3e} of its max")
+        for k in ("fg_cnt", "bg_cnt"):
+            if met[k] != sum(h[1][k] for h in halves):
+                fail(f"dp2: {k} {met[k]} is not the halves' sum")
+        res["grad_err"] = errs[worst]
+        del ref
+    first = counts_now()
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(shard_batch(batches[1], mesh), gen)
+    torch.cuda.synchronize()
+    res["ms"] = (time.perf_counter() - t0) * 1e3
+    res["launches"] = check_counts(counts_now(), f32_launches(PER_STEP), 1,
+                                   "dp2 step")
+    if rank:
+        check_counts(first, f32_launches(PER_STEP), 1, "dp2 first step")
+    return res
+
+
+def leg_tp2(torch, np, dev, params, rank, world):
+    """tp2 (data 1 x model 2): one train step against the world-1
+    make_train_step on the same batch and generator, f32 at PAR_B images,
+    t_dropout 0 and 0.1: losses within 1e-4 relative, every parameter
+    within 1e-4 relative plus 1e-4 of max(1e-3, its leaf's max |plain|)
+    (tests/test_tp.py:135-142), every gradient within BWD_REL of its
+    leaf's max |plain|, the ranks' parameters bitwise equal.  The world-1
+    step runs the kernels' plain versions, as the tp head is plain torch,
+    and everything after its co-attention sees the tp run's co-attention
+    outputs (held to theirs within 1e-4 of max |plain|), as
+    compare_train_paths does: a one-ulp move of a proposal score reorders
+    the rois (measured on an H100: the two runs then headed other rois,
+    and the transformer's inputs differed by 1.4).  Then bf16 at B = 8,
+    `Config()`, against the world-1 step on the kernels: its error logged,
+    its launches and time."""
+    from ait_tpu_torch.parallel import make_mesh, make_sharded_train_step
+    from ait_tpu_torch.parallel.multihost import allgather_object
+    from ait_tpu_torch.train import (lr_schedule, make_optimizer,
+                                     make_train_step)
+
+    mesh = make_mesh(world, axes=("data", "model"), shape=(1, world))
+    res = {}
+    rng = np.random.RandomState(9)
+    for dtype, t_dropout, b in ((torch.float32, 0.0, PAR_B),
+                                (torch.float32, 0.1, PAR_B),
+                                (torch.bfloat16, 0.1, B)):
+        cfg1 = train_config(t_dropout)
+        cfg = cfg1.replace(tpu=dataclasses.replace(cfg1.tpu, tp_size=world))
+        batch = on_device(torch, make_train_batch(np, cfg, rng, b), dev)
+        model = model_of(torch, cfg, params, dtype, dev, mesh)
+        sched = lr_schedule(1e-3, 1000, 5, 0.1)
+        step = make_sharded_train_step(model, make_optimizer(cfg, model),
+                                       sched, mesh, tp_axis="model",
+                                       device=dev)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        met, feats = with_coattention(torch, model, lambda: step(
+            batch, torch.Generator(device=dev).manual_seed(10)))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        key = f"{str(dtype)[6:]}_t_dropout_{t_dropout}"
+        launches = check_counts(
+            counts_now(), PER_STEP_TP if t_dropout else
+            PER_STEP_TP_NO_DROPOUT, 1, f"tp2 step ({key})")
+        if len(set(allgather_object(digest(torch, model)))) != 1:
+            fail(f"tp2 ({key}): the ranks' parameters differ after the step")
+        if rank == 0:
+            ref = model_of(torch, cfg1, params, dtype, dev)
+            # the tp head runs plain torch: in f32 the world-1 step runs
+            # the kernels' plain versions too, so that the two differ by
+            # the split alone (the kernels' own gradients differ from their
+            # plain versions' by up to 5e-3 of a leaf's max, held above)
+            # and, as compare_train_paths does, everything after the
+            # co-attention sees the tp run's co-attention values (compared
+            # on their own), lest a one-ulp move of a proposal score reorder
+            # the rois
+            ref_step = make_train_step(ref, make_optimizer(cfg1, ref), sched,
+                                       device=dev)
+            with (plain_path() if dtype == torch.float32
+                  else contextlib.nullcontext()):
+                mr, ref_feats = with_coattention(torch, ref, lambda: ref_step(
+                    batch, torch.Generator(device=dev).manual_seed(10)),
+                    feats)
+            co = max(rel_err(a, b) for a, b in zip(feats, ref_feats))
+            loss = {k: abs(float(met[k]) - float(mr[k])) /
+                    max(abs(float(mr[k])), 1e-30) for k in mr}
+            got, want = dict(model.named_parameters()), \
+                dict(ref.named_parameters())
+            errs = allclose_excess(torch, got, want, 1e-4, 1e-3)
+            worst = max(errs, key=errs.get)
+            grad = leaf_rel(torch, {k: p.grad for k, p in got.items()},
+                            {k: p.grad for k, p in want.items()
+                             if p.grad is not None})
+            gworst = max(grad, key=grad.get)
+            log(f"tp2 ({key}, {b} images): co-attention outputs within "
+                f"{co:.3e} of max |world 1|; losses {float(met['loss'])} vs "
+                f"world 1 {float(mr['loss'])}, max rel diff "
+                f"{max(loss.values()):.3e}; gradients within "
+                f"{grad[gworst]:.3e} of their leaf's max ({gworst}); params "
+                f"past 1e-4 relative by {errs[worst]:.3e} of their scale "
+                f"({worst}); {ms:.3f} ms")
+            if dtype == torch.float32 and (
+                    co > 1e-4 or max(loss.values()) > 1e-4 or
+                    errs[worst] > 1e-4 or grad[gworst] > BWD_REL):
+                res.setdefault("failed", []).append(
+                    f"tp2 ({key}): off the world-1 step: co-attention {co}, "
+                    f"losses {loss}, parameter {worst} {errs[worst]:.3e}, "
+                    f"gradient {gworst} {grad[gworst]:.3e}")
+            res[key] = {"coatt_rel": co, "loss_rel": max(loss.values()),
+                        "grad_rel": grad[gworst], "param_rel": errs[worst],
+                        "ms": ms}
+            del ref
+        res["launches"] = launches
+        del model, step
+    return res
+
+
+def leg_sp2(torch, np, dev, params, rank, world):
+    """sp2 (data 1 x seq 2) on the 608x800 canvas (1900 image tokens, 950
+    a rank), eval in f32 at PAR_B requests, the MHA and the non-local
+    co-attention, against unsharded eval of the same weights: the
+    co-attention's outputs within 2e-5 (absolute, plus 2e-5 of the value),
+    the cls_prob and bbox_pred of the rois the two share within 1e-3 (the
+    same form); PER_EVAL_STEP's launches."""
+    from ait_tpu_torch import bridge
+    from ait_tpu_torch.models import AITDetector
+    from ait_tpu_torch.parallel import make_mesh, make_sharded_eval_step
+    from ait_tpu_torch.train import make_eval_step
+
+    mesh = make_mesh(world, axes=("data", "seq"), shape=(1, world))
+    res = {}
+    base = train_config()
+    req = make_requests(np, base, np.random.RandomState(11), PAR_B)
+    batch = on_device(torch, dict(zip(("image", "query", "im_info"), req)),
+                      dev)
+    for coatt in ("mha", "nonlocal"):
+        cfg1 = base.replace(model=dataclasses.replace(base.model,
+                                                      coattention=coatt))
+        cfg = cfg1.replace(tpu=dataclasses.replace(cfg1.tpu, sp_size=world))
+        if coatt == "nonlocal":
+            params = bridge.random_tree(
+                bridge.jax_shapes(AITDetector(cfg1)), 0)
+        outs = []
+        for c, m in ((cfg, mesh), (cfg1, None)):
+            if m is None and rank:
+                break
+            model = model_of(torch, c, params, torch.float32, dev, m).eval()
+            seen = []
+            hook = model.coattention.register_forward_hook(
+                lambda mod, inp, out: seen.append(out))
+            step = (make_eval_step(model) if m is None
+                    else make_sharded_eval_step(model, m))
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            hook.remove()
+            if m is not None:
+                res[f"launches_{coatt}"] = check_counts(
+                    counts_now(), f32_launches(PER_EVAL_STEP), 1,
+                    f"sp2 eval ({coatt})")
+            outs.append((seen[0], out, ms))
+            del model
+        if rank:
+            continue
+        (fg, og, ms_g), (fw, ow, ms_w) = outs
+        co_err = max(((a - b).abs() - 2e-5 * b.abs()).max().item()
+                     for a, b in zip(fg, fw))
+        same = (og["rois"] - ow["rois"]).abs().amax(-1) < 0.1
+        det_err = max(((og[k][same] - ow[k][same]).abs() -
+                       1e-3 * ow[k][same].abs()).max().item()
+                      for k in ("cls_prob", "bbox_pred"))
+        log(f"sp2 ({coatt}, {PAR_B} requests at 608x800): co-attention "
+            f"outputs within {co_err:.3e} + 2e-5 x |unsharded| (bound "
+            f"2e-5); {int(same.sum())}/{same.numel()} rois shared, their "
+            f"detections within {det_err:.3e} + 1e-3 x |unsharded| (bound "
+            f"1e-3); eval ms sharded {ms_g:.3f}, unsharded {ms_w:.3f}")
+        if co_err > 2e-5:
+            fail(f"sp2 ({coatt}): the co-attention's outputs off by more "
+                 "than 2e-5")
+        if same.float().mean() < 0.7 or det_err > 1e-3:
+            fail(f"sp2 ({coatt}): detections off on the shared rois, or "
+                 f"too few shared ({int(same.sum())}/{same.numel()})")
+        res[coatt] = {"coatt_err": co_err, "ms": ms_g, "unsharded_ms": ms_w}
+    return res
+
+
+def leg_pp2(torch, np, dev, rank, world):
+    """pp2: two flagship-width EncoderLayers (d_model 512, d_inner 2048, 8
+    heads of 64; the attention and FFN kernels) as two GPipe stages over
+    PP_M microbatches of PP_MICRO, f32, against the layers run one after
+    the other on rank 0: the outputs within 2e-5 and every stage gradient
+    of sum(y^2) within 1e-4 of its leaf's max |plain|; PER_PP_RANK's
+    launches and the pipeline's ms."""
+    from ait_tpu_torch import bridge
+    from ait_tpu_torch.models.ait_transformer import EncoderLayer
+    from ait_tpu_torch.parallel import make_mesh, make_pipeline_apply
+    from ait_tpu_torch.parallel.multihost import allgather_object
+
+    mesh = make_mesh(world, axes=("stage",))
+
+    def layer(i):
+        mod = EncoderLayer(512, 2048, 8, 64, 64)
+        mod.load_state_dict(bridge.to_state_dict(
+            mod, bridge.random_tree(bridge.jax_shapes(mod), 20 + i)))
+        return mod.to(dev)
+
+    x = torch.from_numpy(np.random.RandomState(12).randn(
+        PP_M, *PP_MICRO).astype(np.float32)).to(dev)
+    mine = layer(rank)
+    pipe = make_pipeline_apply(lambda mod, a: mod(a, None), mesh, PP_M)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = pipe(mine, x)
+    (y ** 2).sum().backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = check_counts(counts_now(), f32_launches(PER_PP_RANK), 1,
+                            "pp2 rank")
+    ys = allgather_object(y.detach().cpu())
+    grads = allgather_object({k: p.grad.cpu()
+                              for k, p in mine.named_parameters()})
+    res = {"ms": ms, "launches": launches}
+    if rank == 0:
+        stages = [layer(i) for i in range(world)]
+        a = x
+        for mod in stages:
+            a = torch.stack([mod(a[i], None) for i in range(PP_M)])
+        (a ** 2).sum().backward()
+        got = torch.cat(ys)
+        fwd = ((got - a.detach().cpu()).abs().max().item() /
+               max(a.detach().abs().max().item(), 1.0))
+        bwd = max(max(leaf_rel(torch, grads[i], {
+            k: p.grad.cpu() for k, p in mod.named_parameters()}).values())
+            for i, mod in enumerate(stages))
+        log(f"pp2 ({world} EncoderLayer stages, {PP_M} microbatches of "
+            f"{PP_MICRO}, f32): outputs within {fwd:.3e} (bound 2e-5), "
+            f"stage gradients within {bwd:.3e} of their max (bound 1e-4) of "
+            f"the layers run in turn; {ms:.3f} ms forward + backward")
+        if fwd > 2e-5 or bwd > 1e-4:
+            fail(f"pp2: off the sequential composition: outputs {fwd:.3e}, "
+                 f"gradients {bwd:.3e}")
+        res.update(fwd_err=fwd, bwd_err=bwd)
+    return res
+
+
+def parallel_rank(rank, world, dev):
+    """Part 2 of the parallel phase, one rank of two on the one card (gloo
+    with CUDA tensors): the dp2, tp2, sp2 and pp2 legs in turn."""
+    import numpy as np
+    import torch
+
+    from ait_tpu_torch import bridge
+    from ait_tpu_torch.models import AITDetector
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the legs compare gradients computed on two ranks with one rank's
+    # recomputation: cuDNN's default backward algorithms sum in no fixed
+    # order (9e-6 of a conv weight gradient's max, measured on an H100)
+    torch.backends.cudnn.deterministic = True
+    params = bridge.random_tree(bridge.jax_shapes(
+        AITDetector(train_config())), seed=0)
+    return {"dp2": leg_dp2(torch, np, dev, params, rank, world),
+            "tp2": leg_tp2(torch, np, dev, params, rank, world),
+            "sp2": leg_sp2(torch, np, dev, params, rank, world),
+            "pp2": leg_pp2(torch, np, dev, rank, world)}
+
+
+def drive_parallel(torch, np, dev, params):
+    """The parallel phase: NCCL at world 1 here, then two ranks on the one
+    card under gloo (parallel.launch.run_local, killed at its timeout).
+    Two ranks on one card prove the paths with the kernels live; they are
+    not a scaling measurement.  Returns the paths' launches (rank 0's)."""
+    from ait_tpu_torch.parallel import launch
+
+    t0 = time.time()
+    paths, nccl = drive_parallel_nccl1(torch, np, dev, params)
+    ranks = launch.run_local(parallel_rank, 2, backend="gloo", device="cuda",
+                             timeout=600)
+    r0 = ranks[0]
+    failed = [msg for r in ranks for leg in r.values()
+              for msg in leg.get("failed", ())]
+    log(f"parallel (2 ranks, gloo on one card): dp2 step (rank 0) "
+        f"{r0['dp2']['ms']:.3f} ms, reduced gradients within "
+        f"{r0['dp2']['grad_err']:.3e} of the halves' mean; tp2 "
+        f"{ {k: v for k, v in r0['tp2'].items() if k != 'launches'} }; "
+        f"sp2 { {k: r0['sp2'][k] for k in ('mha', 'nonlocal')} }; "
+        f"pp2 (rank 0) {r0['pp2']['ms']:.3f} ms")
+    log(f"parallel phase: {time.time() - t0:.1f} s; NCCL world 1 {nccl}")
+    if failed:
+        fail("; ".join(failed))
+    paths.update({"dp2_train": r0["dp2"]["launches"],
+                  "tp2_train": r0["tp2"]["launches"],
+                  "sp2_eval": {k: r0["sp2"]["launches_mha"][k] +
+                               r0["sp2"]["launches_nonlocal"][k]
+                               for k in PER_STEP},
+                  "pp2": r0["pp2"]["launches"]})
+    return paths
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "ait_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository "
@@ -4098,6 +4675,7 @@ def main() -> int:
     paths["fold_eval"] = drive_fold(torch, np, dev, cfg, state)
     paths.update(drive_recipes(torch, np, dev))
     paths.update(drive_cli(torch, np, dev))
+    paths.update(drive_parallel(torch, np, dev, params))
 
     meta = {"nms_keep_mask": ("ait_tpu_torch/csrc/nms.cu",
                               "ait_tpu/ops/nms_pallas.py:133"),

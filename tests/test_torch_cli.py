@@ -11,7 +11,8 @@
   rounding of the image backbone at another batch), with
   `--write_results` and from `--with_cache_file`; `from_run` against a
   predictor built from the restored state; the refusals of what the port
-  does not run yet (the parallel families, the overlays); every recipe,
+  does not run yet (the overlays) and of parallel sizes that cannot run;
+  every recipe,
   `--dataset coco` and `--net vgg16`, through both CLIs.
 """
 
@@ -247,14 +248,31 @@ def test_from_run_without_checkpoint_keeps_seeded_weights(runs, tmp_path,
 
 
 @pytest.mark.parametrize("cli,argv,item", [
-    ("train", ["--set", "tpu.tp_size", "2"], "A15"),
-    ("train", ["--set", "tpu.sp_size", "2"], "A15"),
-    ("eval", ["--set", "tpu.sp_size", "2"], "A15"),
     ("eval", ["--vis"], "A13b"),
 ])
 def test_refusals_name_the_roadmap_item(tmp_path, cli, argv, item):
     mod = trainval_net if cli == "train" else test_net
     with pytest.raises(SystemExit, match=item):
+        mod.main(["--device", "cpu", "--data_dir", str(tmp_path / "none"),
+                  "--save_dir", str(tmp_path / "models"), *argv])
+    assert not (tmp_path / "models").exists()
+
+
+@pytest.mark.parametrize("cli,argv,reason", [
+    # the JAX CLI's messages (tools/trainval_net.py:170-183, test_net.py)
+    ("train", ["--set", "tpu.tp_size", "3"],
+     r"tpu.tp_size 3 must divide t_n_head \(8\) and t_d_inner \(2048\)"),
+    ("train", ["--set", "tpu.tp_size", "2"],
+     "tpu.tp_size 2: needs a world size divisible by it, have 1"),
+    ("train", ["--set", "tpu.sp_size", "2"], "inference-path feature"),
+    ("eval", ["--set", "tpu.sp_size", "2"],
+     "tpu.sp_size 2: needs a world size divisible by it, have 1"),
+])
+def test_parallel_sizes_refused_up_front(tmp_path, cli, argv, reason):
+    """Sizes the heads or a one-process world cannot take are refused before
+    any data or model work (under torchrun the mesh takes the others)."""
+    mod = trainval_net if cli == "train" else test_net
+    with pytest.raises(SystemExit, match=reason):
         mod.main(["--device", "cpu", "--data_dir", str(tmp_path / "none"),
                   "--save_dir", str(tmp_path / "models"), *argv])
     assert not (tmp_path / "models").exists()

@@ -1,8 +1,9 @@
 """The port stands alone: no module of ait_tpu_torch, and none of
 chip_smoke.py, tools/port_profile.py, tools/posln_bench.py and
 tools/attn_general_bench.py, imports JAX,
-flax, optax or the JAX package, or unpickles without a class filter; its
-entry points refuse to run quietly on the CPU when no GPU is there."""
+flax, optax or the JAX package, or unpickles without a class filter, and
+no rank that parallel/launch.py spawns holds JAX; its entry points refuse
+to run quietly on the CPU when no GPU is there."""
 
 import ast
 import os
@@ -101,12 +102,32 @@ def test_importing_the_port_loads_no_jax():
             "ait_tpu_torch.tools.trainval_net, ait_tpu_torch.tools.test_net, "
             "ait_tpu_torch.native, ait_tpu_torch.models.vgg, "
             "ait_tpu_torch.ops.roi_pool, "
-            "ait_tpu_torch.tools.convert_torch_checkpoint; "
+            "ait_tpu_torch.tools.convert_torch_checkpoint, "
+            "ait_tpu_torch.parallel, ait_tpu_torch.parallel.launch, "
+            "ait_tpu_torch.parallel.mesh, ait_tpu_torch.parallel.multihost, "
+            "ait_tpu_torch.parallel.pp, ait_tpu_torch.parallel.sharded, "
+            "ait_tpu_torch.parallel.sp, ait_tpu_torch.parallel.tp; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'ait_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
+
+
+def test_spawned_ranks_load_no_jax():
+    """The ranks of parallel.launch.run_local are spawned processes that
+    import the worker's module afresh (tests/torch_parallel_workers.py, no
+    JAX): none of them holds JAX or the JAX package, though this test's
+    process does."""
+    import torch_parallel_workers as workers
+
+    assert "jax" in sys.modules
+    ranks = workers.run(workers.loaded_modules, 2, timeout=120)
+    assert len({pid for _, pid in ranks}) == 2
+    for modules, _ in ranks:
+        assert "ait_tpu_torch.parallel.launch" in modules
+        bad = [m for m in modules if _forbidden(m)]
+        assert not bad, bad
 
 
 def test_native_route_loads_its_own_library():
