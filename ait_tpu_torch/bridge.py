@@ -86,7 +86,7 @@ def _flatten(tree: dict, prefix: Path = ()) -> Dict[Path, np.ndarray]:
     return out
 
 
-def _nest(flat: Dict[Path, object]) -> dict:
+def nest(flat: Dict[Path, object]) -> dict:
     tree: dict = {}
     for path, v in flat.items():
         node = tree
@@ -98,7 +98,7 @@ def _nest(flat: Dict[Path, object]) -> dict:
 
 def jax_shapes(model: nn.Module) -> dict:
     """The JAX param tree's leaf shapes for this port module."""
-    return _nest({path: shape for _, path, shape, _ in mappings(model)})
+    return nest({path: shape for _, path, shape, _ in mappings(model)})
 
 
 def to_state_dict(model: nn.Module, params: dict) -> Dict[str, torch.Tensor]:
@@ -158,7 +158,7 @@ def to_jax_tree(model: nn.Module, tensors: Dict[str, torch.Tensor]) -> dict:
         problems.append(f"port entries left over: {sorted(left)}")
     if problems:
         raise ValueError("weight bridge: " + "; ".join(problems))
-    return _nest(out)
+    return nest(out)
 
 
 def grad_tree(model: nn.Module) -> dict:
@@ -203,4 +203,4 @@ def random_tree(shapes: dict, seed: int) -> dict:
         else:
             raise ValueError(f"no init rule for leaf {'/'.join(path)}")
         out[path] = a.astype(np.float32)
-    return _nest(out)
+    return nest(out)

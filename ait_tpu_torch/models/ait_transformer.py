@@ -39,8 +39,9 @@ from torch import nn
 from ait_tpu_torch.models.attention import (MultiHeadAttention,
                                             PositionwiseFeedForward)
 from ait_tpu_torch.models.dropout import Dropout, row_dropout
-from ait_tpu_torch.models.layers import (Conv, Params, sinusoid_table,
-                                         to_nchw, to_nhwc)
+from ait_tpu_torch.models.layers import (Conv, layer_norm_params,
+                                         sinusoid_table, to_nchw, to_nhwc,
+                                         xavier_uniform)
 from ait_tpu_torch.ops import fused_ffn
 
 
@@ -92,16 +93,20 @@ class AITTransformer(nn.Module):
         self.d_model, self.n_layers, self.dtype = d_model, n_layers, dtype
         self.causal_mask = causal_mask
         self.dec_prefix_per_image = dec_prefix_per_image
-        self.enc_emb = Conv(channels, d_model, 1, dtype=dtype)
-        self.dec_emb = Conv(channels, d_model, 1, dtype=dtype)
-        self.enc_in_ln = Params(scale=(d_model,), bias=(d_model,))
-        self.dec_in_ln = Params(scale=(d_model,), bias=(d_model,))
+        xavier = xavier_uniform()       # ait_transformer.py:138-141, 244
+        self.enc_emb = Conv(channels, d_model, 1, dtype=dtype,
+                            kernel_init=xavier)
+        self.dec_emb = Conv(channels, d_model, 1, dtype=dtype,
+                            kernel_init=xavier)
+        self.enc_in_ln = layer_norm_params(d_model)
+        self.dec_in_ln = layer_norm_params(d_model)
         for i in range(n_layers):
             self.add_module(f"enc_layer{i}", EncoderLayer(
                 d_model, d_inner, n_head, d_k, d_v, dist, dtype, **tp))
             self.add_module(f"dec_layer{i}", DecoderLayer(
                 d_model, d_inner, n_head, d_k, d_v, dist, dtype, **tp))
-        self.dec_trans = Conv(d_model, channels, 1, dtype=dtype)
+        self.dec_trans = Conv(d_model, channels, 1, dtype=dtype,
+                              kernel_init=xavier)
         self.register_buffer(
             "pos", torch.from_numpy(sinusoid_table(n_position, d_model)),
             persistent=False)

@@ -46,7 +46,9 @@ from torch import nn
 
 from ait_tpu_torch.models.dropout import (Dropout, dropping, flax_dropout,
                                           row_dropout)
-from ait_tpu_torch.models.layers import Params
+from ait_tpu_torch.models.layers import (Params, layer_norm_params,
+                                         lecun_normal, xavier_uniform,
+                                         zeros_init)
 from ait_tpu_torch.ops import dropout_masks, fused_attention, fused_ffn
 from ait_tpu_torch.ops.fused_attention import layer_norm_f32
 from ait_tpu_torch.parallel.mesh import all_gather
@@ -111,13 +113,17 @@ class MultiHeadAttention(nn.Module):
         self.dtype = dtype
         self.tp_size, self.tp_group = tp_size, tp_group
         self.sp_group, self.sp_role = sp_group, sp_role
-        self.w_qs = Params(kernel=(d_model, n_head * d_k))
-        self.w_ks = Params(kernel=(d_model, n_head * d_k))
-        self.w_vs = Params(kernel=(d_model, n_head * d_v))
-        self.sh = nn.ModuleDict({"sk": Params(kernel=(d_v, d_v * n_head),
-                                              bias=(d_v * n_head,))})
-        self.fc = Params(kernel=(d_v, d_model))
-        self.LayerNorm_0 = Params(scale=(d_model,), bias=(d_model,))
+        # kernels xavier_uniform, the gate's lecun_normal (attention.py:40,
+        # 64-72, 106)
+        xavier = xavier_uniform()
+        self.w_qs = Params(kernel=((d_model, n_head * d_k), xavier))
+        self.w_ks = Params(kernel=((d_model, n_head * d_k), xavier))
+        self.w_vs = Params(kernel=((d_model, n_head * d_v), xavier))
+        self.sh = nn.ModuleDict({"sk": Params(
+            kernel=((d_v, d_v * n_head), lecun_normal()),
+            bias=((d_v * n_head,), zeros_init))})
+        self.fc = Params(kernel=((d_v, d_model), xavier))
+        self.LayerNorm_0 = layer_norm_params(d_model)
 
     def forward(self, q, k, v, mask=None, drop: Optional[Dropout] = None):
         """drop: the training forward's dropout (None at eval)."""
@@ -356,9 +362,12 @@ class PositionwiseFeedForward(nn.Module):
                              f"divide d_hid ({d_hid})")
         self.dtype = dtype
         self.tp_size, self.tp_group = tp_size, tp_group
-        self.w_1 = Params(kernel=(d_in, d_hid), bias=(d_hid,))
-        self.w_2 = Params(kernel=(d_hid, d_in), bias=(d_in,))
-        self.LayerNorm_0 = Params(scale=(d_in,), bias=(d_in,))
+        xavier = xavier_uniform()                 # attention.py:527
+        self.w_1 = Params(kernel=((d_in, d_hid), xavier),
+                          bias=((d_hid,), zeros_init))
+        self.w_2 = Params(kernel=((d_hid, d_in), xavier),
+                          bias=((d_in,), zeros_init))
+        self.LayerNorm_0 = layer_norm_params(d_in)
 
     def forward(self, x, drop: Optional[Dropout] = None):
         shape = x.shape

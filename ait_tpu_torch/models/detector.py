@@ -45,7 +45,7 @@ from ait_tpu_torch.models.ait_transformer import AITTransformer
 from ait_tpu_torch.models.coattention import (MHACoAttention,
                                               NonLocalCoAttention)
 from ait_tpu_torch.models.dropout import Dropout
-from ait_tpu_torch.models.layers import Dense
+from ait_tpu_torch.models.layers import Dense, normal_init
 from ait_tpu_torch.models.resnet import (STAGES, ContextualRelation,
                                          ResNetBackbone, ResNetTop)
 from ait_tpu_torch.models.rpn import RPNHead, proposal_layer
@@ -185,11 +185,15 @@ class AITDetector(nn.Module):
                 rnn_layers=mc.rnn_layers, bidirectional=mc.rnn_bidirectional,
                 method=mc.rnn_method, dtype=dtype)
         # the heads take the top's width: 2048 (ResNet), 4096 (VGG16)
-        self.cls_score_0 = Dense(2 * top_dim, 8, dtype=dtype)
-        self.cls_score_1 = Dense(8, 2, dtype=dtype)
+        # (init as detector.py:141-150)
+        self.cls_score_0 = Dense(2 * top_dim, 8, dtype=dtype,
+                                 kernel_init=normal_init(0.01))
+        self.cls_score_1 = Dense(8, 2, dtype=dtype,
+                                 kernel_init=normal_init(0.01))
         # class-specific regression: a box for background and foreground
         self.bbox_pred_head = Dense(top_dim, 4 if mc.class_agnostic else 8,
-                                    dtype=dtype)
+                                    dtype=dtype,
+                                    kernel_init=normal_init(0.001))
 
     def forward(self, image, query, im_info, gt_boxes=None, num_boxes=None,
                 *, train: bool = False,

@@ -11,39 +11,150 @@ ResNet stem does; the FrozenBN arrays are buffers.
 
 Convolutions run on NCHW-shaped tensors in the channels_last memory format:
 a JAX NHWC array permuted to NCHW is exactly that, without a copy.
+
+Each module also declares, in `inits`, the initializer that ait_tpu declares
+for each of its leaves (flax's, counterparts below: an initializer is
+`init(generator, shape) -> float32 tensor` over the leaf's JAX-layout shape,
+so fans are flax's: a kernel is [..., in, out], a grouped conv's `in` is its
+channels per group).  `train.state.init_params` draws every leaf from it.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+Init = Callable[[torch.Generator, Tuple[int, ...]], torch.Tensor]
+
+# flax's truncated-normal variance scaling divides the stddev by the std of a
+# standard normal truncated to [-2, 2]
+_TRUNC_STD = 0.87962566103423978
+
+
+def zeros_init(generator: torch.Generator, shape) -> torch.Tensor:
+    """flax nn.initializers.zeros."""
+    return torch.zeros(shape)
+
+
+def ones_init(generator: torch.Generator, shape) -> torch.Tensor:
+    """flax nn.initializers.ones."""
+    return torch.ones(shape)
+
+
+def normal_init(stddev: float = 1e-2) -> Init:
+    """flax nn.initializers.normal(stddev): N(0, stddev^2)."""
+    def init(generator, shape):
+        return torch.randn(shape, generator=generator) * stddev
+    return init
+
+
+def uniform_init(bound: float) -> Init:
+    """U[-bound, bound) (the GRU/LSTM leaves' `unif`, resnet.py:166-167)."""
+    def init(generator, shape):
+        return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
+    init.bound = lambda shape: bound
+    return init
+
+
+def _fans(shape) -> Tuple[float, float]:
+    """flax's _compute_fans: in axis -2, out axis -1, the rest receptive."""
+    receptive = math.prod(shape[:-2])
+    return shape[-2] * receptive, shape[-1] * receptive
+
+
+def truncated_normal(generator: torch.Generator, shape) -> torch.Tensor:
+    """A standard normal truncated to [-2, 2], by the inverse CDF as
+    jax.random.truncated_normal draws it."""
+    lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
+    u = lo + (hi - lo) * torch.rand(shape, generator=generator)
+    return (math.sqrt(2.0) * torch.erfinv(u)).clamp_(-2.0, 2.0)
+
+
+def variance_scaling(scale: float, mode: str, distribution: str) -> Init:
+    """flax nn.initializers.variance_scaling: variance scale / fan, with fan
+    fan_in, fan_out or their mean; a normal truncated at +-2 sigma and
+    rescaled by 1 / 0.8796..., a normal, or a uniform of that variance."""
+    if mode not in ("fan_in", "fan_out", "fan_avg"):
+        raise ValueError(f"variance_scaling mode {mode!r}")
+    if distribution not in ("truncated_normal", "normal", "uniform"):
+        raise ValueError(f"variance_scaling distribution {distribution!r}")
+
+    def std(shape) -> float:
+        fan_in, fan_out = _fans(shape)
+        fan = {"fan_in": fan_in, "fan_out": fan_out,
+               "fan_avg": (fan_in + fan_out) / 2.0}[mode]
+        return math.sqrt(scale / fan)
+
+    def init(generator, shape):
+        if distribution == "truncated_normal":
+            return truncated_normal(generator, shape) * \
+                (std(shape) / _TRUNC_STD)
+        if distribution == "normal":
+            return torch.randn(shape, generator=generator) * std(shape)
+        return ((torch.rand(shape, generator=generator) * 2.0 - 1.0) *
+                (math.sqrt(3.0) * std(shape)))
+
+    def bound(shape) -> float:
+        """The largest |value| a draw can take."""
+        if distribution == "truncated_normal":
+            return 2.0 * std(shape) / _TRUNC_STD
+        if distribution == "uniform":
+            return math.sqrt(3.0) * std(shape)
+        return math.inf
+
+    init.bound = bound
+    return init
+
+
+def lecun_normal() -> Init:
+    """flax nn.initializers.lecun_normal (nn.Conv's and nn.Dense's default
+    kernel init)."""
+    return variance_scaling(1.0, "fan_in", "truncated_normal")
+
+
+def xavier_uniform() -> Init:
+    """flax nn.initializers.xavier_uniform."""
+    return variance_scaling(1.0, "fan_avg", "uniform")
+
 
 class Params(nn.Module):
-    """Raw parameter leaves in the JAX layout: Params(kernel=(512, 512))."""
+    """Raw parameter leaves in the JAX layout, each with its initializer
+    (ait_tpu's `_P`): Params(kernel=((512, 512), xavier_uniform()))."""
 
-    def __init__(self, **shapes: Tuple[int, ...]):
+    def __init__(self, **leaves: Tuple[Tuple[int, ...], Init]):
         super().__init__()
-        for name, shape in shapes.items():
+        self.inits: Dict[str, Init] = {}
+        for name, (shape, init) in leaves.items():
             self.register_parameter(
                 name, nn.Parameter(torch.zeros(shape)))
+            self.inits[name] = init
+
+
+def layer_norm_params(d: int) -> Params:
+    """A LayerNorm's leaves: scale ones, bias zeros."""
+    return Params(scale=((d,), ones_init), bias=((d,), zeros_init))
 
 
 class Conv(nn.Module):
-    """flax nn.Conv with an explicit symmetric padding, on NCHW tensors."""
+    """flax nn.Conv with an explicit symmetric padding, on NCHW tensors;
+    kernel lecun_normal unless given, bias zeros, as flax's defaults."""
 
     def __init__(self, cin: int, cout: int, k: int, *, stride: int = 1,
                  padding: int = 0, groups: int = 1, bias: bool = True,
-                 dtype=torch.float32):
+                 dtype=torch.float32, kernel_init: Init = None):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(cout, cin // groups, k, k))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self.stride, self.padding, self.groups = stride, padding, groups
         self.dtype = dtype
+        self.inits = {"kernel": kernel_init or lecun_normal()}
+        if bias:
+            self.inits["bias"] = zeros_init
 
     def forward(self, x):
         b = None if self.bias is None else self.bias.to(self.dtype)
@@ -52,13 +163,17 @@ class Conv(nn.Module):
 
 
 class Dense(nn.Module):
-    """flax nn.Dense over the last axis."""
+    """flax nn.Dense over the last axis; kernel lecun_normal unless given,
+    bias zeros."""
 
-    def __init__(self, cin: int, cout: int, dtype=torch.float32):
+    def __init__(self, cin: int, cout: int, dtype=torch.float32,
+                 kernel_init: Init = None):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(cout, cin))
         self.bias = nn.Parameter(torch.zeros(cout))
         self.dtype = dtype
+        self.inits = {"kernel": kernel_init or lecun_normal(),
+                      "bias": zeros_init}
 
     def forward(self, x):
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
@@ -81,9 +196,10 @@ class FrozenBatchNorm(nn.Module):
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
-        for name, init in (("scale", 1.0), ("bias", 0.0), ("mean", 0.0),
-                           ("var", 1.0)):
-            self.register_buffer(name, torch.full((features,), init))
+        self.inits = {"scale": ones_init, "bias": zeros_init,
+                      "mean": zeros_init, "var": ones_init}
+        for name, init in self.inits.items():
+            self.register_buffer(name, init(None, (features,)))
         self.eps = eps
 
     def forward(self, x):
@@ -107,7 +223,8 @@ class ZeroInitGroupNorm(nn.Module):
 
     def __init__(self, features: int):
         super().__init__()
-        self.GroupNorm_0 = Params(scale=(features,), bias=(features,))
+        self.GroupNorm_0 = Params(scale=((features,), zeros_init),
+                                  bias=((features,), zeros_init))
 
     def forward(self, x):
         *lead, c = x.shape

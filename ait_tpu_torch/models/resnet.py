@@ -29,7 +29,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ait_tpu_torch.models.layers import (Conv, Dense, FrozenBatchNorm, Params,
-                                         max_pool_ceil, to_nchw, to_nhwc)
+                                         max_pool_ceil, to_nchw, to_nhwc,
+                                         uniform_init)
 
 # blocks per stage of each variant (ait_tpu/models/resnet.py:34-38)
 STAGES = {"resnet50": (3, 4, 6, 3), "resnet101": (3, 4, 23, 3),
@@ -139,8 +140,11 @@ class _RNNDirection(Params):
     def __init__(self, d: int, hidden: int, method: str = "GRU",
                  reverse: bool = False):
         g = 3 if method == "GRU" else 4
-        super().__init__(w_ih=(d, g * hidden), w_hh=(hidden, g * hidden),
-                         b_ih=(g * hidden,), b_hh=(g * hidden,))
+        unif = uniform_init(1.0 / hidden ** 0.5)       # resnet.py:164-173
+        super().__init__(w_ih=((d, g * hidden), unif),
+                         w_hh=((hidden, g * hidden), unif),
+                         b_ih=((g * hidden,), unif),
+                         b_hh=((g * hidden,), unif))
         if method not in ("GRU", "LSTM"):
             raise ValueError(f"rnn method {method}")
         self.hidden, self.method, self.reverse = hidden, method, reverse

@@ -15,7 +15,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from ait_tpu_torch.models.layers import Conv, to_nchw, to_nhwc
+from ait_tpu_torch.models.layers import Conv, normal_init, to_nchw, to_nhwc
 from ait_tpu_torch.ops.boxes import bbox_transform_inv, clip_boxes
 from ait_tpu_torch.ops.nms import batched_nms_topk
 
@@ -30,9 +30,13 @@ class RPNHead(nn.Module):
                  mid_channels: int = 512, dtype=torch.float32):
         super().__init__()
         self.num_anchors = num_anchors
-        self.conv = Conv(in_channels, mid_channels, 3, padding=1, dtype=dtype)
-        self.cls_score = Conv(mid_channels, 2 * num_anchors, 1, dtype=dtype)
-        self.bbox_pred = Conv(mid_channels, 4 * num_anchors, 1, dtype=dtype)
+        init = normal_init(0.01)                   # rpn.py:44
+        self.conv = Conv(in_channels, mid_channels, 3, padding=1, dtype=dtype,
+                         kernel_init=init)
+        self.cls_score = Conv(mid_channels, 2 * num_anchors, 1, dtype=dtype,
+                              kernel_init=init)
+        self.bbox_pred = Conv(mid_channels, 4 * num_anchors, 1, dtype=dtype,
+                              kernel_init=init)
 
     def forward(self, feat):
         """feat [B, H, W, C] (NHWC) -> RPNOut."""

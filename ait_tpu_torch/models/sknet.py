@@ -16,7 +16,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ait_tpu_torch.models.layers import Conv, Dense, to_nchw, to_nhwc
+from ait_tpu_torch.models.layers import (Conv, Dense, to_nchw, to_nhwc,
+                                         variance_scaling)
 
 # the fixed gate's squeeze: fc maps C -> C / REDUCTION
 REDUCTION = 16
@@ -30,9 +31,12 @@ class SKBlock(nn.Module):
             raise ValueError(f"sk gate must be 'faithful' or 'fixed', got "
                              f"{gate!r}")
         self.gate = gate
-        self.conv0 = Conv(channels, channels, 1, groups=groups, dtype=dtype)
+        # Kaiming fan_out, truncated (sknet.py:32)
+        kaiming = variance_scaling(2.0, "fan_out", "truncated_normal")
+        self.conv0 = Conv(channels, channels, 1, groups=groups, dtype=dtype,
+                          kernel_init=kaiming)
         self.conv1 = Conv(channels, channels, 3, padding=1, groups=groups,
-                          dtype=dtype)
+                          dtype=dtype, kernel_init=kaiming)
         if gate == "fixed":
             self.fc = Dense(channels, channels // REDUCTION, dtype=dtype)
             self.sk = Dense(channels // REDUCTION, 2 * channels, dtype=dtype)

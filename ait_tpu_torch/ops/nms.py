@@ -8,6 +8,10 @@ then resolved inside by iterative peeling, whose fixpoint is the sequential
 greedy answer.  The sweep stops once `max_out` survivors exist, so only the
 keep bits of the first `max_out` survivors are exact; callers take those.
 
+`nms` is the drop-in for the reference's `_C.nms` (ait_tpu/ops/nms.py:147):
+unsorted boxes in, their survivors' indices out, through the same kernel
+with one image.
+
 `nms_keep_mask_batched` is the wrapper of the CUDA kernel
 (csrc/nms.cu, which replaces ait_tpu/ops/nms_pallas.py:133
 nms_keep_mask_batched; a cluster of 16 blocks per image shares each
@@ -163,6 +167,30 @@ def _select_top(keep: torch.Tensor, k: int):
     sel = torch.sort(rank, dim=1, stable=True).indices[:, :min(k, n)]
     count = keep.sum(dim=1).clamp(max=k)
     return sel, count
+
+
+def nms(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold,
+        max_out: int, tile: int = 256):
+    """Greedy NMS on unsorted boxes [N, 4] float32 with scores [N].
+    Returns (indices [max_out] int64, count): positions into the inputs in
+    descending-score order (a stable sort: equal scores in input order, as
+    jnp.argsort(-scores)), padded with -1 past `count`.  A CUDA tensor goes
+    to csrc/nms.cu as a batch of one image, a CPU tensor to the plain
+    sweep."""
+    n = boxes.shape[0]
+    dev = boxes.device
+    order = torch.sort(scores, descending=True, stable=True).indices
+    sboxes = boxes[order][None].contiguous()
+    keep = nms_keep_mask_batched(
+        sboxes, torch.ones((1, n), dtype=torch.bool, device=dev),
+        iou_threshold, tile=tile, max_out=max_out)
+    sel, count = _select_top(keep, max_out)
+    sel, count = sel[0], count[0]
+    if sel.shape[0] < max_out:
+        sel = torch.cat([sel, sel.new_zeros(max_out - sel.shape[0])])
+    live = torch.arange(max_out, device=dev) < count
+    idx = torch.where(live, order[sel] if n else sel, -1)
+    return idx, count
 
 
 def batched_nms_topk(boxes: torch.Tensor, scores: torch.Tensor,

@@ -6,8 +6,12 @@ JAX: several real processes of one program on one host).
                         timeout=120, args=(x,))
 
 spawns `world_size` processes; rank r runs `worker(r, world_size, device,
-*args)` inside an initialized process group (tcp://localhost, a free port)
-and sends back its return value, which `run_local` returns in rank order.
+*args)` inside an initialized process group and sends back its return
+value, which `run_local` returns in rank order.  The group meets through a
+TCPStore that the caller's process serves for the whole call, on a port of
+localhost that the store itself bound (port 0): the number reaches the
+ranks only once it is held, so no other process, and no other `run_local`
+running at the same time, can take it between its choice and its use.
 A rank that raises is re-raised in the caller with its rank and traceback;
 when `timeout` seconds pass first, every child is killed and TimeoutError
 raised, so a hung collective never outlives the call.  The children are
@@ -25,7 +29,6 @@ from __future__ import annotations
 import datetime
 import multiprocessing as mp
 import queue
-import socket
 import time
 import traceback
 from typing import Any, Callable, List, Sequence
@@ -38,11 +41,8 @@ import torch.distributed as dist
 _GRACE = 5.0
 
 
-def free_port() -> int:
-    """A TCP port of localhost that nothing listens on now."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _timeout(seconds: float) -> datetime.timedelta:
+    return datetime.timedelta(seconds=seconds)
 
 
 def _rank_device(device: str, rank: int) -> torch.device:
@@ -59,10 +59,11 @@ def _child(fn, rank, world_size, backend, device, port, timeout, args, out):
         dev = _rank_device(device, rank)
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
-        dist.init_process_group(
-            backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-            world_size=world_size,
-            timeout=datetime.timedelta(seconds=timeout))
+        store = dist.TCPStore("127.0.0.1", port, is_master=False,
+                              timeout=_timeout(timeout))
+        dist.init_process_group(backend, store=store, rank=rank,
+                                world_size=world_size,
+                                timeout=_timeout(timeout))
     except BaseException:  # reported to the parent, which re-raises it
         out.put((rank, False, traceback.format_exc()))
         return
@@ -83,7 +84,10 @@ def run_local(fn: Callable, world_size: int, *, backend: str = "gloo",
     spawned process of one process group (module docstring)."""
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
-    port = free_port()
+    # served here until every rank is done: the ranks connect as clients
+    store = dist.TCPStore("127.0.0.1", 0, is_master=True,
+                          wait_for_workers=False, timeout=_timeout(timeout))
+    port = store.port
     procs = [ctx.Process(target=_child, daemon=True,
                          args=(fn, r, world_size, backend, device, port,
                                timeout, tuple(args), out))
@@ -121,6 +125,7 @@ def run_local(fn: Callable, world_size: int, *, backend: str = "gloo",
                 p.kill()
                 p.join()
         out.close()
+        del store
     if errors:
         raise RuntimeError("run_local: " + "\n".join(
             f"rank {r} raised:\n{tb}" for r, tb in errors.items()))

@@ -40,7 +40,7 @@ from ait_tpu_torch.data.transforms import (CANVAS_FILL,  # noqa: F401
 from ait_tpu_torch.device import resolve_device
 from ait_tpu_torch.evaluation import postprocess_detections
 from ait_tpu_torch.models import AITDetector
-from ait_tpu_torch.train import init_weights, make_eval_step
+from ait_tpu_torch.train import init_params, make_eval_step
 from ait_tpu_torch.train.checkpoint import CheckpointManager
 from ait_tpu_torch.utils import printer
 
@@ -61,8 +61,8 @@ class OneShotPredictor:
     def from_run(cls, run_dir: str, device=None,
                  **kw) -> "OneShotPredictor":
         """config.json and the newest checkpoint of a training run.  Without
-        a checkpoint the weights stay the random ones from seed 0, as the
-        JAX package keeps its seeded init (predict.py:60-70), with a
+        a checkpoint the weights stay `init_params`' from seed 0, as the
+        JAX package keeps its seeded init (predict.py:57-70), with a
         warning."""
         cfg_path = os.path.join(run_dir, "config.json")
         cfg = Config()
@@ -74,7 +74,7 @@ class OneShotPredictor:
         # alike
         cfg = cfg.replace(tpu=dataclasses.replace(cfg.tpu, tp_size=1,
                                                   sp_size=1))
-        model = init_weights(AITDetector(cfg), 0)
+        model = init_params(AITDetector(cfg), cfg, 0)
         ckpt_dir = os.path.join(run_dir, "ckpt")
         restored = None
         if os.path.isdir(ckpt_dir):
@@ -90,12 +90,12 @@ class OneShotPredictor:
                                   cfg: Optional[Config] = None, device=None,
                                   **kw) -> "OneShotPredictor":
         """Weights converted from a reference .pth
-        (tools/convert_torch_checkpoint.py), overlaid on the random ones
+        (tools/convert_torch_checkpoint.py), overlaid on `init_params`'
         from seed 0 by `convert.load_pretrained`."""
         from ait_tpu_torch.convert import load_pretrained
 
         cfg = cfg or Config()
-        model = init_weights(AITDetector(cfg), 0)
+        model = init_params(AITDetector(cfg), cfg, 0)
         load_pretrained(model, pkl_path)
         return cls(cfg, model.state_dict(), device, **kw)
 

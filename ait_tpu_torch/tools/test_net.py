@@ -20,9 +20,13 @@ them), its weights from `--checkpoint_path` (a `ckpt/` directory of the
 port's train CLI), from `<save_dir>/<net>/<dataset>/<version>/ckpt`, or
 from `--pretrained` (a converted params pickle,
 `python -m ait_tpu_torch.tools.convert_torch_checkpoint`); without any, the
-random weights from RNG_SEED, with a warning.  `--dataset coco` evaluates
-with the COCO protocol (evaluation/coco_eval.py, AP50 as the headline).
-Refused up front: `--vis` (A13b: its drawing needs cv2).
+the weights `train.init_params` draws from RNG_SEED, with a warning.
+`--dataset coco` evaluates with the COCO protocol (evaluation/coco_eval.py,
+AP50 as the headline).  `--vis` writes each pair's overlay,
+`test_img/{pair_index}_d.png` under the working directory: the image read
+with the CLI's `imread`, its detections above 0.8 drawn and the query beside
+it (utils/visualize.py, as the JAX CLI draws with cv2); the detection
+threshold is then 0.05.
 
 Under torchrun (`torchrun --nproc_per_node N -m
 ait_tpu_torch.tools.test_net ... [--set tpu.sp_size S]`) the ranks form a
@@ -65,9 +69,11 @@ from ait_tpu_torch.parallel.mesh import axis_index
 from ait_tpu_torch.parallel.sharded import make_sharded_eval_step
 from ait_tpu_torch.tools.trainval_net import (build_config, compute_dtype,
                                               make_run_mesh, parallel_layout)
-from ait_tpu_torch.train import (init_weights, make_eval_step,
+from ait_tpu_torch.train import (init_params, make_eval_step,
                                  make_fused_eval_step)
 from ait_tpu_torch.train.checkpoint import CheckpointManager
+from ait_tpu_torch.utils.visualize import (compose_with_query,
+                                           draw_detections, write_png)
 from ait_tpu_torch.utils import printer
 
 INPUTS = ("image", "query", "im_info")
@@ -112,7 +118,8 @@ def parse_args(argv=None):
     p.add_argument("--debug", action="store_true",
                    help="truncate to 10 pairs")
     p.add_argument("--vis", dest="visualization", action="store_true",
-                   help="detection overlays (not ported yet: ROADMAP A13b)")
+                   help="write detection overlays to test_img/ (and "
+                        "threshold the detections at 0.05)")
     p.add_argument("--write_results", action="store_true",
                    help="VOC only: also write official devkit result files "
                         "(pascal_voc.py:312-328) under "
@@ -136,6 +143,21 @@ def build_view(args, cfg):
     devkit = os.path.join(args.data_dir, "VOCdevkit2007")
     v = voc_data.load_voc(devkit, "2007", "test", cache_dir=cache)
     return voc_data.filter_seen(v, args.seen)
+
+
+VIS_DIR = "test_img"
+
+
+def _save_vis(loader, rec_idx, dets, query, pair_idx):
+    """The overlay of one pair (tools/test_net.py:121-135): the image, its
+    detections above 0.8, the query beside it, as VIS_DIR/{pair}_d.png."""
+    rec = loader.view.records[rec_idx]
+    im = np.asarray(loader.imread(rec.image_path))
+    if im.ndim == 2:
+        im = np.repeat(im[:, :, None], 3, axis=2)
+    im = compose_with_query(draw_detections(im, dets, thresh=0.8), query)
+    os.makedirs(VIS_DIR, exist_ok=True)
+    write_png(os.path.join(VIS_DIR, f"{pair_idx}_d.png"), im)
 
 
 def _prefetched(batches, dev):
@@ -173,6 +195,9 @@ def run_pass(loader, eval_step, post, args, allowed, dev):
                 ci = int(batch["category"][i])
                 ri = int(batch["record_index"][i])
                 all_boxes[ci][ri] = dets[i][valid[i]]
+                if args.visualization:
+                    _save_vis(loader, ri, all_boxes[ci][ri],
+                              batch["query"][i], pi)
             if len(done) % (50 * args.batch_size) < args.batch_size:
                 rate = len(done) / max(time.time() - t0, 1e-9)
                 printer(f"  {len(done)}/{n_pairs} pairs ",
@@ -211,6 +236,9 @@ def run_fused(loader, fused_step, post, args, allowed, dev):
                 for a in range(shots):
                     row = i * shots + a
                     by_shot[a][ci][ri] = dets[row][valid[row]]
+                if args.visualization:
+                    _save_vis(loader, ri, by_shot[0][ci][ri],
+                              batch["query"][i][0], pi)
             if len(done) % (50 * u) < u:
                 rate = len(done) * shots / max(time.time() - t0, 1e-9)
                 printer(f"  {len(done)}/{len(loader.pairs)} unique pairs "
@@ -231,9 +259,6 @@ def main(argv=None, *,
     query-shot pass."""
     args = parse_args(argv)
     cfg = build_config(args)
-    if args.visualization:
-        raise SystemExit("--vis: the detection overlays are not ported yet "
-                         "(ROADMAP A13b)")
     dev = multihost.maybe_init_distributed(printer, args.device) or \
         resolve_device(args.device)
     rank, world = multihost.world()
@@ -266,8 +291,8 @@ def main(argv=None, *,
             f"{len(view.allowed_classes)} classes under test")
 
     mesh = make_run_mesh(cfg.tpu.sp_axis, dp, sp)
-    model = init_weights(AITDetector(cfg, dtype=compute_dtype(cfg),
-                                     mesh=mesh), cfg.RNG_SEED)
+    model = init_params(AITDetector(cfg, dtype=compute_dtype(cfg),
+                                    mesh=mesh), cfg, cfg.RNG_SEED)
     ckpt_dir = args.checkpoint_path or os.path.join(run_dir, "ckpt")
     ckpt_step = 0
     if args.pretrained:
@@ -288,9 +313,10 @@ def main(argv=None, *,
     eval_step = (make_eval_step(model) if mesh is None
                  else make_sharded_eval_step(model, mesh))
 
-    # the reference thresholds at 0.0 (0.05 only under --vis,
-    # test_net_voc.py:311-313)
-    score_thresh = max(cfg.TEST.SCORE_THRESH, 0.0)
+    # the reference thresholds at 0.0 and raises to 0.05 only under --vis
+    # (test_net_voc.py:311-313)
+    score_thresh = max(cfg.TEST.SCORE_THRESH,
+                       0.05 if args.visualization else 0.0)
 
     def post(rois, cls_prob, bbox_pred, im_info):
         return postprocess_detections(

@@ -65,7 +65,7 @@ from ait_tpu_torch.models.detector import check_tp_size
 from ait_tpu_torch.parallel import multihost
 from ait_tpu_torch.parallel.mesh import axis_index, make_mesh, replicate
 from ait_tpu_torch.parallel.sharded import make_sharded_train_step
-from ait_tpu_torch.train import (init_weights, lr_schedule, make_optimizer,
+from ait_tpu_torch.train import (init_params, lr_schedule, make_optimizer,
                                  make_train_step)
 from ait_tpu_torch.train.checkpoint import CheckpointManager, save_config
 from ait_tpu_torch.utils import (AverageMeter, MetricWriter, ThroughputMeter,
@@ -270,8 +270,8 @@ def main(argv=None, *,
         save_config(output_dir, cfg)
         writer = MetricWriter(os.path.join(output_dir, "logs"))
 
-    model = init_weights(AITDetector(cfg, dtype=compute_dtype(cfg),
-                                     mesh=mesh), cfg.RNG_SEED)
+    model = init_params(AITDetector(cfg, dtype=compute_dtype(cfg),
+                                    mesh=mesh), cfg, cfg.RNG_SEED)
     if args.pretrained:
         n = load_pretrained(model, args.pretrained)
         printer(f"Loaded {n} pretrained arrays from ", args.pretrained)

@@ -1,7 +1,6 @@
 """Train and eval steps (counterpart of ait_tpu/train/state.py).
 
-    model = AITDetector(cfg)             # Config(): t_dropout 0.1
-    model.load_state_dict(state_dict)
+    model = init_params(AITDetector(cfg), cfg, cfg.RNG_SEED)
     optimizer = make_optimizer(cfg, model)
     step = make_train_step(model, optimizer, lr_schedule(...))   # on the GPU
     metrics = step(batch, torch.Generator("cuda").manual_seed(0))
@@ -29,8 +28,10 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 import torch
+from torch import nn
 
 from ait_tpu_torch import bridge
+from ait_tpu_torch.config import Config
 from ait_tpu_torch.device import resolve_device
 from ait_tpu_torch.models.detector import AITDetector
 from ait_tpu_torch.train.optim import clip_by_global_norm_, set_lr
@@ -40,10 +41,40 @@ LOSS_METRICS = {"loss": "total_loss", "rpn_cls": "rpn_loss_cls",
                 "margin": "margin_loss", "rcnn_box": "rcnn_loss_bbox"}
 
 
+def init_module(module: nn.Module, seed: int) -> nn.Module:
+    """Fill `module` with the weights ait_tpu initializes and return it:
+    each leaf drawn, in the JAX layout, from the initializer its module
+    declares (`inits`: flax's initializers as models/layers.py has them),
+    in module order from one CPU `torch.Generator` seeded with `seed`.  One
+    seed gives the same weights on any device; the values are not flax's
+    draws, their distributions are."""
+    generator = torch.Generator().manual_seed(int(seed))
+    inits = {}
+    for name, mod in module.named_modules():
+        path = tuple(name.split(".")) if name else ()
+        for leaf, init in getattr(mod, "inits", {}).items():
+            inits[path + (leaf,)] = init
+    tree = {path: inits[path](generator, shape).numpy()
+            for _, path, shape, _ in bridge.mappings(module)}
+    module.load_state_dict(bridge.to_state_dict(module, bridge.nest(tree)))
+    return module
+
+
+def init_params(model: AITDetector, cfg: Config, seed: int) -> AITDetector:
+    """The detector's initial weights from `seed` (`init_module`; the
+    counterpart of init_params, state.py:39).  `cfg` must be the model's:
+    flax needs it for the shapes of a throwaway forward, the port's leaves
+    have theirs already."""
+    if model.cfg != cfg:
+        raise ValueError("init_params: cfg is not the model's config")
+    return init_module(model, seed)
+
+
 def init_weights(model: AITDetector, seed: int) -> AITDetector:
-    """Fill `model` with random weights from `seed` (`bridge.random_tree`:
-    the port's counterpart of init_params, state.py:39; other values than
-    flax's init) and return it."""
+    """Fill `model` with test weights from `seed` (`bridge.random_tree`:
+    variance-1/fan-in normals everywhere, BN statistics spread around
+    theirs, so every branch carries signal; the tests' weight bridge, not
+    ait_tpu's init: that is `init_params`) and return it."""
     model.load_state_dict(bridge.to_state_dict(
         model, bridge.random_tree(bridge.jax_shapes(model), seed)))
     return model

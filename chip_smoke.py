@@ -119,7 +119,8 @@
    momentum saved and restored bit-equal, and the next step on the restored
    objects bit-equal to the same step on the saved ones; the train CLI (2
    epochs of 5 steps, a checkpoint every 3) and again with `--r true` to
-   epoch 3, each step with `PER_STEP`'s launches, the resume at epoch
+   epoch 3, at the CLI's default lr from `init_params`' weights, each step
+   with `PER_STEP`'s launches, the resume at epoch
    latest // steps_per_epoch + 1, finite losses in `metrics.jsonl`; the eval
    CLI from that run with `--a 2`, per pass and `--fuse_shots`, in bf16 and
    in f32 (the same pairs; on every fused batch the fused step bit-equal
@@ -128,6 +129,8 @@
    protocols running the image backbone at 8 and at 4 images), each
    forward with `PER_FORWARD`'s launches;
    `OneShotPredictor.from_run` equal to a predictor on the restored state;
+   `--vis` (slice 14, `check_vis`): each pair's PNG, read back by
+   `read_png`, equal to the port's drawing of the CLI's own detections;
    res101_ls eval (cfgs/res101_ls.yml: 800x1088, its transpose and the
    800x1600 bucket, 1000 proposals) with its launches, the kernel path
    against the plain path on each canvas, its batch latency, device busy
@@ -175,7 +178,15 @@
    stages, 8 microbatches, against the layers in turn: 2e-5 forward, 1e-4
    gradients); each with its launches per rank.  Two ranks on one card
    prove the paths with the kernels live; they measure no scaling.
-9. Prints the per-kernel JSON line, then the device JSON line last.
+9. Slice 14 (`drive_convergence`, `drive_demo`, `check_nms_api`): the
+   convergence smoke at its defaults (`Config()`, bf16, B = 8, 300 steps at
+   lr 0.01 from `init_params` on the synthetic shapes set): every loss
+   finite, the mean loss of the last 25 steps at most 0.6 of the first
+   25's, the train-set mAP at least 0.30, its loss curve, mAP, per-class AP
+   and s/step printed; the AIT demo's shape contract against the plain
+   path; `ops.nms.nms` on the flagship's proposals, indices and count equal
+   to the plain sweep's; each with its launches.
+10. Prints the per-kernel JSON line, then the device JSON line last.
 
 Exits non-zero, with no result line, without a CUDA device or outside a
 checkout of the repository.  Imports nothing of JAX or ait_tpu.
@@ -185,6 +196,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
 import itertools
 import json
 import math
@@ -413,7 +425,8 @@ def check_nms(torch, dev, shapes):
     sweep); the kernel's selections bit-equal to the plain version's on
     both.  ms, plain_ms and bound_ms sum the model's input over the
     calls."""
-    from ait_tpu_torch.ops import nms as nms_mod
+    # the module: ait_tpu_torch.ops exports its `nms` function by that name
+    nms_mod = importlib.import_module("ait_tpu_torch.ops.nms")
 
     g = torch.Generator(device="cpu").manual_seed(1)
     entries = []
@@ -2088,8 +2101,9 @@ def kernel_wrappers():
     launches).  A wrapper with a dropout form counts its keep_prob 1
     launches in `launches` and its dropout launches in `dropout_launches`."""
     from ait_tpu_torch.ops import (_gemm, dropout_masks as dm,
-                                   fused_attention as fa, fused_ffn as ff,
-                                   nms)
+                                   fused_attention as fa, fused_ffn as ff)
+
+    nms = importlib.import_module("ait_tpu_torch.ops.nms")
 
     return {"nms_keep_mask": (nms.nms_keep_mask_batched, "launches"),
             "sh_attention_fwd": (fa.fused_sh_attention, "launches"),
@@ -2229,7 +2243,9 @@ def plain_path():
     kernel path against the plain path on the same card); the model and
     the autograd Functions look the wrappers up at call time."""
     from ait_tpu_torch.ops import (dropout_masks as dm, fused_attention as fa,
-                                   fused_ffn as ff, nms, philox)
+                                   fused_ffn as ff, philox)
+
+    nms = importlib.import_module("ait_tpu_torch.ops.nms")
 
     swaps = [(fa, "fused_sh_attention", fa.sh_attention_reference),
              (fa, "fused_sh_attention_saved", fa.sh_attention_saved_reference),
@@ -3404,13 +3420,10 @@ def drive_cli(torch, np, dev):
         # 1. train the flagship, then resume
         common = ["--dataset", "pascal_voc", "--data_dir", root,
                   "--save_dir", os.path.join(root, "models")]
-        # lr: Config()'s TRAIN.LEARNING_RATE, as drive_train trains (the
-        # CLI's default 0.01 fine-tunes a pretrained backbone; from random
-        # weights it diverges within 20 steps)
+        # at the CLI's default lr 0.01, from init_params' weights
         interval = 3
         train_argv = common + ["--net", "res50", "--bs", str(B), "--debug",
-                               "--checkpoint_interval", str(interval),
-                               "--lr", "0.001"]
+                               "--checkpoint_interval", str(interval)]
         runs = []
         for extra in (["--epochs", "2"], ["--epochs", "3", "--r", "true"]):
             torch.cuda.synchronize()
@@ -3528,6 +3541,9 @@ def drive_cli(torch, np, dev):
             fail("from_run: detections differ from the restored predictor's")
         log(f"from_run: {len(got)} pairs' detections equal to the restored "
             f"predictor's ({sum(len(d) for d in got)} rows)")
+        paths["cli_vis_eval"] = check_vis(
+            torch, np, root, common + ["--net", "res50", "--bs", str(B)],
+            imread, test)
 
         # 3. res101_ls eval at full width (random weights), 5 res101 steps
         ls_argv = common + ["--net", "res101", "--ls", "--bs", str(B),
@@ -3558,8 +3574,7 @@ def drive_cli(torch, np, dev):
         time_res101_ls(torch, np, dev, ls_cfg, ls_state,
                        firsts[(B, h // 2, w // 2, 12)])
         r101 = common + ["--net", "res101", "--bs", str(B), "--debug",
-                         "--epochs", "1", "--version", "r101", "--lr",
-                         "0.001"]
+                         "--epochs", "1", "--version", "r101"]
         zero_counts()
         res = trainval_net.main(r101, imread=imread)
         steps = res["step"] - res["start_step"]
@@ -3627,8 +3642,8 @@ def cli_recipes(torch, np, root, common, imread):
                                 "--version", "vgg16"], VGG_PER_STEP)):
         zero_counts()
         t0 = time.perf_counter()
-        res = trainval_net.main(argv + ["--debug", "--epochs", "1", "--lr",
-                                        "0.001"], imread=read)
+        res = trainval_net.main(argv + ["--debug", "--epochs", "1"],
+                                imread=read)
         torch.cuda.synchronize()
         steps = res["step"] - res["start_step"]
         paths[f"cli_{name}_train"] = read_counts(per_step, steps, "steps")
@@ -4125,17 +4140,18 @@ def drive_parallel_nccl1(torch, np, dev, params):
     once, over the card's memory rate)."""
     import torch.distributed as dist
 
-    from ait_tpu_torch.parallel import (launch, make_mesh,
-                                        make_sharded_eval_step,
+    from ait_tpu_torch.parallel import (make_mesh, make_sharded_eval_step,
                                         make_sharded_train_step)
     from ait_tpu_torch.parallel.sharded import fused_pmean
     from ait_tpu_torch.train import (lr_schedule, make_eval_step,
                                      make_optimizer, make_train_step)
 
     torch.cuda.set_device(torch.cuda.current_device())
+    # world 1: the store binds a port of its own choosing (port 0)
     dist.init_process_group(
-        "nccl", init_method=f"tcp://127.0.0.1:{launch.free_port()}", rank=0,
-        world_size=1)
+        "nccl", store=dist.TCPStore("127.0.0.1", 0, is_master=True,
+                                    wait_for_workers=False),
+        rank=0, world_size=1)
     try:
         mesh = make_mesh(1)
         cfg = train_config()
@@ -4578,6 +4594,176 @@ def drive_parallel(torch, np, dev, params):
     return paths
 
 
+# slice 14's convergence gate (the convergence smoke's own targets): the
+# mean loss of the last 25 of 300 steps against the first 25's, and the
+# train-set mAP (chance is about 0.02)
+CONV_RATIO = 0.6
+CONV_MAP = 0.30
+CONV_WINDOW = 25
+# the AIT demo's one float32 forward: the encoder's self-attention and the
+# decoder's two, their FFNs and the two input glues, the projections on the
+# FMA tiles (f32 x f32); no NMS
+DEMO_FORWARD = {**PER_FORWARD, "nms_keep_mask": 0, "gemm": 0,
+                "gemm_fma": 3 * ATTN_FWD_GEMM}
+
+
+def drive_convergence(torch, np, dev, smi):
+    """Slice 14's convergence phase: the port's overfit smoke (`python -m
+    ait_tpu_torch.tools.overfit_smoke`) at its defaults, as a user runs it:
+    `Config()` in bf16 from `init_params`, B = 8, 300 steps at lr 0.01 on
+    the synthetic shapes set, then one-shot AP on the train set.  Passes if
+    every step's loss is finite, the mean loss of the last CONV_WINDOW steps
+    is at most CONV_RATIO of the first CONV_WINDOW's, and the mAP is at
+    least CONV_MAP; every train step shows PER_STEP's launches and every
+    eval forward PER_FORWARD's.  Returns the launches."""
+    from ait_tpu_torch.tools import overfit_smoke
+
+    t0 = time.time()
+    torch.cuda.synchronize()
+    zero_counts()
+    res = overfit_smoke.run(overfit_smoke.parse_args([]))
+    torch.cuda.synchronize()
+    losses, forwards = res["losses"], res["eval_batches"]
+    launches = check_counts(
+        counts_now(), {k: PER_STEP[k] * len(losses) +
+                       PER_FORWARD[k] * forwards for k in PER_STEP}, 1,
+        f"convergence phase ({len(losses)} steps, {forwards} eval forwards)")
+    first = sum(losses[:CONV_WINDOW]) / CONV_WINDOW
+    last = sum(losses[-CONV_WINDOW:]) / CONV_WINDOW
+    windows = [round(sum(losses[i:i + CONV_WINDOW]) / CONV_WINDOW, 4)
+               for i in range(0, len(losses), CONV_WINDOW)]
+    log(f"convergence ({smi}): {len(losses)} steps of {B} images in "
+        f"{res['train_s']:.2f} s ({res['train_s'] / len(losses):.4f} s a "
+        f"step, the loader and the first step's set-up included); loss at "
+        f"steps {[s for s, _ in res['logged']]}: "
+        f"{[round(m['loss'], 4) for _, m in res['logged']]}; means of "
+        f"{CONV_WINDOW}-step windows {windows}; first {first:.4f}, last "
+        f"{last:.4f}, ratio {last / first:.4f} (gate {CONV_RATIO}); "
+        f"train-set mAP {res['mAP']:.4f} (gate {CONV_MAP}), per class "
+        f"{ {k: round(v, 4) for k, v in res['ap'].items()} }; eval "
+        f"{forwards} forwards in {res['eval_s']:.2f} s; phase "
+        f"{time.time() - t0:.1f} s; launches {launches}")
+    bad = [i + 1 for i, v in enumerate(losses) if not math.isfinite(v)]
+    if len(losses) != 300 or bad:
+        fail(f"convergence: {len(losses)} steps, non-finite losses at "
+             f"steps {bad}")
+    if last > CONV_RATIO * first or res["mAP"] < CONV_MAP:
+        fail(f"convergence (fault C4): loss ratio {last / first:.4f} "
+             f"(gate {CONV_RATIO}), train-set mAP {res['mAP']:.4f} (gate "
+             f"{CONV_MAP})")
+    return launches
+
+
+def check_vis(torch, np, root, argv, imread, view):
+    """`test_net --vis` on the data phase's devkit: one pass over the first
+    pairs (`--debug`) from the working directory `root`.  One
+    test_img/{pair}_d.png a pair, each decoded by utils/visualize.py's
+    `read_png` to (H, W + H, 3) for its H x W image and equal to
+    `compose_with_query(draw_detections(image, dets, 0.8), query)` of the
+    CLI's own detections and query for that pair; every detection above
+    the --vis threshold 0.05.  Returns the launches."""
+    from ait_tpu_torch.tools import test_net
+    from ait_tpu_torch.utils.visualize import (compose_with_query,
+                                               draw_detections, read_png)
+
+    out = os.path.join(root, "out_vis")
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        _, seen, launches, _, _ = eval_cli(
+            torch, np, argv + ["--a", "1", "--debug", "--vis",
+                               "--output_dir", out], imread,
+            "CLI eval --vis", view)
+    finally:
+        os.chdir(cwd)
+    dets = read_dets(out, 0)
+    vis_dir = os.path.join(root, test_net.VIS_DIR)
+    pairs, drawn = {}, 0
+    for hb, _ in seen:
+        for i, pi in enumerate(hb["pair_index"]):
+            pairs.setdefault(int(pi), (int(hb["record_index"][i]),
+                                       int(hb["category"][i]),
+                                       hb["query"][i]))
+    if sorted(os.listdir(vis_dir)) != sorted(f"{pi}_d.png" for pi in pairs):
+        fail(f"--vis: files {sorted(os.listdir(vis_dir))} for the pairs "
+             f"{sorted(pairs)}")
+    for pi, (ri, ci, query) in pairs.items():
+        d = dets[ci][ri]
+        image = imread(view.records[ri].image_path)
+        png = read_png(os.path.join(vis_dir, f"{pi}_d.png"))
+        h, w = image.shape[:2]
+        if png.shape != (h, w + h, 3) or (d[:, 4] <= 0.05).any():
+            fail(f"--vis pair {pi}: {png.shape} for a {h} x {w} image, "
+                 f"scores {d[:, 4].min() if len(d) else None}")
+        if not np.array_equal(png, compose_with_query(
+                draw_detections(image, d, thresh=0.8), query)):
+            fail(f"--vis pair {pi}: the PNG differs from the drawing of the "
+                 f"CLI's detections")
+        drawn += int((d[:, 4] > 0.8).sum())
+    log(f"--vis: {len(pairs)} overlays, each the drawing of the CLI's own "
+        f"detections ({drawn} boxes above 0.8) and query, read back by "
+        f"read_png")
+    return launches
+
+
+def drive_demo(torch, np, dev):
+    """The AIT demo's shape contract on the card (`python -m
+    ait_tpu_torch.tools.ait_demo`): AITTransformer(n_layers=1, channels=
+    1024) with init_module's weights in float32, [256, 7, 7, 1024] x
+    [2, 8, 8, 1024] from numpy seed 0 -> [256, 8, 8, 1024], finite, with
+    DEMO_FORWARD's launches; the same call on the plain path (TF32 off)
+    within F32_TOL.  Returns the launches."""
+    from ait_tpu_torch.tools import ait_demo
+
+    torch.cuda.synchronize()
+    zero_counts()
+    out = ait_demo.main([])
+    torch.cuda.synchronize()
+    launches = check_counts(counts_now(), DEMO_FORWARD, 1, "AIT demo")
+    with plain_path():
+        want = ait_demo.main([])
+    err = (out - want).abs().max().item()
+    if tuple(out.shape) != (256, 8, 8, 1024) or \
+            not torch.isfinite(out).all() or err > F32_TOL:
+        fail(f"AIT demo: output {tuple(out.shape)}, max abs error against "
+             f"the plain path {err}")
+    log(f"AIT demo: {tuple(out.shape)} on the card, max abs error against "
+        f"the plain path {err:.3e}; launches {launches}")
+    return launches
+
+
+def check_nms_api(torch, np, dev):
+    """`ops.nms.nms`, the drop-in for the reference's `_C.nms`, on the card:
+    one image of the flagship's eval proposals (`model_nms_boxes`, 6000
+    candidates decoded with N(0, 0.05) deltas), shuffled by a seed, scores
+    tied in threes, at the proposal layer's 0.7 / 300 and the
+    postprocess's 0.3 / 100; indices and count equal to the plain sweep's
+    on the CPU, one NMS launch a call.  Returns the launches."""
+    nms_mod = importlib.import_module("ait_tpu_torch.ops.nms")
+
+    boxes = model_nms_boxes(torch, 6000, seed=5, images=2)[0][1]
+    perm = torch.randperm(6000, generator=torch.Generator().manual_seed(6))
+    scores = (torch.arange(6000, 0, -1) // 3).float() / 2000.0
+    boxes, scores = boxes[perm].contiguous(), scores[perm].contiguous()
+    zero_counts()
+    found = []
+    for thr, cap in ((0.7, 300), (0.3, 100)):
+        idx, count = nms_mod.nms(boxes.to(dev), scores.to(dev), thr, cap)
+        want_idx, want_count = nms_mod.nms(boxes, scores, thr, cap)
+        if not torch.equal(idx.cpu(), want_idx) or \
+                int(count) != int(want_count):
+            fail(f"ops.nms.nms at {thr} / {cap}: count {int(count)} against "
+                 f"{int(want_count)}, indices differ at "
+                 f"{(idx.cpu() != want_idx).nonzero().flatten()[:8].tolist()}")
+        found.append(int(count))
+    launches = check_counts(
+        counts_now(), {**dict.fromkeys(kernel_wrappers(), 0),
+                       "nms_keep_mask": 1}, 2, "ops.nms.nms calls")
+    log(f"ops.nms.nms: the kernel's indices and counts {found} equal to the "
+        f"plain sweep's at 0.7 / 300 and 0.3 / 100")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "ait_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository "
@@ -4676,6 +4862,11 @@ def main() -> int:
     paths.update(drive_recipes(torch, np, dev))
     paths.update(drive_cli(torch, np, dev))
     paths.update(drive_parallel(torch, np, dev, params))
+    # slice 14: the convergence smoke, the demo, ops.nms.nms (--vis runs in
+    # the CLI phase)
+    paths["convergence"] = drive_convergence(torch, np, dev, smi)
+    paths["ait_demo"] = drive_demo(torch, np, dev)
+    paths["ops_nms"] = check_nms_api(torch, np, dev)
 
     meta = {"nms_keep_mask": ("ait_tpu_torch/csrc/nms.cu",
                               "ait_tpu/ops/nms_pallas.py:133"),

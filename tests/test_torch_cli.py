@@ -10,8 +10,8 @@
   and with `--fuse_shots` (the same detections on every pair, up to the
   rounding of the image backbone at another batch), with
   `--write_results` and from `--with_cache_file`; `from_run` against a
-  predictor built from the restored state; the refusals of what the port
-  does not run yet (the overlays) and of parallel sizes that cannot run;
+  predictor built from the restored state; `--vis`'s overlays against the
+  JAX package's drawing; the refusals of parallel sizes that cannot run;
   every recipe,
   `--dataset coco` and `--net vgg16`, through both CLIs.
 """
@@ -22,6 +22,7 @@ import os
 import subprocess
 import sys
 
+import imageio.v2 as imageio
 import numpy as np
 import pytest
 import torch
@@ -33,7 +34,7 @@ from ait_tpu_torch.data.voc import filter_seen, load_voc
 from ait_tpu_torch.models import AITDetector
 from ait_tpu_torch.predict import OneShotPredictor
 from ait_tpu_torch.tools import test_net, trainval_net
-from ait_tpu_torch.train import init_weights
+from ait_tpu_torch.train import init_params
 from ait_tpu_torch.train.checkpoint import CheckpointManager
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -242,20 +243,49 @@ def test_from_run_without_checkpoint_keeps_seeded_weights(runs, tmp_path,
     pred = OneShotPredictor.from_run(str(tmp_path), device="cpu",
                                      dtype=torch.float32)
     assert "WARNING: no checkpoint" in capsys.readouterr().out
-    want = init_weights(AITDetector(pred.cfg), 0).state_dict()
+    want = init_params(AITDetector(pred.cfg), pred.cfg, 0).state_dict()
     got = pred.model.state_dict()
     assert all(torch.equal(got[k], want[k]) for k in want)
 
 
-@pytest.mark.parametrize("cli,argv,item", [
-    ("eval", ["--vis"], "A13b"),
-])
-def test_refusals_name_the_roadmap_item(tmp_path, cli, argv, item):
-    mod = trainval_net if cli == "train" else test_net
-    with pytest.raises(SystemExit, match=item):
-        mod.main(["--device", "cpu", "--data_dir", str(tmp_path / "none"),
-                  "--save_dir", str(tmp_path / "models"), *argv])
-    assert not (tmp_path / "models").exists()
+def test_eval_vis_writes_the_overlays(runs, tmp_path, monkeypatch):
+    """`--vis`: one test_img/{pair}_d.png a pair under the working
+    directory, each the port's drawing of the CLI's own detections for that
+    pair (the last pass's: each pass rewrites them) and the query, pixel-
+    equal to the JAX package's cv2 drawing of the same; the detections
+    thresholded at 0.05."""
+    from ait_tpu.utils import visualize as jvis
+    from ait_tpu_torch.utils import visualize as vis
+
+    monkeypatch.chdir(tmp_path)
+    calls = {}
+    save = test_net._save_vis
+
+    def spy(loader, rec_idx, dets, query, pair_idx):
+        calls[pair_idx] = (loader.view.records[rec_idx].image_path,
+                           loader.pairs[pair_idx], dets.copy(),
+                           np.array(query))
+        return save(loader, rec_idx, dets, query, pair_idx)
+
+    monkeypatch.setattr(test_net, "_save_vis", spy)
+    root = runs["root"]
+    res = _eval(root, "out_vis", "--vis")
+    assert len(res) == 2
+    last = read_data_pickle(str(root / "out_vis" / "sess1_seen2_1.pkl"))
+    files = sorted(os.listdir(tmp_path / test_net.VIS_DIR))
+    assert files == sorted(f"{pi}_d.png" for pi in calls) and files
+    for pi, (path, (ri, ci), dets, query) in calls.items():
+        np.testing.assert_array_equal(dets, last[ci][ri])
+        assert (dets[:, 4] > 0.05).all()
+        png = vis.read_png(str(tmp_path / test_net.VIS_DIR / f"{pi}_d.png"))
+        image = np.asarray(imageio.imread(path))
+        want = jvis.compose_with_query(
+            jvis.draw_detections(image, dets, thresh=0.8), query)
+        assert png.shape == (image.shape[0],
+                             image.shape[1] + image.shape[0], 3)
+        np.testing.assert_array_equal(png, want, err_msg=str(pi))
+        np.testing.assert_array_equal(png, vis.compose_with_query(
+            vis.draw_detections(image, dets, thresh=0.8), query))
 
 
 @pytest.mark.parametrize("cli,argv,reason", [

@@ -20,6 +20,7 @@ more tiles before it reaches its cap.  Here:
   no kernel for a CPU tensor.
 """
 
+import importlib
 import importlib.util
 import os
 
@@ -28,7 +29,9 @@ import pytest
 import torch
 
 from ait_tpu_torch.ops import _build
-from ait_tpu_torch.ops import nms as pnms
+
+# the module (ait_tpu_torch.ops exports its `nms` function under that name)
+pnms = importlib.import_module("ait_tpu_torch.ops.nms")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CALLS = [(6144, 0.7, 300), (300, 0.3, 300), (12032, 0.7, 2000)]

@@ -4,7 +4,8 @@ gloo process groups of the CPU.
 
 * `run_local`: results in rank order, one intra-op thread a rank, a rank's
   exception re-raised with its rank, every child killed at the timeout
-  (a rank that never enters a collective);
+  (a rank that never enters a collective), three calls at once from
+  threads each in a group of its own;
 * `allgather_object` + `merge_all_boxes`, the latter against the JAX
   package's; `maybe_init_distributed` from torchrun's environment (gloo,
   in a subprocess) and without it; the (data x model) mesh's coordinates
@@ -35,7 +36,7 @@ from ait_tpu.parallel.multihost import merge_all_boxes as jax_merge
 from ait_tpu.parallel.sharded import fused_pmean as jax_fused_pmean
 from ait_tpu.parallel.sharded import shard_map
 from ait_tpu_torch.data.coco import read_data_pickle
-from ait_tpu_torch.parallel import launch, multihost
+from ait_tpu_torch.parallel import multihost
 from ait_tpu_torch.tools import test_net, trainval_net
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -61,6 +62,29 @@ def test_run_local_reraises_with_the_rank():
     with pytest.raises(RuntimeError,
                        match="(?s)rank 1 raised.*boom on rank 1"):
         workers.run(workers.raise_on, 2, 1, timeout=60)
+
+
+def test_concurrent_run_local_calls_meet_in_their_own_groups():
+    """Each call serves its own store on a port it already holds, so calls
+    running at once neither fail to meet nor join each other's groups."""
+    import threading
+
+    got, errors = {}, []
+
+    def call(tag):
+        try:
+            got[tag] = workers.run(workers.tagged_sum, 2, tag, timeout=120)
+        except BaseException as e:      # re-raised below, in the test
+            errors.append(e)
+
+    threads = [threading.Thread(target=call, args=(tag,))
+               for tag in (100, 200, 300)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert got == {tag: [2.0 * tag + 1] * 2 for tag in (100, 200, 300)}
 
 
 def test_run_local_kills_children_at_the_timeout():
@@ -91,7 +115,7 @@ def test_allgather_and_merge_boxes(four):
 def test_maybe_init_distributed():
     assert multihost.maybe_init_distributed(print, "cpu") is None
     env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
-               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(launch.free_port()))
+               MASTER_ADDR="127.0.0.1", MASTER_PORT="0")   # world 1: binds its own
     code = ("import torch.distributed as dist; "
             "from ait_tpu_torch.parallel.multihost import "
             "maybe_init_distributed as m; "

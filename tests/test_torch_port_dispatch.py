@@ -9,12 +9,15 @@ with
     python -m pytest --noconftest -m gpu tests/test_torch_port_dispatch.py
 """
 
+import importlib
 import pytest
 import torch
 
 from ait_tpu_torch.ops import fused_attention as pfa
 from ait_tpu_torch.ops import fused_ffn as pff
-from ait_tpu_torch.ops import nms as pnms
+
+# the module (ait_tpu_torch.ops exports its `nms` function under that name)
+pnms = importlib.import_module("ait_tpu_torch.ops.nms")
 
 
 def _small_calls(device):

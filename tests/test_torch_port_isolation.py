@@ -2,7 +2,9 @@
 chip_smoke.py, tools/port_profile.py, tools/posln_bench.py and
 tools/attn_general_bench.py, imports JAX,
 flax, optax or the JAX package, or unpickles without a class filter, and
-no rank that parallel/launch.py spawns holds JAX; its entry points refuse
+no rank that parallel/launch.py spawns holds JAX; the overlays, the
+convergence smoke, the demo and chip_smoke.py import no image library
+(cv2, imageio, PIL: the card's machine has none); its entry points refuse
 to run quietly on the CPU when no GPU is there."""
 
 import ast
@@ -15,6 +17,15 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ait_tpu")
+IMAGE_LIBS = ("cv2", "imageio", "PIL")
+# the modules that draw, write and read images or run on the card without
+# a decoder (the loader's default reader is imageio, imported at its first
+# read; on the card the callers pass `imread=`)
+NO_IMAGE_LIBS = ("chip_smoke.py", "ait_tpu_torch/utils/visualize.py",
+                 "ait_tpu_torch/utils/_font_plain.py",
+                 "ait_tpu_torch/tools/overfit_smoke.py",
+                 "ait_tpu_torch/tools/ait_demo.py",
+                 "ait_tpu_torch/tools/test_net.py")
 
 
 def _sources():
@@ -50,6 +61,13 @@ def test_sources_found():
 def test_no_jax_imports(path):
     bad = [n for n in _imported(path) if _forbidden(n)]
     assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("rel", NO_IMAGE_LIBS)
+def test_no_image_library_imports(rel):
+    bad = [n for n in _imported(os.path.join(REPO, rel))
+           if n.split(".")[0] in IMAGE_LIBS]
+    assert not bad, f"{rel} imports {bad}"
 
 
 def _unpickling_calls(path):
@@ -106,9 +124,12 @@ def test_importing_the_port_loads_no_jax():
             "ait_tpu_torch.parallel, ait_tpu_torch.parallel.launch, "
             "ait_tpu_torch.parallel.mesh, ait_tpu_torch.parallel.multihost, "
             "ait_tpu_torch.parallel.pp, ait_tpu_torch.parallel.sharded, "
-            "ait_tpu_torch.parallel.sp, ait_tpu_torch.parallel.tp; "
+            "ait_tpu_torch.parallel.sp, ait_tpu_torch.parallel.tp, "
+            "ait_tpu_torch.utils.visualize, ait_tpu_torch.tools.overfit_smoke, "
+            "ait_tpu_torch.tools.ait_demo; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'ait_tpu')]; "
+            "('jax', 'jaxlib', 'flax', 'optax', 'ait_tpu', 'cv2', "
+            "'imageio', 'PIL')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)

@@ -6,6 +6,7 @@ arithmetic, anchors, the NMS keep bits); ROI Align within 1e-5, because the
 two contractions sum in another order.
 """
 
+import importlib
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,8 +20,10 @@ from ait_tpu.ops.nms_pallas import nms_keep_mask_batched as pallas_keep
 from ait_tpu.ops.roi_align import roi_align as jroi_align
 from ait_tpu_torch.ops import anchors as panchors
 from ait_tpu_torch.ops import boxes as pboxes
-from ait_tpu_torch.ops import nms as pnms
 from ait_tpu_torch.ops.roi_align import roi_align as proi_align
+
+# the module (ait_tpu_torch.ops exports its `nms` function under that name)
+pnms = importlib.import_module("ait_tpu_torch.ops.nms")
 
 T = torch.from_numpy
 

@@ -140,6 +140,14 @@ def loaded_modules(rank, world, dev):
     return sorted(sys.modules), os.getpid()
 
 
+def tagged_sum(rank, world, dev, tag):
+    """The sum over the group of tag + rank: a rank that joined another
+    call's group would add another tag."""
+    t = torch.tensor([float(tag + rank)])
+    dist.all_reduce(t)
+    return float(t)
+
+
 def gather_boxes(rank, world, dev):
     part = {1: {rank: np.full((1, 5), rank, np.float32)},
             2: {10 + rank: np.zeros((0, 5), np.float32)}}
