@@ -167,17 +167,19 @@
    sharded eval step bit-equal to `make_eval_step` with PER_FORWARD's;
    `fused_pmean` of one step's gradients timed alone beside its bound.
    Then two ranks on the one card, gloo with CUDA tensors, through
-   `parallel.launch.run_local` (killed at its timeout): dp2 (B = 8, 4 a
-   rank, f32: the ranks' parameters bitwise equal, the reduced gradients
-   within 1e-6 of the halves' mean computed on rank 0, fg/bg counts
-   summed), tp2 (data 1 x model 2: the step against the world-1 step, f32
+   `parallel.launch.run_local` at its default device, the card (killed at
+   its timeout): dp2 (B = 8, 4 a rank, f32: the ranks' parameters bitwise
+   equal, the reduced gradients within 1e-6 of the halves' mean computed
+   on rank 0, fg/bg counts summed), tp2 (data 1 x model 2: the step against the world-1 step, f32
    at t_dropout 0 and 0.1 within 1e-4, then bf16 logged), sp2 (data 1 x
    seq 2 on the 608x800 canvas, MHA and non-local co-attention: eval
    against unsharded, the co-attention within 2e-5, the shared rois'
    detections within 1e-3), pp2 (two flagship-width EncoderLayers as GPipe
    stages, 8 microbatches, against the layers in turn: 2e-5 forward, 1e-4
-   gradients); each with its launches per rank.  Two ranks on one card
-   prove the paths with the kernels live; they measure no scaling.
+   gradients); each with its launches per rank; last, the cost of one of
+   `run_local`'s two store barriers (BARRIER_N in lockstep, each rank's
+   median and largest ms).  Two ranks on one card prove the paths with the
+   kernels live; they measure no scaling.
 9. Slice 14 (`drive_convergence`, `drive_demo`, `check_nms_api`): the
    convergence smoke at its defaults (`Config()`, bf16, B = 8, 300 steps at
    lr 0.01 from `init_params` on the synthetic shapes set): every loss
@@ -4041,6 +4043,8 @@ def knob_config(knob):
 # GPipe leg's microbatches and their shape (rois x tokens x d_model)
 PAR_B = 2
 PP_M, PP_MICRO = 8, (32, 56, 512)
+# store barriers timed in lockstep by the parallel phase's last leg
+BARRIER_N = 50
 # launches per rank and step of a tp train step: the attentions and FFNs run
 # plain torch under tp (as the JAX package runs them plain XLA), so NMS, the
 # glue and, with dropout, the mask dumps launch (two for each of the five
@@ -4539,9 +4543,34 @@ def leg_pp2(torch, np, dev, rank, world):
     return res
 
 
-def parallel_rank(rank, world, dev):
+def leg_barriers(dev, rank, world, port, n=BARRIER_N):
+    """The cost of one of `run_local`'s two store barriers: n calls of
+    `launch.store_barrier` in lockstep over a TCPStore that the caller
+    serves, as `run_local` serves its group's, after one that aligns the
+    ranks; the median and the largest ms of this rank."""
+    import datetime
+    import statistics
+
+    import torch.distributed as dist
+
+    from ait_tpu_torch.parallel import launch
+
+    store = dist.TCPStore("127.0.0.1", port, is_master=False,
+                          timeout=datetime.timedelta(seconds=60))
+    launch.store_barrier(store, "align", world)
+    ms = []
+    for i in range(n):
+        t0 = time.perf_counter()
+        launch.store_barrier(store, f"b{i}", world)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"device": str(dev), "median_ms": statistics.median(ms),
+            "max_ms": max(ms)}
+
+
+def parallel_rank(rank, world, dev, port):
     """Part 2 of the parallel phase, one rank of two on the one card (gloo
-    with CUDA tensors): the dp2, tp2, sp2 and pp2 legs in turn."""
+    with CUDA tensors): the dp2, tp2, sp2 and pp2 legs in turn, then the
+    launcher's barrier cost."""
     import numpy as np
     import torch
 
@@ -4559,21 +4588,44 @@ def parallel_rank(rank, world, dev):
     return {"dp2": leg_dp2(torch, np, dev, params, rank, world),
             "tp2": leg_tp2(torch, np, dev, params, rank, world),
             "sp2": leg_sp2(torch, np, dev, params, rank, world),
-            "pp2": leg_pp2(torch, np, dev, rank, world)}
+            "pp2": leg_pp2(torch, np, dev, rank, world),
+            "barriers": leg_barriers(dev, rank, world, port)}
 
 
 def drive_parallel(torch, np, dev, params):
     """The parallel phase: NCCL at world 1 here, then two ranks on the one
-    card under gloo (parallel.launch.run_local, killed at its timeout).
-    Two ranks on one card prove the paths with the kernels live; they are
-    not a scaling measurement.  Returns the paths' launches (rank 0's)."""
+    card under gloo (parallel.launch.run_local at its default device, the
+    card, killed at its timeout).  Two ranks on one card prove the paths
+    with the kernels live; they are not a scaling measurement.  Returns
+    the paths' launches (rank 0's)."""
+    import datetime
+
+    import torch.distributed as dist
+
     from ait_tpu_torch.parallel import launch
 
     t0 = time.time()
     paths, nccl = drive_parallel_nccl1(torch, np, dev, params)
-    ranks = launch.run_local(parallel_rank, 2, backend="gloo", device="cuda",
-                             timeout=600)
+    # leg_barriers' store, on a port it holds, as run_local's own
+    store = dist.TCPStore("127.0.0.1", 0, is_master=True,
+                          wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=600))
+    t1 = time.time()
+    ranks = launch.run_local(parallel_rank, 2, timeout=600,
+                             args=(store.port,))
+    run_s = time.time() - t1
+    del store
     r0 = ranks[0]
+    bars = [r["barriers"] for r in ranks]
+    log(f"run_local's store barrier ({BARRIER_N} in lockstep, 2 ranks on "
+        f"{[b['device'] for b in bars]}): median "
+        f"{[round(b['median_ms'], 4) for b in bars]} ms, largest "
+        f"{[round(b['max_ms'], 4) for b in bars]} ms a barrier; two a "
+        f"call; the call {run_s:.1f} s")
+    cards = [f"cuda:{r % torch.cuda.device_count()}" for r in range(2)]
+    if [b["device"] for b in bars] != cards:
+        fail(f"run_local without a device ran the ranks on "
+             f"{[b['device'] for b in bars]}, not the card")
     failed = [msg for r in ranks for leg in r.values()
               for msg in leg.get("failed", ())]
     log(f"parallel (2 ranks, gloo on one card): dp2 step (rank 0) "
