@@ -127,7 +127,9 @@ def write_cache(path: str, classes, records: List[ImageRecord],
                      for c, exs in cat_data.items()},
     }
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tmp = path + ".tmp"
+    # a name of this process's own: ranks that share a cache directory
+    # write it at once, and each os.replace must find its own file
+    tmp = f"{path}.{os.getpid()}.tmp"
     with open(tmp, "w") as f:
         json.dump(doc, f)
     os.replace(tmp, path)

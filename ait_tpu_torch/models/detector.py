@@ -56,6 +56,7 @@ from ait_tpu_torch.ops.anchors import shifted_anchors
 from ait_tpu_torch.ops.roi_align import roi_align
 from ait_tpu_torch.ops.roi_pool import roi_pool
 from ait_tpu_torch.parallel.mesh import axis_size
+from ait_tpu_torch.utils.profiling import annotate
 
 # torchvision normalization constants (blob.py:42-48), applied on the
 # device to uint8 inputs (data/transforms.py holds them for the host)
@@ -229,67 +230,79 @@ class AITDetector(nn.Module):
                     "training needs model.class_agnostic=True: the box loss "
                     "takes 4 columns, the class-specific head gives 8")
             drop = Dropout(c.model.t_dropout, generator)
-        image_feat = self.backbone(_to_model_input(image, self.dtype))
-        if pair_image_idx is not None:
-            image_feat = image_feat[pair_image_idx]
+        with annotate("ait:backbone.image"):
+            image_feat = self.backbone(_to_model_input(image, self.dtype))
+            if pair_image_idx is not None:
+                image_feat = image_feat[pair_image_idx]
         query_scale = None
-        if c.model.with_contextual_relation:
-            query_feat, stages = self.backbone(
-                _to_model_input(query, self.dtype), return_stages=True)
-            query_scale = self.contextual(stages)        # [B, 2048] f32
-        else:
-            query_feat = self.backbone(_to_model_input(query, self.dtype))
-        non_img, non_qry = self.coattention(image_feat, query_feat, drop)
+        with annotate("ait:backbone.query"):
+            if c.model.with_contextual_relation:
+                query_feat, stages = self.backbone(
+                    _to_model_input(query, self.dtype), return_stages=True)
+                query_scale = self.contextual(stages)    # [B, 2048] f32
+            else:
+                query_feat = self.backbone(_to_model_input(query, self.dtype))
+        with annotate("ait:coattention"):
+            non_img, non_qry = self.coattention(image_feat, query_feat, drop)
 
-        rpn_out = self.rpn(non_img)
-        fh, fw = non_img.shape[1], non_img.shape[2]
-        anchors = torch.from_numpy(shifted_anchors(
-            fh, fw, c.FEAT_STRIDE[0], ratios=c.ANCHOR_RATIOS,
-            scales=c.ANCHOR_SCALES)).to(non_img.device)
+        with annotate("ait:rpn"):
+            rpn_out = self.rpn(non_img)
+            fh, fw = non_img.shape[1], non_img.shape[2]
+            anchors = torch.from_numpy(shifted_anchors(
+                fh, fw, c.FEAT_STRIDE[0], ratios=c.ANCHOR_RATIOS,
+                scales=c.ANCHOR_SCALES)).to(non_img.device)
         tc = c.TRAIN if train else c.TEST
-        rois = proposal_layer(
-            rpn_out, anchors, im_info,
-            pre_nms_topk=tc.RPN_PRE_NMS_TOP_N,
-            post_nms_topk=tc.RPN_POST_NMS_TOP_N,
-            nms_thresh=tc.RPN_NMS_THRESH)
+        with annotate("ait:proposals"):
+            rois = proposal_layer(
+                rpn_out, anchors, im_info,
+                pre_nms_topk=tc.RPN_PRE_NMS_TOP_N,
+                post_nms_topk=tc.RPN_POST_NMS_TOP_N,
+                nms_thresh=tc.RPN_NMS_THRESH)
         if not train:
             return self.head(non_img, non_qry, rois, query_scale)
 
         t = c.TRAIN
-        at = anchor_targets(
-            anchors, gt_boxes, im_info, batch_size=t.RPN_BATCHSIZE,
-            fg_fraction=t.RPN_FG_FRACTION,
-            positive_overlap=t.RPN_POSITIVE_OVERLAP,
-            negative_overlap=t.RPN_NEGATIVE_OVERLAP,
-            clobber_positives=t.RPN_CLOBBER_POSITIVES, generator=generator)
-        cls_logits = rpn_out.cls_logits.permute(0, 1, 2, 4, 3)
-        cls_logits = cls_logits.reshape(b, -1, 2)         # (y, x, a) order
-        rpn_loss_cls = L.masked_cross_entropy(cls_logits, at.labels,
-                                              at.labels != -1)
-        deltas = rpn_out.bbox_deltas.float().reshape(b, -1, 4)
-        rpn_loss_box = L.smooth_l1_loss(
-            deltas, at.bbox_targets, at.inside_weights, at.outside_weights,
-            sigma=3.0, reduce_dims=(1, 2))
+        with annotate("ait:targets"):
+            at = anchor_targets(
+                anchors, gt_boxes, im_info, batch_size=t.RPN_BATCHSIZE,
+                fg_fraction=t.RPN_FG_FRACTION,
+                positive_overlap=t.RPN_POSITIVE_OVERLAP,
+                negative_overlap=t.RPN_NEGATIVE_OVERLAP,
+                clobber_positives=t.RPN_CLOBBER_POSITIVES,
+                generator=generator)
+        with annotate("ait:losses"):
+            cls_logits = rpn_out.cls_logits.permute(0, 1, 2, 4, 3)
+            cls_logits = cls_logits.reshape(b, -1, 2)     # (y, x, a) order
+            rpn_loss_cls = L.masked_cross_entropy(cls_logits, at.labels,
+                                                  at.labels != -1)
+            deltas = rpn_out.bbox_deltas.float().reshape(b, -1, 4)
+            rpn_loss_box = L.smooth_l1_loss(
+                deltas, at.bbox_targets, at.inside_weights,
+                at.outside_weights, sigma=3.0, reduce_dims=(1, 2))
 
-        pt = proposal_targets(
-            rois, gt_boxes, rois_per_image=t.BATCH_SIZE,
-            fg_fraction=t.FG_FRACTION, fg_thresh=t.FG_THRESH,
-            bg_thresh_hi=t.BG_THRESH_HI, bg_thresh_lo=t.BG_THRESH_LO,
-            bbox_normalize_means=t.BBOX_NORMALIZE_MEANS,
-            bbox_normalize_stds=t.BBOX_NORMALIZE_STDS,
-            bbox_inside_weights=t.BBOX_INSIDE_WEIGHTS, generator=generator)
+        with annotate("ait:targets"):
+            pt = proposal_targets(
+                rois, gt_boxes, rois_per_image=t.BATCH_SIZE,
+                fg_fraction=t.FG_FRACTION, fg_thresh=t.FG_THRESH,
+                bg_thresh_hi=t.BG_THRESH_HI, bg_thresh_lo=t.BG_THRESH_LO,
+                bbox_normalize_means=t.BBOX_NORMALIZE_MEANS,
+                bbox_normalize_stds=t.BBOX_NORMALIZE_STDS,
+                bbox_inside_weights=t.BBOX_INSIDE_WEIGHTS,
+                generator=generator)
         score, score_prob, bbox_pred = self._head(non_img, non_qry, pt.rois,
                                                   query_scale, drop)
         labels = pt.labels
-        rcnn_loss_cls = L.masked_cross_entropy(
-            score.reshape(-1, 2), labels.reshape(-1),
-            torch.ones_like(labels.reshape(-1), dtype=torch.bool))
-        margin_loss = 3.0 * L.margin_ranking_loss(score_prob, labels,
-                                                  t.MARGIN)
-        rcnn_loss_bbox = L.smooth_l1_loss(
-            bbox_pred, pt.bbox_targets.reshape(-1, 4),
-            pt.inside_weights.reshape(-1, 4),
-            pt.outside_weights.reshape(-1, 4), sigma=1.0, reduce_dims=(1,))
+        with annotate("ait:losses"):
+            rcnn_loss_cls = L.masked_cross_entropy(
+                score.reshape(-1, 2), labels.reshape(-1),
+                torch.ones_like(labels.reshape(-1), dtype=torch.bool))
+            margin_loss = 3.0 * L.margin_ranking_loss(score_prob, labels,
+                                                      t.MARGIN)
+            rcnn_loss_bbox = L.smooth_l1_loss(
+                bbox_pred, pt.bbox_targets.reshape(-1, 4),
+                pt.inside_weights.reshape(-1, 4),
+                pt.outside_weights.reshape(-1, 4), sigma=1.0,
+                reduce_dims=(1,))
         r = pt.rois.shape[1]
         return DetectorOut(pt.rois, score_prob.reshape(b, r, 1),
                            bbox_pred.reshape(b, r, -1), rpn_loss_cls,
@@ -302,38 +315,45 @@ class AITDetector(nn.Module):
         [B, 2048] f32 or None; drop: the training forward's dropout."""
         c = self.cfg
         b, num_props = rois.shape[0], rois.shape[1]
-        if c.POOLING_MODE == "pool":
-            props = roi_pool(non_img, rois[..., 1:5], out_size=c.POOLING_SIZE,
-                             spatial_scale=1.0 / c.FEAT_STRIDE[0])
-        else:
-            props = roi_align(non_img, rois[..., 1:5],
-                              out_size=c.POOLING_SIZE,
-                              spatial_scale=1.0 / c.FEAT_STRIDE[0],
-                              sampling_ratio=c.tpu.roi_sampling_ratio)
-        props = props.reshape((b * num_props,) + props.shape[2:])
+        with annotate("ait:roi_align"):
+            if c.POOLING_MODE == "pool":
+                props = roi_pool(non_img, rois[..., 1:5],
+                                 out_size=c.POOLING_SIZE,
+                                 spatial_scale=1.0 / c.FEAT_STRIDE[0])
+            else:
+                props = roi_align(non_img, rois[..., 1:5],
+                                  out_size=c.POOLING_SIZE,
+                                  spatial_scale=1.0 / c.FEAT_STRIDE[0],
+                                  sampling_ratio=c.tpu.roi_sampling_ratio)
+            props = props.reshape((b * num_props,) + props.shape[2:])
 
-        props = self.transformer(props, non_qry, drop)
-        props, qfeat = self.sk(props, non_qry)
-        if isinstance(self.top, VGGTop):
-            props_vec = self.top(props, drop)             # [B*R, 4096]
-            query_vec = self.top(qfeat, drop)             # [B, 4096]
-        else:
-            props_vec = self.top(props)                   # [B*R, 2048]
-            query_vec = self.top(qfeat)                   # [B, 2048]
-        if query_scale is not None:
-            # both streams scaled by the query's gate (detector.py:253-260)
-            s = query_scale.to(props_vec.dtype)
-            props_vec = (props_vec.reshape(b, num_props, -1) *
-                         s[:, None, :]).reshape(props_vec.shape)
-            query_vec = query_vec * s
+        with annotate("ait:transformer"):
+            props = self.transformer(props, non_qry, drop)
+        with annotate("ait:sknet"):
+            props, qfeat = self.sk(props, non_qry)
+        with annotate("ait:top"):
+            if isinstance(self.top, VGGTop):
+                props_vec = self.top(props, drop)         # [B*R, 4096]
+                query_vec = self.top(qfeat, drop)         # [B, 4096]
+            else:
+                props_vec = self.top(props)               # [B*R, 2048]
+                query_vec = self.top(qfeat)               # [B, 2048]
+        with annotate("ait:heads"):
+            if query_scale is not None:
+                # both streams scaled by the query's gate
+                # (detector.py:253-260)
+                s = query_scale.to(props_vec.dtype)
+                props_vec = (props_vec.reshape(b, num_props, -1) *
+                             s[:, None, :]).reshape(props_vec.shape)
+                query_vec = query_vec * s
 
-        bbox_pred = self.bbox_pred_head(props_vec).float()
-        d = props_vec.shape[-1]
-        props_mat = props_vec.reshape(b, num_props, d)
-        query_mat = query_vec[:, None, :].expand(b, num_props, d)
-        stack = torch.cat([props_mat, query_mat], dim=-1)
-        score = self.cls_score_1(self.cls_score_0(stack)).float()
-        return score, torch.softmax(score, dim=-1)[..., 1], bbox_pred
+            bbox_pred = self.bbox_pred_head(props_vec).float()
+            d = props_vec.shape[-1]
+            props_mat = props_vec.reshape(b, num_props, d)
+            query_mat = query_vec[:, None, :].expand(b, num_props, d)
+            stack = torch.cat([props_mat, query_mat], dim=-1)
+            score = self.cls_score_1(self.cls_score_0(stack)).float()
+            return score, torch.softmax(score, dim=-1)[..., 1], bbox_pred
 
     def head(self, non_img, non_qry, rois, query_scale=None) -> DetectorOut:
         """ROI Align (or pool) -> AIT transformer -> SKNet -> top ->

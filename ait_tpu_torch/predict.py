@@ -42,7 +42,7 @@ from ait_tpu_torch.evaluation import postprocess_detections
 from ait_tpu_torch.models import AITDetector
 from ait_tpu_torch.train import init_params, make_eval_step
 from ait_tpu_torch.train.checkpoint import CheckpointManager
-from ait_tpu_torch.utils import printer
+from ait_tpu_torch.utils import annotate, printer
 
 
 class OneShotPredictor:
@@ -56,6 +56,7 @@ class OneShotPredictor:
         self.model.to(self.device).eval()
         self._eval = make_eval_step(self.model)
         self.score_thresh = score_thresh
+        self.batches = 0        # batches served: the id of each one's span
 
     @classmethod
     def from_run(cls, run_dir: str, device=None,
@@ -105,20 +106,27 @@ class OneShotPredictor:
 
     @torch.inference_mode()
     def predict_prepared(self, canvas, query, im_info) -> List[np.ndarray]:
-        batch = {"image": self._tensor(canvas),
-                 "query": self._tensor(query),
-                 "im_info": self._tensor(im_info, torch.float32)}
-        out = self._eval(batch)
-        t = self.cfg.TEST
-        dets, valid = postprocess_detections(
-            out["rois"], out["cls_prob"], out["bbox_pred"], batch["im_info"],
-            nms_thresh=t.NMS, score_thresh=self.score_thresh,
-            max_per_image=t.MAX_PER_IMAGE,
-            bbox_normalize_means=self.cfg.TRAIN.BBOX_NORMALIZE_MEANS,
-            bbox_normalize_stds=self.cfg.TRAIN.BBOX_NORMALIZE_STDS)
-        dets = dets.cpu().numpy()
-        valid = valid.cpu().numpy()
-        return [dets[i][valid[i]] for i in range(dets.shape[0])]
+        with annotate("ait:predict", id=self.batches):
+            self.batches += 1
+            with annotate("ait:h2d"):
+                batch = {"image": self._tensor(canvas),
+                         "query": self._tensor(query),
+                         "im_info": self._tensor(im_info, torch.float32)}
+            with annotate("ait:forward"):
+                out = self._eval(batch)
+            t = self.cfg.TEST
+            with annotate("ait:postprocess"):
+                dets, valid = postprocess_detections(
+                    out["rois"], out["cls_prob"], out["bbox_pred"],
+                    batch["im_info"], nms_thresh=t.NMS,
+                    score_thresh=self.score_thresh,
+                    max_per_image=t.MAX_PER_IMAGE,
+                    bbox_normalize_means=self.cfg.TRAIN.BBOX_NORMALIZE_MEANS,
+                    bbox_normalize_stds=self.cfg.TRAIN.BBOX_NORMALIZE_STDS)
+            with annotate("ait:d2h"):
+                dets = dets.cpu().numpy()
+                valid = valid.cpu().numpy()
+            return [dets[i][valid[i]] for i in range(dets.shape[0])]
 
     def _prep_pair(self, image, query_image, query_box):
         """(canvas, query crop, im_info) of one raw pair, as ait_tpu's

@@ -35,6 +35,7 @@ from ait_tpu_torch.config import Config
 from ait_tpu_torch.device import resolve_device
 from ait_tpu_torch.models.detector import AITDetector
 from ait_tpu_torch.train.optim import clip_by_global_norm_, set_lr
+from ait_tpu_torch.utils.profiling import annotate
 
 LOSS_METRICS = {"loss": "total_loss", "rpn_cls": "rpn_loss_cls",
                 "rpn_box": "rpn_loss_box", "rcnn_cls": "rcnn_loss_cls",
@@ -92,9 +93,11 @@ def grads_and_metrics(model: AITDetector, batch: Dict[str, torch.Tensor],
     are means and the counts sums, all float32 (state.py:107-159)."""
 
     def one(b):
-        out = model(b["image"], b["query"], b["im_info"], b["gt_boxes"],
-                    b.get("num_boxes"), train=True, generator=generator)
-        out.total_loss.backward()
+        with annotate("ait:forward"):
+            out = model(b["image"], b["query"], b["im_info"], b["gt_boxes"],
+                        b.get("num_boxes"), train=True, generator=generator)
+        with annotate("ait:backward"):
+            out.total_loss.backward()
         fg = (out.rois_label != 0).sum()
         m = {k: getattr(out, f).detach() for k, f in LOSS_METRICS.items()}
         m.update(fg_cnt=fg, bg_cnt=out.rois_label.numel() - fg)
@@ -160,12 +163,16 @@ def make_train_step(model: AITDetector, optimizer: torch.optim.Optimizer,
     def train_step(batch: Dict[str, torch.Tensor],
                    generator: torch.Generator) -> Dict[str, torch.Tensor]:
         check_generator(generator)
-        optimizer.zero_grad(set_to_none=True)
-        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
-        metrics = grads_and_metrics(model, batch, generator, accum_steps)
-        apply_update(optimizer, params, schedule(train_step.step))
-        train_step.step += 1
-        return metrics
+        with annotate("ait:train_step", id=train_step.step):
+            optimizer.zero_grad(set_to_none=True)
+            with annotate("ait:h2d"):
+                batch = {k: torch.as_tensor(v).to(dev)
+                         for k, v in batch.items()}
+            metrics = grads_and_metrics(model, batch, generator, accum_steps)
+            with annotate("ait:optimizer"):
+                apply_update(optimizer, params, schedule(train_step.step))
+            train_step.step += 1
+            return metrics
 
     train_step.step = int(start_step)
     return train_step

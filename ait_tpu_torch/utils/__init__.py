@@ -3,7 +3,8 @@ ait_tpu/utils)."""
 
 from ait_tpu_torch.utils.logging import (AverageMeter, MetricWriter,
                                          ThroughputMeter, color, printer)
-from ait_tpu_torch.utils.profiling import annotate, device_trace, timed
+from ait_tpu_torch.utils.profiling import (annotate, count, device_trace,
+                                           recording)
 
 __all__ = ["AverageMeter", "MetricWriter", "ThroughputMeter", "color",
-           "printer", "annotate", "device_trace", "timed"]
+           "printer", "annotate", "count", "device_trace", "recording"]
