@@ -34,6 +34,7 @@ nothing.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -64,15 +65,24 @@ _NORM_MEAN = (0.485, 0.456, 0.406)
 _NORM_STD = (0.229, 0.224, 0.225)
 
 
+@functools.lru_cache(maxsize=None)
+def _norm_consts(device: torch.device, reps: int):
+    """(mean, std) float32 on `device`, each constant repeated `reps` times;
+    built once per device and plane count, since a copy from the host's
+    lists waits for the device.  Normal tensors, even when first asked for
+    inside inference_mode: training reads them too."""
+    with torch.inference_mode(False):
+        return (torch.tensor(_NORM_MEAN * reps, dtype=torch.float32,
+                             device=device),
+                torch.tensor(_NORM_STD * reps, dtype=torch.float32,
+                             device=device))
+
+
 def _to_model_input(x, dtype):
     """uint8 -> (x / 255 - mean) / std; a space-to-depth image carries 4
     pixel groups of 3 channels, so the constants repeat C / 3 times."""
     if x.dtype == torch.uint8:
-        reps = x.shape[-1] // 3
-        mean = torch.tensor(_NORM_MEAN * reps, dtype=torch.float32,
-                            device=x.device)
-        std = torch.tensor(_NORM_STD * reps, dtype=torch.float32,
-                           device=x.device)
+        mean, std = _norm_consts(x.device, x.shape[-1] // 3)
         x = (x.float() / 255.0 - mean) / std
     return x.to(dtype)
 

@@ -29,6 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ait_tpu_torch.utils.profiling import count
+
 Init = Callable[[torch.Generator, Tuple[int, ...]], torch.Tensor]
 
 # flax's truncated-normal variance scaling divides the stddev by the std of a
@@ -202,6 +204,10 @@ class FrozenBatchNorm(nn.Module):
             self.register_buffer(name, init(None, (features,)))
         self.eps = eps
 
+        # conv_bn's folded constants, by kernel form: plain attributes, so
+        # state_dict() and the weight bridge never see them
+        self.folded: Dict[object, tuple] = {}
+
     def forward(self, x):
         w = self.scale * torch.rsqrt(self.var + self.eps)
         b = self.bias - self.mean * w
@@ -209,6 +215,65 @@ class FrozenBatchNorm(nn.Module):
             return x + b.to(x.dtype)[None, :, None, None]
         return (x * w.to(x.dtype)[None, :, None, None] +
                 b.to(x.dtype)[None, :, None, None])
+
+
+def frozen_consts(conv: Conv, bn: FrozenBatchNorm,
+                  form: Callable = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(kernel, bias) of a bias-free conv followed by its FrozenBatchNorm
+    as one convolution: the kernel scaled per output channel by
+    w = scale * rsqrt(var + eps) in f32, as models.resnet.fold_frozen_bn
+    folds it (unscaled under BN_BIAS_ONLY, as the BN then ignores w), then
+    given `form` (the stem's space-to-depth kernel) and cast to conv's
+    dtype; the bias b = bias - mean * w in conv's dtype.
+
+    Cached on `bn` per form, and built again only when a source tensor
+    changes: the key is each source's storage and version counter (an
+    in-place optimizer step, load_state_dict, `.to()` or the fold each move
+    one), conv's dtype and BN_BIAS_ONLY.  An entry keeps its sources'
+    storage alive, so no other tensor can take their addresses.  Counted
+    as `frozen_consts.built` or `frozen_consts.reused`."""
+    src = (conv.weight, bn.scale, bn.var, bn.mean, bn.bias)
+    try:
+        key = (tuple((t.data_ptr(), t._version) for t in src),
+               conv.weight.device, conv.dtype, BN_BIAS_ONLY)
+    except RuntimeError:      # inference tensors keep no version: no cache
+        key = None
+    entry = bn.folded.get(form)
+    if key is not None and entry is not None and entry[0] == key:
+        count("frozen_consts.reused")
+        return entry[1], entry[2]
+    count("frozen_consts.built")
+    with torch.no_grad():
+        w = bn.scale * torch.rsqrt(bn.var + bn.eps)
+        kernel = conv.weight if BN_BIAS_ONLY else \
+            conv.weight * w[:, None, None, None]
+        if form is not None:
+            kernel = form(kernel)
+        kernel = kernel.to(conv.dtype)
+        bias = (bn.bias - bn.mean * w).to(conv.dtype)
+    if key is not None:
+        bn.folded[form] = (key, kernel, bias, tuple(t.detach() for t in src))
+    return kernel, bias
+
+
+def folds(conv: Conv) -> bool:
+    """Whether `conv_bn` runs conv's pair folded: with autograd off and
+    conv computing in a dtype narrower than the BN's float32 constants.
+    Where autograd records, training trains the unfolded parameterisation.
+    In float32 the fold would only reorder f32 roundings, and the unfolded
+    f32 program is the one held to ait_tpu's.  In bfloat16 it drops two of
+    the pair's three roundings and both passes over the activations."""
+    return not torch.is_grad_enabled() and torch.finfo(conv.dtype).bits < 32
+
+
+def conv_bn(conv: Conv, bn: FrozenBatchNorm, x):
+    """bn(conv(x)); where `folds(conv)`, one convolution on the constants of
+    `frozen_consts`, which no batch rebuilds."""
+    if not folds(conv):
+        return bn(conv(x))
+    kernel, bias = frozen_consts(conv, bn)
+    return F.conv2d(x.to(conv.dtype), kernel, bias, conv.stride,
+                    conv.padding, 1, conv.groups)
 
 
 class ZeroInitGroupNorm(nn.Module):

@@ -10,7 +10,13 @@ image the stem is the plain 7x7/2 convolution.  On the loader's
 space-to-depth image ([B, H/2, W/2, 12], `tpu.host_s2d`) it is the same
 convolution regrouped, as the JAX package runs it (resnet.py:110-118): the
 7x7 kernel zero-padded to 8x8 and regrouped into 4x4 over 12 planes, stride
-1, padding (2, 1); the 4x4 kernel is derived from `conv1` at each forward.
+1, padding (2, 1); the 4x4 kernel is derived from `conv1` at each forward
+(once where the pair folds: `layers.frozen_consts`).
+
+Where autograd does not record (eval, `inference_mode`, `no_grad`) and the
+convolutions compute in bfloat16, every conv + FrozenBN pair runs as one
+convolution on its folded kernel and bias, built once and kept on the
+device (`layers.conv_bn`); training, and float32, run the pairs unfolded.
 
 Public functions take and return NHWC tensors; inside, the convolutions run
 NCHW-shaped in the channels_last memory format.
@@ -29,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ait_tpu_torch.models.layers import (Conv, Dense, FrozenBatchNorm, Params,
+                                         conv_bn, folds, frozen_consts,
                                          max_pool_ceil, to_nchw, to_nhwc,
                                          uniform_init)
 
@@ -56,12 +63,12 @@ class Bottleneck(nn.Module):
         self.downsample = downsample
 
     def forward(self, x):
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = torch.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
+        y = torch.relu(conv_bn(self.conv1, self.bn1, x))
+        y = torch.relu(conv_bn(self.conv2, self.bn2, y))
+        y = conv_bn(self.conv3, self.bn3, y)
         residual = x
         if self.downsample:
-            residual = self.downsample_bn(self.downsample_conv(x))
+            residual = conv_bn(self.downsample_conv, self.downsample_bn, x)
         return torch.relu(y + residual)
 
 
@@ -118,11 +125,22 @@ class ResNetBackbone(nn.Module):
         w4 = s2d_stem_weight(conv.weight).to(conv.dtype)
         return F.conv2d(F.pad(x.to(conv.dtype), (2, 1, 2, 1)), w4)
 
+    def stem_bn(self, x):
+        """bn1(stem(x)), as `layers.conv_bn` runs a pair: folded, one
+        convolution on the cached kernel in the input's form."""
+        if not folds(self.conv1):
+            return self.bn1(self.stem(x))
+        if x.shape[1] != 12:
+            return conv_bn(self.conv1, self.bn1, x)
+        kernel, bias = frozen_consts(self.conv1, self.bn1, s2d_stem_weight)
+        return F.conv2d(F.pad(x.to(self.conv1.dtype), (2, 1, 2, 1)), kernel,
+                        bias)
+
     def forward(self, x, return_stages: bool = False):
         """[B, H, W, 3], or its space-to-depth form [B, H/2, W/2, 12], ->
         [B, H/16, W/16, 1024]; with return_stages also (layer1, layer2,
         layer3)'s outputs, NHWC."""
-        x = torch.relu(self.bn1(self.stem(to_nchw(x))))
+        x = torch.relu(self.stem_bn(to_nchw(x)))
         x = max_pool_ceil(x, 3, 2)
         x1 = self.layer1(x)
         x2 = self.layer2(x1)

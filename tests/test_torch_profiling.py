@@ -301,3 +301,39 @@ def test_a_span_holds_its_kernels_device_interval(gpu, tmp_path):
         start = base + k["ts"] * 1e3
         assert s.start_ns <= start <= start + k["dur"] * 1e3 <= s.end_ns
     assert max(k["dur"] for k in kernels) > 100.0     # the sleep ran, in us
+
+
+@pytest.mark.gpu
+def test_a_backbone_pass_makes_no_host_sync(gpu):
+    """After the first pass the backbone's constants are on the card (the
+    input's mean and std, every pair's folded kernel and bias): a pass on a
+    uint8 image in 12 planes and a query in 3 synchronizes nothing."""
+    from ait_tpu_torch.models.detector import _to_model_input
+    from ait_tpu_torch.models.resnet import ResNetBackbone
+
+    torch.manual_seed(0)
+    bb = ResNetBackbone(dtype=torch.bfloat16)
+    with torch.no_grad():
+        for p in bb.parameters():
+            p.normal_(0, 0.05)
+    bb.to(gpu)
+    image = torch.randint(0, 256, (2, 64, 80, 12), dtype=torch.uint8,
+                          device=gpu)
+    query = torch.randint(0, 256, (2, 128, 128, 3), dtype=torch.uint8,
+                          device=gpu)
+
+    def passes():
+        return [bb(_to_model_input(x, torch.bfloat16)) for x in (image, query)]
+
+    with torch.inference_mode():
+        passes()
+        torch.cuda.synchronize()
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            feats = passes()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    assert [tuple(f.shape) for f in feats] == [(2, 8, 10, 1024),
+                                                (2, 8, 8, 1024)]
+    assert all(bool(torch.isfinite(f.float()).all()) for f in feats)
