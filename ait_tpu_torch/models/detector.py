@@ -57,7 +57,7 @@ from ait_tpu_torch.ops.anchors import shifted_anchors
 from ait_tpu_torch.ops.roi_align import roi_align
 from ait_tpu_torch.ops.roi_pool import roi_pool
 from ait_tpu_torch.parallel.mesh import axis_size
-from ait_tpu_torch.utils.profiling import annotate
+from ait_tpu_torch.utils.profiling import annotate, count
 
 # torchvision normalization constants (blob.py:42-48), applied on the
 # device to uint8 inputs (data/transforms.py holds them for the host)
@@ -242,7 +242,10 @@ class AITDetector(nn.Module):
             drop = Dropout(c.model.t_dropout, generator)
         with annotate("ait:backbone.image"):
             image_feat = self.backbone(_to_model_input(image, self.dtype))
-            if pair_image_idx is not None:
+        if pair_image_idx is not None:
+            with annotate("ait:shots.gather"):
+                count("fused_shots.images", image.shape[0])
+                count("fused_shots.pairs", b)
                 image_feat = image_feat[pair_image_idx]
         query_scale = None
         with annotate("ait:backbone.query"):

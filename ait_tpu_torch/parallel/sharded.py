@@ -3,7 +3,8 @@ of ait_tpu/parallel/sharded.py).
 
 Every rank runs the whole step, the kernels included, on its own rows of
 the global batch (the rows `shard_batch` or the loader's `process_index`
-give it), then ONE `fused_pmean` of the gradients and the metrics per dtype,
+give it), then ONE `fused_pmean` of the gradients and the metrics per dtype
+(the span `ait:allreduce`, its bytes counted as `allreduce.bytes`),
 where the reference's DataParallel gathered and meaned the losses
 (trainval_net_voc.py:391-395).  Not one all-reduce a leaf (154 for the
 flagship), and not DDP's buckets: the single reduction keeps the JAX
@@ -29,6 +30,7 @@ from ait_tpu_torch.parallel.mesh import axis_index, axis_size
 from ait_tpu_torch.parallel.tp import fused_allreduce, tp_psum_grads
 from ait_tpu_torch.train.state import (apply_update, check_generator,
                                        grads_and_metrics, make_eval_step)
+from ait_tpu_torch.utils.profiling import annotate, count, is_recording
 
 # golden-ratio stride between the data ranks' seeds
 _SEED_STRIDE = 0x9E3779B97F4A7C15
@@ -92,7 +94,12 @@ def make_sharded_train_step(model, optimizer: torch.optim.Optimizer,
             metrics = {k: v.float().clone() for k, v in metrics.items()}
             grads = [p.grad for p in model.parameters()
                      if p.grad is not None]
-            fused_pmean(grads + list(metrics.values()), group)
+            reduced = grads + list(metrics.values())
+            with annotate("ait:allreduce"):
+                if is_recording():
+                    count("allreduce.bytes", sum(
+                        t.numel() * t.element_size() for t in reduced))
+                fused_pmean(reduced, group)
         apply_update(optimizer, params, schedule(train_step.step))
         train_step.step += 1
         return metrics

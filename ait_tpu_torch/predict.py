@@ -17,9 +17,11 @@ the query as the loader does (data/transforms.py), then run
 canvas [B, 608, 800, 3] uint8 RGB (the image resized, placed top-left, the
 rest filled with the mean pixel `CANVAS_FILL` = (124, 116, 104), which
 normalizes to ~0) or its space-to-depth form [B, 304, 400, 12], query crops
-[B, 128, 128, 3] uint8 and im_info [B, 3] = (h, w, scale).  Each returns one
-[N, 5] (x1, y1, x2, y2, score) float32 array per pair, in original image
-coordinates.
+[B, 128, 128, 3] uint8 and im_info [B, 3] = (h, w, scale); or, as
+test_net's `--fuse_shots` serves A shots of each image, query crops
+[U, A, 128, 128, 3] with the U canvases and im_info rows they belong to.
+Each returns one [N, 5] (x1, y1, x2, y2, score) float32 array per pair, in
+original image coordinates.
 """
 
 from __future__ import annotations
@@ -40,7 +42,8 @@ from ait_tpu_torch.data.transforms import (CANVAS_FILL,  # noqa: F401
 from ait_tpu_torch.device import resolve_device
 from ait_tpu_torch.evaluation import postprocess_detections
 from ait_tpu_torch.models import AITDetector
-from ait_tpu_torch.train import init_params, make_eval_step
+from ait_tpu_torch.train import (init_params, make_eval_step,
+                                 make_fused_eval_step)
 from ait_tpu_torch.train.checkpoint import CheckpointManager
 from ait_tpu_torch.utils import annotate, printer
 
@@ -55,6 +58,7 @@ class OneShotPredictor:
         self.model.load_state_dict(state_dict)
         self.model.to(self.device).eval()
         self._eval = make_eval_step(self.model)
+        self._fused = make_fused_eval_step(self.model)
         self.score_thresh = score_thresh
         self.batches = 0        # batches served: the id of each one's span
 
@@ -106,6 +110,11 @@ class OneShotPredictor:
 
     @torch.inference_mode()
     def predict_prepared(self, canvas, query, im_info) -> List[np.ndarray]:
+        """A 4-D query [B, q, q, 3] pairs row b of canvas and im_info with
+        crop b.  A 5-D query [U, A, q, q, 3] holds A shots of each of the U
+        images of canvas and im_info: the shot-fused step runs the image
+        backbone once an image, and the U * A arrays come back pair-major,
+        shot a of image u at u * A + a."""
         with annotate("ait:predict", id=self.batches):
             self.batches += 1
             with annotate("ait:h2d"):
@@ -113,12 +122,17 @@ class OneShotPredictor:
                          "query": self._tensor(query),
                          "im_info": self._tensor(im_info, torch.float32)}
             with annotate("ait:forward"):
-                out = self._eval(batch)
+                if batch["query"].dim() == 5:
+                    out = self._fused(batch)
+                    info = out["im_info"]      # repeated per shot
+                else:
+                    out = self._eval(batch)
+                    info = batch["im_info"]
             t = self.cfg.TEST
             with annotate("ait:postprocess"):
                 dets, valid = postprocess_detections(
-                    out["rois"], out["cls_prob"], out["bbox_pred"],
-                    batch["im_info"], nms_thresh=t.NMS,
+                    out["rois"], out["cls_prob"], out["bbox_pred"], info,
+                    nms_thresh=t.NMS,
                     score_thresh=self.score_thresh,
                     max_per_image=t.MAX_PER_IMAGE,
                     bbox_normalize_means=self.cfg.TRAIN.BBOX_NORMALIZE_MEANS,

@@ -149,6 +149,12 @@ def count(name: str, n: int = 1) -> None:
         rec.count(name, n)
 
 
+def is_recording() -> bool:
+    """Whether a recording is open: a count that costs work to compute is
+    computed only then."""
+    return _record is not None
+
+
 @contextlib.contextmanager
 def recording() -> Iterator[Record]:
     """Turn the recorder on for the block; yields its Record."""

@@ -8,7 +8,8 @@ CPU (parallel/launch.py, one intra-op thread a rank):
   generator (losses and every parameter after each step), and the sharded
   eval step to make_eval_step;
 * dp2 (1 image a rank, t_dropout 0.1): every rank's parameters bitwise
-  equal after the step; the reduced gradients within 1e-6 of each leaf's
+  equal after the step; its one `ait:allreduce` span a rank, with the bytes
+  reduced counted; the reduced gradients within 1e-6 of each leaf's
   max |plain| of the mean of grads_and_metrics on each half under that
   half's derived generator (computed on rank 0), the losses the mean and
   fg_cnt / bg_cnt the sums of the halves';
@@ -50,6 +51,16 @@ def test_dp2_metrics_mean_losses_and_sum_counts(dp2):
     assert counts["fg_cnt"][0] + counts["bg_cnt"][0] == 2 * 8
     for k, (got, want) in losses.items():
         assert np.isfinite(got) and abs(got - want) <= 1e-6 * abs(want), k
+
+
+def test_dp2_records_one_allreduce_span_a_step(dp2):
+    """Each rank's step records `ait:allreduce` once, its `allreduce.bytes`
+    the bytes of the gradients and metrics it reduces."""
+    for rank in range(2):
+        spans, reduced = dp2[rank][2]
+        got = [counts for name, counts in spans if name == "ait:allreduce"]
+        assert got == [{"allreduce.bytes": reduced}], spans
+        assert reduced > 4 * 10 ** 6
 
 
 def test_dp2_eval_equals_eval_of_each_image():

@@ -118,10 +118,10 @@ def test_off_path_records_nothing_and_shares_one_context(monkeypatch):
         count("host_syncs")
         with annotate("ait:z"):
             pass
-    assert profiling._record is None
+    assert profiling._record is None and not profiling.is_recording()
     monkeypatch.undo()
     with recording() as rec:
-        pass
+        assert profiling.is_recording()
     assert rec.spans == [] and rec.counts == {}
     assert annotate("ait:x") is a
 

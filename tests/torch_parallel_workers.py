@@ -32,6 +32,7 @@ from ait_tpu_torch.parallel.sharded import (fused_pmean,
 from ait_tpu_torch.train import (grads_and_metrics, init_weights,
                                  lr_schedule, make_eval_step, make_optimizer,
                                  make_train_step)
+from ait_tpu_torch.utils.profiling import recording
 
 H, W = 96, 128                    # the tiny canvas of the port's tests
 
@@ -215,10 +216,11 @@ def dp_world1(rank, world, dev):
 
 
 def dp2(rank, world, dev):
-    """One dp2 sharded train step (t_dropout 0.1, 1 image a rank): the
-    params' digest of every rank, and on rank 0 the reduced gradients and
-    metrics against the mean of grads_and_metrics on each half under that
-    half's derived generator, computed here."""
+    """One dp2 sharded train step (t_dropout 0.1, 1 image a rank), recorded:
+    the params' digest of every rank, this rank's recorded spans and
+    counts against the bytes it reduces, and on rank 0 the reduced
+    gradients and metrics against the mean of grads_and_metrics on each
+    half under that half's derived generator, computed here."""
     cfg = tiny_cfg(t_dropout=0.1)
     mesh = make_mesh(world)
     model = tiny_model(cfg, mesh)
@@ -226,10 +228,15 @@ def dp2(rank, world, dev):
     batch = tiny_batch(2, seed=3)
     gen = torch.Generator().manual_seed(11)
     start = gen.get_state()
-    metrics = step(shard_batch(batch, mesh), gen)
+    with recording() as rec:
+        metrics = step(shard_batch(batch, mesh), gen)
+    reduced = sum(p.grad.numel() * p.grad.element_size()
+                  for p in model.parameters() if p.grad is not None)
+    reduced += sum(v.numel() * v.element_size() for v in metrics.values())
+    recorded = ([(s.name, dict(s.counts)) for s in rec.spans], reduced)
     digests = allgather_object(digest(model))
     if rank:
-        return digests, None
+        return digests, None, recorded
     got = {k: p.grad.clone() for k, p in model.named_parameters()
            if p.grad is not None}
     ref = tiny_model(cfg).train()
@@ -249,7 +256,8 @@ def dp2(rank, world, dev):
     losses = {k: (float(metrics[k]),
                   float(sum(h[1][k] for h in halves)) / world)
               for k in metrics if k not in counts}
-    return digests, (errs, counts, losses, sorted(got) == sorted(want))
+    return digests, (errs, counts, losses, sorted(got) == sorted(want)), \
+        recorded
 
 
 def dp2_eval(rank, world, dev):
