@@ -56,6 +56,12 @@
    * Philox's bound term: one Philox4x32-10 call's instructions counted in
      the posln library's SASS, at the int32 issue rate (64 a clock per SM
      on compute capability 9.0) x the SMs x nvidia-smi's SM clock.
+   * ROI Align (csrc/roi_align.cu, check_roi_align) at the three serving
+     cells' shapes (B x 300 rois on 38 x 50, B x 1000 on 50 x 68, bf16; COCO's
+     f32 map): within one rounding of the plain version computed in f32 on
+     the CPU, no farther from it than the bf16 plain version, its device
+     time beside the plain version's and the bound (the output written and
+     each map read once); every serving slice launches it once a forward.
    * the tiled attention (csrc/sh_attention_general.cu, check_attention_
      general) at the co-attention's two shapes and two 65-128 token shapes
      in every mode against the plain versions; at the co-attention's
@@ -418,6 +424,92 @@ def nms_walk(keep, n, cap):
         tiles.append(walked)
         tests.append(count)
     return tiles, tests
+
+
+# ROI Align at the serving cells' shapes: cell, the map
+# (canvas / 16), rois an image, the map's dtype (COCO's non-local
+# co-attention hands ROI Align an f32 map)
+ROI_ALIGN_CELLS = (("res50_serve_b8", 38, 50, 300, "bfloat16"),
+                   ("res101ls_serve_b8", 50, 68, 1000, "bfloat16"),
+                   ("coco_nonlocal_serve_b8", 38, 50, 300, "float32"))
+
+
+def roi_align_rois(torch, hh, ww, n, seed):
+    """B images of n proposal-like rois: the map's 9 anchors a cell
+    decoded with N(0, 0.05) deltas, clipped to the canvas, n drawn at
+    random an image, and the first roi of the last image zero (padding)."""
+    from ait_tpu_torch.ops import anchors, boxes as box_ops
+
+    anc = torch.from_numpy(anchors.shifted_anchors(hh, ww, FEAT_STRIDE))
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    hw = torch.tensor([hh * FEAT_STRIDE, ww * FEAT_STRIDE],
+                      dtype=torch.float32)
+    out = []
+    for _ in range(B):
+        deltas = torch.randn(anc.shape, generator=g) * 0.05
+        props = box_ops.clip_boxes(box_ops.bbox_transform_inv(anc, deltas),
+                                   hw)
+        out.append(props[torch.randperm(anc.shape[0], generator=g)[:n]])
+    rois = torch.stack(out)
+    rois[-1, 0] = 0.0
+    return rois
+
+
+def check_roi_align(torch, dev):
+    """csrc/roi_align.cu at each serving cell's shape, B images, 1024
+    channels: within one rounding of the map's dtype of the plain version
+    computed in f32 on the CPU (2^-8 of |value| in bf16, beyond 2^-14 of
+    the sum of |terms| for the f32 sums) and, in bf16, no farther from it
+    than the bf16 plain version; the device ms of the kernel and of the
+    plain version (torch.profiler), and the bound: the output written
+    plus one read of each map, at 3.35 TB/s."""
+    from ait_tpu_torch.ops import roi_align as ra
+
+    res = {}
+    for cell, hh, ww, n, dt in ROI_ALIGN_CELLS:
+        dtype = getattr(torch, dt)
+        g = torch.Generator().manual_seed(hh * ww)
+        feat = torch.randn(B, hh, ww, 1024, generator=g).to(dev, dtype)
+        rois = roi_align_rois(torch, hh, ww, n, hh).to(dev)
+        before = ra.roi_align_cuda.launches
+        with torch.inference_mode():
+            got = ra.roi_align(feat, rois)
+            if ra.roi_align_cuda.launches != before + 1:
+                fail(f"roi_align {cell}: the serving call did not launch "
+                     "the kernel once")
+            # on the CPU: a CUDA tensor divides by out_size as a product
+            # with its f32 reciprocal, which can move a tap
+            f32, cpu_rois = feat.float().cpu(), rois.cpu()
+            ref = ra.roi_align_reference(f32, cpu_rois).to(dev)
+            mag = ra.roi_align_reference(f32.abs(), cpu_rois).to(dev)
+            del f32
+            err = (got.float() - ref).abs()
+            half_ulp = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
+            excess = (err - half_ulp * ref.abs() - 2.0 ** -14 * mag).max()
+            plain = ra.roi_align_reference(feat, rois)
+            plain_err = (plain.float() - ref).abs().max().item()
+            del ref, mag
+            kernel_ms = device_ms(lambda: ra.roi_align_cuda(feat, rois))
+            plain_ms = device_ms(lambda: ra.roi_align_reference(feat, rois),
+                                 iters=5)
+        if excess.item() > 0 or (dtype == torch.bfloat16 and
+                                 err.max().item() > plain_err):
+            fail(f"roi_align {cell}: max error {err.max().item():.3e} "
+                 f"(beyond its bound by {excess.item():.3e}; the plain "
+                 f"version's {plain_err:.3e})")
+        nbytes = (got.numel() * got.element_size() +
+                  feat.numel() * feat.element_size())
+        bound_ms, by = bound(nbytes, 0.0, 1.0)
+        res[cell] = {"ms": kernel_ms, "bound_ms": bound_ms, "bound_by": by,
+                     "plain_ms": plain_ms, "max_abs_err": err.max().item(),
+                     "plain_max_abs_err": plain_err,
+                     "shape": [B, n, hh, ww, 1024, dt]}
+        log(f"roi_align {cell} ({B} x {n} rois on {hh} x {ww} x 1024 "
+            f"{dt}): kernel {kernel_ms:.4f} ms on the device, bound "
+            f"{bound_ms:.4f} ms ({by}: {100 * bound_ms / kernel_ms:.1f}%), "
+            f"plain {plain_ms:.3f} ms; max abs err vs f32 "
+            f"{err.max().item():.3e} (plain {plain_err:.3e})")
+    return res
 
 
 def check_nms(torch, dev, shapes):
@@ -2243,13 +2335,17 @@ def read_counts(expected, runs, what):
 def plain_path():
     """Route every kernel wrapper to its plain version (to hold the whole
     kernel path against the plain path on the same card); the model and
-    the autograd Functions look the wrappers up at call time."""
+    the autograd Functions look the wrappers up at call time.  Inside it
+    the wrappers' `launches` counters are not there to read, and a route
+    counter such as `roi_align.kernel_rois` counts the calls routed to the
+    kernel's name, which then run the plain version."""
     from ait_tpu_torch.ops import (dropout_masks as dm, fused_attention as fa,
-                                   fused_ffn as ff, philox)
+                                   fused_ffn as ff, philox, roi_align as ra)
 
     nms = importlib.import_module("ait_tpu_torch.ops.nms")
 
-    swaps = [(fa, "fused_sh_attention", fa.sh_attention_reference),
+    swaps = [(ra, "roi_align_cuda", ra.roi_align_reference),
+             (fa, "fused_sh_attention", fa.sh_attention_reference),
              (fa, "fused_sh_attention_saved", fa.sh_attention_saved_reference),
              (fa, "fused_sh_attention_bwd", fa.sh_attention_bwd_reference),
              (ff, "fused_ffn", ff.ffn_reference),
@@ -2307,7 +2403,9 @@ def make_weights(torch):
 def drive_slice(torch, np, dev, cfg, state, batches=BATCHES,
                 per_forward=PER_FORWARD, what="default"):
     """One warm-up and `batches` timed batches of B requests through
-    OneShotPredictor, under whatever policies the caller turned on."""
+    OneShotPredictor, under whatever policies the caller turned on; ROI
+    Align launches its kernel once a forward."""
+    from ait_tpu_torch.ops import roi_align as ra
     from ait_tpu_torch.predict import OneShotPredictor
 
     predictor = OneShotPredictor(cfg, state, device=dev)
@@ -2317,6 +2415,7 @@ def drive_slice(torch, np, dev, cfg, state, batches=BATCHES,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()
+    roi_launches = ra.roi_align_cuda.launches
     times = []
     for i, req in enumerate(requests):
         torch.cuda.synchronize()
@@ -2327,6 +2426,10 @@ def drive_slice(torch, np, dev, cfg, state, batches=BATCHES,
             times.append((time.perf_counter() - t0) * 1e3)
         check_dets(np, dets, req[2], cfg)
     launches = read_counts(per_forward, len(requests), "forwards")
+    if ra.roi_align_cuda.launches - roi_launches != len(requests):
+        fail(f"slice ({what}): ROI Align launched its kernel "
+             f"{ra.roi_align_cuda.launches - roi_launches} times in "
+             f"{len(requests)} forwards, expected once a forward")
     log(f"slice ({what}): {len(requests)} batches of {B} requests at "
         f"{cfg.tpu.image_size[0]}x{cfg.tpu.image_size[1]}; launches "
         f"{launches}")
@@ -4842,7 +4945,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.time()
     sources = ["nms", "sh_attention", "sh_attention_general", "ffn", "posln",
-               "gemm", "dropout", "ait_loader", "ait_native"]
+               "gemm", "dropout", "roi_align", "ait_loader", "ait_native"]
     _build.build_all(sources)
     log(f"built {sources} in {time.time() - t0:.1f} s")
     check_posln_library(torch)
@@ -4879,6 +4982,7 @@ def main() -> int:
         results[f"sh_attention_general_{k}"]["hmma"] = hgmma[
             "sh_attention_general_hmma"]
     results["ffn_fwd"]["hgmma"] = hgmma["ffn"]
+    roi_align = check_roi_align(torch, dev)
 
     cfg, params, state = make_weights(torch)
     paths = {"eval": drive_slice(torch, np, dev, cfg, state)}
@@ -4983,6 +5087,12 @@ def main() -> int:
     line["kernels"][-1].update(
         fma_launches=sum(v["gemm_fma"] for v in paths.values()),
         fma_launches_by_path={k: v["gemm_fma"] for k, v in paths.items()})
+    # not in kernel_wrappers(): no TPU kernel, and its own launch checks
+    # (check_roi_align, drive_slice)
+    line["roi_align"] = {"route": "cuda",
+                         "source": "ait_tpu_torch/csrc/roi_align.cu",
+                         "replaces": None, "library_ms": None,
+                         "cells": roi_align}
     log(smi)
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

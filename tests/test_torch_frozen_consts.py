@@ -207,11 +207,15 @@ def test_the_detectors_second_forward_rebuilds_nothing():
     with torch.inference_mode():
         with recording() as rec:
             first = model(*args)
+        # ROI Align of CPU tensors takes its plain version, one count a roi
+        rois = {"roi_align.plain_rois": first.rois.shape[0] *
+                first.rois.shape[1]}
         assert _all_counts(rec) == {"frozen_consts.built": pairs + 1,
-                                    "frozen_consts.reused": n - pairs - 1}
+                                    "frozen_consts.reused": n - pairs - 1,
+                                    **rois}
         with recording() as rec:
             again = model(*args)
-        assert _all_counts(rec) == {"frozen_consts.reused": n}
+        assert _all_counts(rec) == {"frozen_consts.reused": n, **rois}
     for a, b in zip(first[:3], again[:3]):
         assert torch.equal(a, b)
     assert list(model.state_dict()) == keys     # the cache is no state
